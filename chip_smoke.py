@@ -1,0 +1,396 @@
+#!/usr/bin/env python3
+"""Smoke run of tgt_torch on one NVIDIA card (built for the H100).
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run (non-zero exit) on error:
+
+1. Environment and build: versions, the card's name and power limit, and
+   the build of every CUDA kernel of the served path from the sources in
+   this checkout (``nvcc`` for sm_90a).
+2. Kernel against plain: ``triplet_dense_fwd`` against its plain PyTorch
+   version on the card at b=16, N in {24, 40, 48, 56}, edge width 256,
+   16 triplet heads; gated and ungated; bf16 and f32; with a padded
+   sample, a fully masked sample and a head whose bias sits 300 below the
+   rest. Tolerance max|diff| <= 1e-4 max|ref| in f32, 1e-2 max|ref| in bf16
+   (bf16 output rounding is 2^-8). One JSON line per case with the kernel's
+   and the plain version's times (CUDA events, median of 20) and the bound.
+3. Serving at full width: the flagship TGT-At distance model of
+   configs/pcqm/tgt_at_200m/dist_pred/tgt_at_dp_rdkit.yaml (24 layers,
+   node 768, edge 256, 64 heads, 16 triplet heads, 256 bins, bf16) with
+   weights from a seed, on the card; three timed requests of 64 new
+   molecules, then one of 16 per bucket, through
+   ``DistancePredictor.predict`` and ``predict_bins`` with batch_size 16
+   and 10 MC-dropout draws. Checks finite outputs, bins probabilities that
+   sum to 1, shapes, that every bucket was served, and that every
+   triplet-attention core of every draw ran the kernel (48 launches per
+   forward). Then one
+   device batch per bucket in deterministic f32 through the kernel and
+   through the plain path: logits agree to 1e-3 max|ref|.
+4. The kernels line, then ``{"ok": true, "device": {...}}`` as the last line.
+
+It needs no network and imports nothing of JAX; without a CUDA device, or
+without the rest of the repository beside it, it exits non-zero and prints
+no result.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+FLAGSHIP_YAML = os.path.join(
+    REPO, "configs", "pcqm", "tgt_at_200m", "dist_pred", "tgt_at_dp_rdkit.yaml")
+
+# H100 SXM data-sheet peaks (dense): device memory, and the rate of the
+# operations' type (bf16 inputs: tensor cores; f32: the f32 units)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+MODEL_TOL = 1e-3
+
+
+def fail(msg: str) -> None:
+    raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 20) -> float:
+    """Median of ``reps`` single-call times from CUDA events, after warm-up."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+# -- phase 2: kernel against plain ------------------------------------------
+
+def core_inputs(b, n, w, h, dtype, gated, gen):
+    """q (pre-scaled), k, v, bias, gate of one direction: sample 1 padded,
+    sample 2 fully masked, head 5's bias 300 below the other heads'."""
+    d = w // h
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    q = randn(b, n, n, d, h) * d ** -0.5
+    k, v = randn(b, n, n, d, h), randn(b, n, n, d, h)
+    node_mask = torch.ones(b, n, device="cuda")
+    node_mask[1, n - 7:] = 0
+    node_mask[2] = 0
+    pair = node_mask[:, :, None] * node_mask[:, None, :]
+    mask = ((1.0 - pair) * -1e9)[..., None]
+    bias = randn(b, n, n, h) + mask
+    bias[..., 5] -= 300.0
+    gate = randn(b, n, n, h) + mask if gated else None
+    return tuple(None if x is None else x.to(dtype)
+                 for x in (q, k, v, bias, gate))
+
+
+def bound(inputs, out, dtype):
+    """Least time (ms) for the function on this card: each input read and
+    the output written once over the memory rate, against the QK and AV
+    multiply-adds (4*d per (b, j, i, k, h)) over the dtype's peak rate."""
+    q = inputs[0]
+    b, n, _, d, h = q.shape
+    nbytes = sum(x.numel() * x.element_size() for x in inputs if x is not None)
+    nbytes += out.numel() * out.element_size()
+    flops = 4.0 * b * n ** 3 * h * d
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_phase(card):
+    from tgt_torch.ops.kernels.triplet_dense import (
+        triplet_dense_fwd, triplet_dense_fwd_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flagship = None
+    for n in (24, 40, 48, 56):
+        for dtype in (torch.bfloat16, torch.float32):
+            for gated in (True, False):
+                inputs = core_inputs(16, n, 256, 16, dtype, gated, gen)
+                out = triplet_dense_fwd(*inputs)
+                torch.cuda.synchronize()
+                ref = triplet_dense_fwd_reference(*inputs)
+                torch.cuda.synchronize()
+                err = float((out.float() - ref.float()).abs().max())
+                scale = float(ref.float().abs().max())
+                ok = (bool(torch.isfinite(out.float()).all())
+                      and err <= KERNEL_TOL[dtype] * scale)
+                ms = time_ms(lambda: triplet_dense_fwd(*inputs))
+                plain_ms = time_ms(lambda: triplet_dense_fwd_reference(*inputs))
+                bound_ms, bound_by = bound(inputs, out, dtype)
+                row = {"case": "triplet_dense_fwd", "b": 16, "n": n,
+                       "edge_width": 256, "heads": 16,
+                       "dtype": str(dtype).replace("torch.", ""),
+                       "gated": gated, "max_abs_err": err, "max_abs_ref": scale,
+                       "tol": KERNEL_TOL[dtype] * scale, "ok": ok, "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": None, "card": card}
+                print(json.dumps(row), flush=True)
+                if not ok:
+                    fail(f"kernel disagrees with its plain version: {row}")
+                if n == 48 and dtype == torch.bfloat16 and gated:
+                    flagship = row
+                del inputs, out, ref
+    return flagship
+
+
+# -- phase 3: serving ---------------------------------------------------------
+
+def random_molecule(rs: np.random.RandomState, n: int) -> dict:
+    """A connected molecule-like graph (spanning tree + ~15% ring bonds)
+    with OGB-style integer features and coordinates."""
+    edges = {(int(rs.randint(0, j)), j) for j in range(1, n)}
+    for _ in range(int(0.15 * n)):
+        i, j = rs.randint(0, n, 2)
+        if i != j:
+            edges.add((int(min(i, j)), int(max(i, j))))
+    edges = sorted(edges)
+    both = np.array(edges + [(j, i) for i, j in edges], np.int64).reshape(-1, 2)
+    ef = rs.randint(0, 5, size=(len(edges), 3)).astype(np.int16)
+    return {"num_nodes": n, "edges": both,
+            "node_features": rs.randint(0, 60, size=(n, 9)).astype(np.int16),
+            "edge_features": np.concatenate([ef, ef]),
+            "rdkit_coords": (rs.randn(n, 3) * 1.5).astype(np.float32)}
+
+
+def request(rs: np.random.RandomState, k: int = 64) -> list:
+    """48 sizes drawn as round(exp(N(2.6, 0.4))) clipped to [4, 56], as
+    benchmarks/serving_bench.py draws them, plus 16 uniform in 33..56."""
+    sizes = np.clip(np.round(np.exp(rs.normal(2.6, 0.4, size=k - 16))), 4, 56)
+    sizes = np.concatenate([sizes, rs.randint(33, 57, size=16)]).astype(int)
+    return [random_molecule(rs, int(n)) for n in sizes]
+
+
+def bucket_sweep(rs: np.random.RandomState, buckets, k: int) -> list:
+    """``k`` molecules sized within each bucket's range, so that the
+    size-sorted device batches of ``k`` land one on each bucket."""
+    mols, lo = [], 0
+    for nb in buckets:
+        mols += [random_molecule(rs, int(n))
+                 for n in rs.randint(max(lo + 1, 4), nb + 1, size=k)]
+        lo = nb
+    return mols
+
+
+def device_batch(mols, buckets):
+    """One collated feed on the card, as the predictor builds it."""
+    from tgt_torch.data.collate import add_edge_mask, padded_collate
+    from tgt_torch.data.structural import AddStructuralData
+    from tgt_torch.schemes.commons import coords2dist
+
+    rows = []
+    for m in mols:
+        row = AddStructuralData()(dict(m))
+        row["node_mask"] = np.ones(row["num_nodes"], np.uint8)
+        rows.append(row)
+    batch = add_edge_mask(padded_collate(rows, buckets=buckets))
+    feed = {k: torch.from_numpy(np.ascontiguousarray(batch[k])).cuda()
+            for k in ("node_features", "distance_matrix", "feature_matrix",
+                      "node_mask", "edge_mask")}
+    feed["dist_input"] = coords2dist(
+        torch.from_numpy(batch["rdkit_coords"]).cuda().float())
+    return feed
+
+
+def serving_phase(card):
+    from tgt_torch.core.config import load_yaml
+    from tgt_torch.data.collate import pick_bucket
+    from tgt_torch.models import make_model
+    from tgt_torch.models.heads import DistanceModel
+    from tgt_torch.ops.kernels.triplet_dense import triplet_dense_fwd
+    from tgt_torch.schemes import get_scheme
+    from tgt_torch.serving import DistancePredictor
+
+    raw = load_yaml(FLAGSHIP_YAML)
+    scheme = get_scheme(raw["scheme"])(raw, command="evaluate")
+    cfg = scheme.model_cfg
+    buckets = tuple(scheme.cfg.buckets)
+    mc, bs = scheme.cfg.evaluation_samples, 16
+    t0 = time.time()
+    model = make_model("distance", cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(json.dumps({"model": os.path.relpath(FLAGSHIP_YAML, REPO),
+                      "params": n_params, "model_height": cfg.model_height,
+                      "node_width": cfg.node_width,
+                      "edge_width": cfg.edge_width,
+                      "triplet_heads": cfg.triplet_heads,
+                      "num_dist_bins": cfg.num_dist_bins,
+                      "compute_dtype": cfg.compute_dtype,
+                      "use_pallas": cfg.use_pallas, "mc_samples": mc,
+                      "batch_size": bs, "buckets": list(buckets),
+                      "init_s": time.time() - t0}), flush=True)
+    pred = DistancePredictor(model, cfg, mc_samples=mc, batch_size=bs,
+                             buckets=buckets, seed=0, device="cuda")
+    per_forward = 2 * cfg.model_height * cfg.layer_multiplier
+    rs = np.random.RandomState(0)
+
+    pred.predict(request(rs, 16))          # warm-up: cuBLAS and kernel load
+    torch.cuda.synchronize()
+
+    # Size-sorted batches of the timed mix fill buckets 24, 32, 40 and 56
+    # but seldom 48; an untimed fourth request sweeps every bucket.
+    requests = [request(rs) for _ in range(3)]
+    requests.append(bucket_sweep(rs, buckets, bs))
+
+    triplet_dense_fwd.launches = 0         # the main path starts here
+    lat, lat_bins, hit = [], [], set()
+    for r, mols in enumerate(requests):
+        sizes = sorted(m["num_nodes"] for m in mols)
+        n_batches = math.ceil(len(mols) / bs)
+        hit |= {pick_bucket(max(sizes[i:i + bs]), buckets)
+                for i in range(0, len(sizes), bs)}
+        n_max = max(pick_bucket(s, buckets) for s in sizes)
+        expect = per_forward * mc * n_batches
+        for name, call in (("predict", pred.predict),
+                           ("predict_bins", pred.predict_bins)):
+            before = triplet_dense_fwd.launches
+            t0 = time.perf_counter()
+            out = call(mols)
+            dt = time.perf_counter() - t0
+            launched = triplet_dense_fwd.launches - before
+            if launched != expect:
+                fail(f"{name}: {launched} kernel launches, expected {expect}")
+            if name == "predict":
+                req_s = dt
+                if out.shape != (len(mols), n_max, n_max, cfg.num_dist_bins):
+                    fail(f"predict shape {out.shape}")
+                if not np.isfinite(out).all():
+                    fail("predict returned non-finite probabilities")
+                for i, m in enumerate(mols):
+                    n = m["num_nodes"]
+                    s = out[i, :n, :n].sum(-1)
+                    if np.abs(s - 1.0).max() > 1e-3:
+                        fail(f"probabilities of molecule {i} sum to "
+                             f"{s.min()}..{s.max()}")
+            else:
+                bins_s = dt
+                if out.shape != (len(mols), mc, n_max, n_max) or \
+                        out.dtype != np.int32:
+                    fail(f"predict_bins shape {out.shape} {out.dtype}")
+                if out.min() < 0 or out.max() >= cfg.num_dist_bins:
+                    fail("predict_bins out of range")
+        if r < 3:
+            lat.append(req_s)
+            lat_bins.append(bins_s)
+        print(json.dumps({"request": r, "molecules": len(mols),
+                          "timed": r < 3, "device_batches": n_batches,
+                          "predict_s": req_s, "predict_bins_s": bins_s,
+                          "launches_per_call": expect}), flush=True)
+    main_launches = triplet_dense_fwd.launches    # the main path ends here
+    if hit != set(buckets):
+        fail(f"served buckets {sorted(hit)}, expected {list(buckets)}")
+
+    p50 = float(np.median(lat))
+    print(json.dumps({
+        "serving": "DistancePredictor.predict", "card": card,
+        "molecules_per_s": 64 / p50, "p50_request_s": p50,
+        "request_s": lat, "predict_bins_p50_s": float(np.median(lat_bins)),
+        "buckets_hit": sorted(hit), "kernel_launches": main_launches}),
+        flush=True)
+
+    # one deterministic bf16 forward at N=48, b=16: the kernel's share
+    feed48 = device_batch([random_molecule(rs, int(n))
+                           for n in rs.randint(41, 49, size=bs)], buckets)
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: model(feed48), reps=5)
+    print(json.dumps({"forward": "deterministic bf16", "b": bs, "n": 48,
+                      "forward_ms": fwd_ms, "card": card}), flush=True)
+
+    # every bucket, deterministic f32: kernel path against the plain path
+    cfg32 = cfg.replace(compute_dtype="float32")
+    state = model.state_dict()
+    del pred, model
+    paths = {}
+    for use_pallas in ("dense", False):
+        m = DistanceModel(cfg32.replace(use_pallas=use_pallas), device="cuda")
+        m.load_state_dict(state)
+        paths[use_pallas] = m.requires_grad_(False)
+    sweep = bucket_sweep(rs, buckets, bs)
+    for t, nb in enumerate(buckets):
+        feed = device_batch(sweep[t * bs:(t + 1) * bs], buckets)
+        with torch.inference_mode():
+            before = triplet_dense_fwd.launches
+            got = paths["dense"](feed)
+            if triplet_dense_fwd.launches - before != per_forward:
+                fail("the f32 kernel path did not launch the kernel")
+            ref = paths[False](feed)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        ok = (got.shape[1] == nb and bool(torch.isfinite(got).all())
+              and err <= MODEL_TOL * scale)
+        print(json.dumps({"logits_f32": "kernel vs plain", "n": nb,
+                          "max_abs_err": err, "max_abs_ref": scale,
+                          "ok": ok}), flush=True)
+        if not ok:
+            fail(f"f32 logits disagree at bucket {nb}")
+    return main_launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    from tgt_torch.ops.kernels import _build
+    from tgt_torch.ops.kernels import triplet_dense as td
+
+    card = card_line()
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda}", flush=True)
+    print(f"card: {card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.time()
+    _build.build_libraries(["triplet_dense_fwd"])
+    build_s = time.time() - t0
+    log = (_build.BUILD_DIR / "triplet_dense_fwd.log").read_text()
+    regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+    print(json.dumps({"build_s": build_s, "ptxas": regs}), flush=True)
+
+    flagship = kernel_phase(card)
+    launches = serving_phase(card)
+    if launches == 0:
+        fail("the served path never launched triplet_dense_fwd")
+
+    print(json.dumps({"kernels": [{
+        "name": "triplet_dense_fwd", "route": "cuda",
+        "source": td.KERNEL_SOURCE, "replaces": td.REPLACES,
+        "launches": launches, "max_abs_err": flagship["max_abs_err"],
+        "ms": flagship["ms"], "plain_ms": flagship["plain_ms"],
+        "bound_ms": flagship["bound_ms"], "bound_by": flagship["bound_by"],
+        "library_ms": None}]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -24,9 +24,12 @@ setup(
     name="tgt_tpu",
     version="0.1.0",
     description=("TPU-native graph-transformer framework: EGT/TGT models, "
-                 "triplet interaction, Pallas kernels, pjit distribution"),
-    packages=find_packages(include=["tgt_tpu", "tgt_tpu.*"]),
-    package_data={"tgt_tpu.data": ["libtgt_native.so"]},
+                 "triplet interaction, Pallas kernels, pjit distribution; "
+                 "tgt_torch, its PyTorch/CUDA port for Hopper"),
+    packages=find_packages(include=["tgt_tpu", "tgt_tpu.*",
+                                    "tgt_torch", "tgt_torch.*"]),
+    package_data={"tgt_tpu.data": ["libtgt_native.so"],
+                  "tgt_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "pyyaml"],
     extras_require={

@@ -1,0 +1,127 @@
+"""TGT encoder stack: pre-LN residual layers over the Graph (h, e, mask)
+state (counterpart of tgt_tpu/models/encoder.py).
+
+As the reference TGT_Layer / TGT_Encoder (lib/tgt/layers/layers.py:180-302,
+lib/tgt/encoder.py:24-90):
+- per layer: pairwise attention update (node + edge) -> residual; the
+  triplet sub-layer on the edge channel -> residual; node and edge FFNs ->
+  residuals; per-sample drop-path on every residual branch;
+- a linear stochastic-depth ramp drop_path * i / (H-1) across the stack;
+- ``layer_multiplier`` applies each layer k times (weight sharing);
+- ``node_ended`` / ``edge_ended`` drop the unused update of the last layer
+  (a QK-only EdgeUpdate when the node update is off); ``egt_simple`` turns
+  every edge update off.
+
+The layers run as a Python loop. Randomness: one seed gives a table of
+per-layer seeds, drawn in layer order; each layer application gets its own
+``torch.Generator`` on the device and draws its dropout masks from it in
+forward order.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from tgt_torch.core.graph import Graph
+from tgt_torch.models.model_config import TGTConfig
+from tgt_torch.ops.attention import EdgeUpdate, EGTAttention
+from tgt_torch.ops.common import drop_path
+from tgt_torch.ops.ffn import FFN
+from tgt_torch.ops.triplet import get_triplet_module
+
+
+class TGTLayer(nn.Module):
+    def __init__(self, cfg: TGTConfig, node_update: bool, edge_update: bool,
+                 device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.node_update = node_update
+        self.edge_update = edge_update
+        if node_update:
+            self.update = EGTAttention(cfg.node_width, cfg.edge_width,
+                                       cfg.num_heads, edge_update=edge_update,
+                                       device=device)
+            self.node_ffn = FFN(cfg.node_width, cfg.node_ffn_multiplier,
+                                cfg.activation, device=device)
+        elif edge_update:
+            self.update = EdgeUpdate(cfg.node_width, cfg.edge_width,
+                                     cfg.num_heads, device=device)
+        else:
+            raise ValueError("at least one of node_update/edge_update must "
+                             "be True")
+        if edge_update:
+            if cfg.triplet_enabled:
+                self.tria = get_triplet_module(cfg.triplet_type)(
+                    cfg.edge_width, cfg.triplet_heads, device=device)
+            self.edge_ffn = FFN(cfg.edge_width, cfg.edge_ffn_multiplier,
+                                cfg.activation, device=device)
+
+    def forward(self, g: Graph, *, drop_path_rate: float = 0.0,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> Graph:
+        """One TGT layer (reference forward: layers.py:262-294)."""
+        cfg = self.cfg
+        h, e, mask = g.h, g.e, g.mask
+
+        def dp(x):
+            return drop_path(x, drop_path_rate, deterministic, generator)
+
+        if self.node_update:
+            h_up, e_up = self.update(
+                h, e, mask, scale_degree=cfg.scale_degree,
+                source_dropout=cfg.source_dropout,
+                deterministic=deterministic, generator=generator)
+            h = h + dp(h_up)
+            h = h + dp(self.node_ffn(h, act_dropout=cfg.node_act_dropout,
+                                     deterministic=deterministic,
+                                     generator=generator))
+        else:
+            _, e_up = self.update(h, e, mask)
+
+        if self.edge_update:
+            e = e + dp(e_up)
+            if cfg.triplet_enabled:
+                tri = self.tria(e, mask, attention_dropout=cfg.triplet_dropout,
+                                deterministic=deterministic,
+                                generator=generator,
+                                use_pallas=cfg.use_pallas)
+                e = e + dp(tri)
+            e = e + dp(self.edge_ffn(e, act_dropout=cfg.edge_act_dropout,
+                                     deterministic=deterministic,
+                                     generator=generator))
+        return g.copy(h=h, e=e)
+
+
+class TGTEncoder(nn.Module):
+    def __init__(self, cfg: TGTConfig, device=None):
+        super().__init__()
+        if cfg.has_indiv:
+            raise NotImplementedError(
+                "per-layer IndivConfig is not ported yet (ROADMAP.md item 1f)")
+        self.cfg = cfg
+        self.TGT_layers = nn.ModuleList(
+            TGTLayer(cfg, *cfg.layer_updates(i), device=device)
+            for i in range(cfg.model_height))
+
+    def forward(self, g: Graph, *, deterministic: bool = True,
+                seed: Optional[int] = None) -> Graph:
+        cfg = self.cfg
+        reps = cfg.layer_multiplier
+        seeds = None
+        if not deterministic:
+            if seed is None:
+                raise ValueError("a stochastic forward needs a seed")
+            seeds = torch.randint(
+                0, 2**62, (cfg.model_height * reps,),
+                generator=torch.Generator().manual_seed(seed)).tolist()
+        for i, layer in enumerate(self.TGT_layers):
+            for m in range(reps):
+                gen = None
+                if seeds is not None:
+                    gen = torch.Generator(device=g.e.device)
+                    gen.manual_seed(seeds[i * reps + m])
+                g = layer(g, drop_path_rate=cfg.drop_path_rate(i),
+                          deterministic=deterministic, generator=gen)
+        return g

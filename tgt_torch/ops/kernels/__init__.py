@@ -1,0 +1,8 @@
+"""Hand-written CUDA kernels for Hopper, each with its plain PyTorch version.
+
+| TPU kernel (tgt_tpu)                               | here                      |
+|----------------------------------------------------|---------------------------|
+| ops/pallas/triplet_dense.py:_fwd_kernel, rate 0    | triplet_dense.triplet_dense_fwd |
+
+The other Pallas kernels are queued in ROADMAP.md.
+"""

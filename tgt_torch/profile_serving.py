@@ -1,0 +1,124 @@
+"""Where the time of the served distance model goes, on one CUDA card.
+
+    python -m tgt_torch.profile_serving [--n 48] [--batch 16] [--steps 3]
+
+Builds the flagship TGT-At distance model of
+configs/pcqm/tgt_at_200m/dist_pred/tgt_at_dp_rdkit.yaml with weights from a
+seed, makes one device batch of random molecules at bucket ``--n``, and
+traces ``--steps`` MC-dropout forwards (the serving forward) with
+``torch.profiler`` after a warm-up. Prints JSON lines: the wall time per
+forward, the device busy share of the window (sum of kernel times over the
+wall time, so the rest is the device idle while the host enqueues), the
+kernels that take the most device time, and the host time per forward.
+The Chrome trace goes to ``chiprun_out/profile_serving_n<N>.json``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FLAGSHIP_YAML = os.path.join(
+    REPO, "configs", "pcqm", "tgt_at_200m", "dist_pred", "tgt_at_dp_rdkit.yaml")
+
+
+def _batch(rs, n_bucket: int, b: int, device):
+    from tgt_torch.data.collate import add_edge_mask, padded_collate
+    from tgt_torch.data.structural import AddStructuralData
+    from tgt_torch.schemes.commons import coords2dist
+
+    rows = []
+    for n in rs.randint(n_bucket - 7, n_bucket + 1, size=b):
+        n = int(n)
+        edges = np.array([(i, i + 1) for i in range(n - 1)]
+                         + [(i + 1, i) for i in range(n - 1)], np.int64)
+        row = AddStructuralData()({
+            "num_nodes": n, "edges": edges,
+            "node_features": rs.randint(0, 60, (n, 9)).astype(np.int16),
+            "edge_features": rs.randint(0, 5, (len(edges), 3)).astype(np.int16)})
+        row["node_mask"] = np.ones(n, np.uint8)
+        row["coords"] = (rs.randn(n, 3) * 1.5).astype(np.float32)
+        rows.append(row)
+    batch = add_edge_mask(padded_collate(rows, buckets=(n_bucket,)))
+    feed = {k: torch.from_numpy(batch[k]).to(device)
+            for k in ("node_features", "distance_matrix", "feature_matrix",
+                      "node_mask", "edge_mask")}
+    feed["dist_input"] = coords2dist(torch.from_numpy(batch["coords"])
+                                     .to(device).float())
+    return feed
+
+
+def main() -> int:
+    from torch.profiler import ProfilerActivity, profile
+
+    from tgt_torch.core.config import load_yaml
+    from tgt_torch.models import make_model
+    from tgt_torch.schemes import get_scheme
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--n", type=int, default=48)
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--steps", type=int, default=3)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serving: no CUDA device is available")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+
+    raw = load_yaml(FLAGSHIP_YAML)
+    cfg = get_scheme(raw["scheme"])(raw, command="evaluate").model_cfg
+    model = make_model("distance", cfg, device="cuda", seed=0)
+    feed = _batch(np.random.RandomState(0), args.n, args.batch, "cuda")
+
+    def forward(seed):
+        with torch.inference_mode():
+            return model(feed, deterministic=False, seed=seed)
+
+    for s in range(2):
+        forward(s)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for s in range(args.steps):
+            forward(100 + s)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in events if e.device_type == cuda]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
+    print(json.dumps({"profile": "serving forward (MC dropout on)",
+                      "card": card, "n": args.n, "batch": args.batch,
+                      "steps": args.steps,
+                      "wall_ms_per_forward": wall * 1e3 / args.steps,
+                      "device_ms_per_forward": device_us / 1e3 / args.steps,
+                      "device_busy_share": device_us / 1e6 / wall,
+                      "kernel_launches_per_forward":
+                          sum(e.count for e in kernels) / args.steps}),
+          flush=True)
+    for e in top[:15]:
+        if e.self_device_time_total <= 0:
+            break
+        print(json.dumps({"kernel": e.key[:90], "calls": e.count,
+                          "device_ms_per_forward":
+                              e.self_device_time_total / 1e3 / args.steps,
+                          "share": e.self_device_time_total / device_us}),
+              flush=True)
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir,
+                                          f"profile_serving_n{args.n}.json"))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
