@@ -6,8 +6,9 @@
 Phases, each of which fails the run (non-zero exit) on error:
 
 1. Environment and build: versions, the card's name and power limit, and
-   the build of every CUDA kernel of the served path from the sources in
-   this checkout (``nvcc`` for sm_90a).
+   the build of every CUDA kernel of the served and trained paths from the
+   sources in this checkout (``nvcc`` for sm_90a, one process per source,
+   started together), with each kernel's ptxas report.
 2. Kernel against plain: ``triplet_dense_fwd`` against its plain PyTorch
    version on the card at b=16, N in {24, 40, 48, 56}, edge width 256,
    16 triplet heads; gated and ungated; bf16 and f32; with a padded
@@ -15,6 +16,11 @@ Phases, each of which fails the run (non-zero exit) on error:
    rest. Tolerance max|diff| <= 1e-4 max|ref| in f32, 1e-2 max|ref| in bf16
    (bf16 output rounding is 2^-8). One JSON line per case with the kernel's
    and the plain version's times (CUDA events, median of 20) and the bound.
+2b. The backward kernel against plain: ``triplet_dense_bwd`` against
+   ``triplet_dense_bwd_reference`` on the same grid with a random cotangent;
+   dq, dk, dv, dbias and dgate each within the tolerances above; one case
+   with the out direction's pair-transposed K/V views; two launches on the
+   same inputs bitwise equal.
 3. Serving at full width: the flagship TGT-At distance model of
    configs/pcqm/tgt_at_200m/dist_pred/tgt_at_dp_rdkit.yaml (24 layers,
    node 768, edge 256, 64 heads, 16 triplet heads, 256 bins, bf16) with
@@ -27,7 +33,20 @@ Phases, each of which fails the run (non-zero exit) on error:
    forward). Then one
    device batch per bucket in deterministic f32 through the kernel and
    through the plain path: logits agree to 1e-3 max|ref|.
-4. The kernels line, then ``{"ok": true, "device": {...}}`` as the last line.
+4. Training at full width and depth: the same config (bf16, remat, its
+   dropouts and drop path) on synthetic molecules of up to 48 atoms,
+   ``Trainer.train_epoch`` for one epoch of 256 molecules: 4 optimizer
+   steps of 2 accumulated micro-batches of 32. Checks finite losses, the
+   guard's ``ok`` on every step, that every parameter moved, and the kernel
+   launches (per micro-batch 48 backward, and 48 + 46 forward, the 46 being
+   the remat replay of the 23 inner layers). Prints ms per step (CUDA
+   events) and molecules/s after the first step.
+4b. f32 gradients: one micro-batch of 32 through the trained weights in
+   f32 via the kernels and via the plain path, same seed (the core draws no
+   random numbers, so both draw the same masks): loss to 1e-5 relative,
+   every parameter's gradient to 1e-3 of its max|ref|, and non-zero
+   gradients on the triplet projections.
+5. The kernels line, then ``{"ok": true, "device": {...}}`` as the last line.
 
 It needs no network and imports nothing of JAX; without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero and prints
@@ -156,6 +175,94 @@ def kernel_phase(card):
                 if n == 48 and dtype == torch.bfloat16 and gated:
                     flagship = row
                 del inputs, out, ref
+    return flagship
+
+
+# -- phase 2b: the backward kernel against plain -----------------------------
+
+BWD_NAMES = ("dq", "dk", "dv", "dbias", "dgate")
+
+
+def bwd_bound(inputs, dva, grads, dtype):
+    """Least time (ms) of the backward: q, k, v, bias, gate and dva read,
+    dq, dk, dv, dbias and dgate written once over the memory rate, against
+    its five products (10*d flops per (b, j, i, k, h)) over the peak rate."""
+    b, n, _, d, h = inputs[0].shape
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in (*inputs, dva, *grads) if x is not None)
+    flops = 10.0 * b * n ** 3 * h * d
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def compare_bwd(got, ref, dtype):
+    """Per-output max |kernel - plain| and its tolerance; (errs, ok)."""
+    errs, ok = {}, True
+    for name, g, r in zip(BWD_NAMES, got, ref):
+        if r is None:
+            ok &= g is None
+            continue
+        err = float((g.float() - r.float()).abs().max())
+        tol = KERNEL_TOL[dtype] * float(r.float().abs().max())
+        errs[name] = [err, tol]
+        ok &= bool(torch.isfinite(g.float()).all()) and err <= tol
+    return errs, ok
+
+
+def backward_kernel_phase(card):
+    from tgt_torch.ops.kernels.triplet_dense import (
+        triplet_dense_bwd, triplet_dense_bwd_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    flagship = None
+    for n in (24, 40, 48, 56):
+        for dtype in (torch.bfloat16, torch.float32):
+            for gated in (True, False):
+                inputs = core_inputs(16, n, 256, 16, dtype, gated, gen)
+                dva = torch.randn(inputs[0].shape, device="cuda",
+                                  generator=gen).to(dtype)
+                got = triplet_dense_bwd(*inputs, dva)
+                torch.cuda.synchronize()
+                ref = triplet_dense_bwd_reference(*inputs, dva)
+                errs, ok = compare_bwd(got, ref, dtype)
+                ms = time_ms(lambda: triplet_dense_bwd(*inputs, dva))
+                plain_ms = time_ms(
+                    lambda: triplet_dense_bwd_reference(*inputs, dva))
+                bound_ms, bound_by = bwd_bound(inputs, dva, got, dtype)
+                row = {"case": "triplet_dense_bwd", "b": 16, "n": n,
+                       "edge_width": 256, "heads": 16,
+                       "dtype": str(dtype).replace("torch.", ""),
+                       "gated": gated, "errs": errs,
+                       "max_abs_err": max(e for e, _ in errs.values()),
+                       "ok": ok, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "library_ms": None, "card": card}
+                print(json.dumps(row), flush=True)
+                if not ok:
+                    fail(f"backward kernel disagrees with its plain version: "
+                         f"{row}")
+                if n == 48 and dtype == torch.bfloat16 and gated:
+                    flagship = row
+                    again = triplet_dense_bwd(*inputs, dva)
+                    same = all(torch.equal(a, b) for a, b in zip(got, again))
+                    print(json.dumps({"case": "triplet_dense_bwd determinism",
+                                      "bitwise_equal": same}), flush=True)
+                    if not same:
+                        fail("two backward launches on the same inputs differ")
+                del inputs, dva, got, ref
+
+    # the out direction's pair-transposed K and V views, read in place
+    q, k, v, bias, gate = core_inputs(16, 48, 256, 16, torch.float32, True, gen)
+    k, v = k.transpose(1, 2), v.transpose(1, 2)
+    dva = torch.randn(q.shape, device="cuda", generator=gen)
+    got = triplet_dense_bwd(q, k, v, bias, gate, dva)
+    ref = triplet_dense_bwd_reference(q, k, v, bias, gate, dva)
+    errs, ok = compare_bwd(got, ref, torch.float32)
+    print(json.dumps({"case": "triplet_dense_bwd transposed k/v", "n": 48,
+                      "errs": errs, "ok": ok}), flush=True)
+    if not ok:
+        fail("backward kernel disagrees on the transposed k/v views")
     return flagship
 
 
@@ -353,6 +460,141 @@ def serving_phase(card):
     return main_launches
 
 
+# -- phase 4: training ----------------------------------------------------------
+
+def training_scheme():
+    """The flagship config for training on synthetic molecules of up to 48
+    atoms, 64 molecules per optimizer step: accumulation 2 of 32."""
+    from tgt_torch.core.config import load_yaml
+    from tgt_torch.schemes import get_scheme
+
+    raw = load_yaml(FLAGSHIP_YAML)
+    raw.update(dataset_source="synthetic", synth_max_nodes=48,
+               synth_train_samples=256, global_batch_size=64)
+    return get_scheme(raw["scheme"])(raw, command="train")
+
+
+def training_phase(card):
+    from tgt_torch.ops.kernels.triplet_dense import (triplet_dense_bwd,
+                                                     triplet_dense_fwd)
+    from tgt_torch.training import Trainer
+
+    scheme = training_scheme()
+    cfg = scheme.model_cfg
+    trainer = Trainer(scheme, device="cuda")
+    if trainer.grad_accum != 2:
+        fail(f"accumulation {trainer.grad_accum}, expected 2")
+    state = trainer.init_state(seed=0)
+    model = state["model"]
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    print(json.dumps({"train": os.path.relpath(FLAGSHIP_YAML, REPO),
+                      "params": sum(v.numel() for v in before.values()),
+                      "model_height": cfg.model_height,
+                      "node_width": cfg.node_width,
+                      "edge_width": cfg.edge_width,
+                      "triplet_heads": cfg.triplet_heads,
+                      "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
+                      "use_pallas": cfg.use_pallas,
+                      "micro_batch": scheme.cfg.batch_size,
+                      "accum": trainer.grad_accum}), flush=True)
+
+    # record each step's metrics and a CUDA event at its end
+    steps, train_step = [], trainer.train_step
+
+    def recorded(*args, **kwargs):
+        state, metrics = train_step(*args, **kwargs)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        steps.append((metrics, end))
+        return state, metrics
+
+    trainer.train_step = recorded
+    loader = scheme.train_loader(0, 0, 1)   # makes the 256 molecules
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    triplet_dense_fwd.launches = triplet_dense_bwd.launches = 0  # main path
+    start.record()
+    state, logs, stop = trainer.train_epoch(state, loader)
+    torch.cuda.synchronize()
+    launches = {"fwd": triplet_dense_fwd.launches,
+                "bwd": triplet_dense_bwd.launches}       # main path ends
+    n_steps = len(steps)
+    per_micro = 2 * cfg.model_height * cfg.layer_multiplier
+    expect = {"fwd": n_steps * trainer.grad_accum
+              * (per_micro + (per_micro - 2 * cfg.layer_multiplier)),
+              "bwd": n_steps * trainer.grad_accum * per_micro}
+    ends = [start] + [e for _, e in steps]
+    step_ms = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+    losses = [float(m["loss"]) for m, _ in steps]
+    oks = [bool(m["ok"]) for m, _ in steps]
+    moved = sum(int(not torch.equal(before[k], v.detach()))
+                for k, v in model.named_parameters())
+    steady = float(np.median(step_ms[1:]))
+    row = {"training": "Trainer.train_epoch", "card": card, "steps": n_steps,
+           "losses": losses, "ok": oks, "stop": stop, "epoch_loss": logs["loss"],
+           "step_ms": step_ms, "median_step_ms_after_first": steady,
+           "molecules_per_s": 64 / (steady / 1e3),
+           "params_moved": moved, "params": len(before),
+           "launches": launches, "expected_launches": expect,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(json.dumps(row), flush=True)
+    if n_steps != 4 or stop is not None:
+        fail(f"{n_steps} optimizer steps (stop {stop}), expected 4")
+    if not all(oks) or not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite training step: {losses} {oks}")
+    if moved != len(before):
+        fail(f"only {moved} of {len(before)} parameters moved")
+    if launches != expect:
+        fail(f"kernel launches {launches}, expected {expect}")
+    return launches, model.state_dict()
+
+
+def gradient_phase(card, weights):
+    """One micro-batch in f32: loss and every parameter's gradient through
+    the kernels against the plain path, the same weights and seed."""
+    from tgt_torch.models.heads import DistanceModel
+
+    scheme = training_scheme()
+    cfg32 = scheme.model_cfg.replace(compute_dtype="float32")
+    host = next(iter(scheme.train_loader(1, 0, 1)))
+    host = {k: v[:scheme.cfg.batch_size] for k, v in host.items()}
+    feed = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+            for k, v in scheme.device_batch(host).items()}
+    out = {}
+    for use_pallas in ("dense", False):
+        model = DistanceModel(cfg32.replace(use_pallas=use_pallas),
+                              device="cuda")
+        model.load_state_dict(weights)
+        loss, _ = scheme.loss_fn(model, feed, seed=7)
+        names, params = zip(*model.named_parameters())
+        grads = torch.autograd.grad(loss, params)
+        out[use_pallas] = (float(loss.detach()), dict(zip(names, grads)))
+        del model, loss, params, grads
+    (loss, got), (ref_loss, ref) = out["dense"], out[False]
+    worst, bad = 0.0, []
+    for k, r in ref.items():
+        scale = float(r.abs().max())
+        err = float((got[k] - r).abs().max())
+        worst = max(worst, err / scale if scale > 0 else err)
+        if not math.isfinite(err) or err > MODEL_TOL * scale:
+            bad.append((k, err, scale))
+    tri = {k: float(g.abs().max()) for k, g in got.items()
+           if ".tria." in k and "lin_O" not in k}
+    row = {"gradients_f32": "kernel path vs plain path", "card": card,
+           "n": int(feed["node_features"].shape[1]), "loss": loss,
+           "plain_loss": ref_loss, "loss_rel_err": abs(loss - ref_loss)
+           / abs(ref_loss), "worst_grad_err_over_max_ref": worst,
+           "tensors": len(ref), "bad": bad[:5],
+           "min_triplet_projection_grad": min(tri.values())}
+    print(json.dumps(row), flush=True)
+    if abs(loss - ref_loss) > 1e-5 * abs(ref_loss):
+        fail(f"f32 loss {loss} against plain {ref_loss}")
+    if bad:
+        fail(f"{len(bad)} gradients disagree beyond {MODEL_TOL} max|ref|")
+    if not min(tri.values()) > 0:
+        fail("a triplet projection got no gradient through the kernels")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -368,24 +610,37 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.time()
-    _build.build_libraries(["triplet_dense_fwd"])
+    libs = ["triplet_dense_fwd", "triplet_dense_bwd"]
+    _build.build_libraries(libs)
     build_s = time.time() - t0
-    log = (_build.BUILD_DIR / "triplet_dense_fwd.log").read_text()
-    regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+    regs = {name: [ln.strip() for ln in
+                   (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
+                   if "registers" in ln or "spill" in ln] for name in libs}
     print(json.dumps({"build_s": build_s, "ptxas": regs}), flush=True)
 
     flagship = kernel_phase(card)
-    launches = serving_phase(card)
-    if launches == 0:
+    flagship_bwd = backward_kernel_phase(card)
+    served = serving_phase(card)
+    if served == 0:
         fail("the served path never launched triplet_dense_fwd")
+    trained, weights = training_phase(card)
+    gradient_phase(card, weights)
 
-    print(json.dumps({"kernels": [{
-        "name": "triplet_dense_fwd", "route": "cuda",
-        "source": td.KERNEL_SOURCE, "replaces": td.REPLACES,
-        "launches": launches, "max_abs_err": flagship["max_abs_err"],
-        "ms": flagship["ms"], "plain_ms": flagship["plain_ms"],
-        "bound_ms": flagship["bound_ms"], "bound_by": flagship["bound_by"],
-        "library_ms": None}]}), flush=True)
+    def entry(name, source, replaces, launches, by_path, row):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "launches_by_path": by_path,
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": None}
+
+    print(json.dumps({"kernels": [
+        entry("triplet_dense_fwd", td.KERNEL_SOURCE, td.REPLACES,
+              served + trained["fwd"],
+              {"serving": served, "training": trained["fwd"]}, flagship),
+        entry("triplet_dense_bwd", td.BWD_KERNEL_SOURCE, td.BWD_REPLACES,
+              trained["bwd"], {"training": trained["bwd"]}, flagship_bwd),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -257,6 +257,15 @@ class TestDistancePredictor:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make_model("distance", cfg)
 
+    def test_trainer_needs_the_card_unless_told(self, monkeypatch):
+        from tgt_torch.training import Trainer
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        scheme = get_scheme("pcqm.dist_pred")(dict(SMALL,
+                                                   dataset_source="synthetic"))
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Trainer(scheme)
+        assert Trainer(scheme, device="cpu").device == torch.device("cpu")
+
 
 class TestHostData:
     def test_structural_and_collate_match_tgt_tpu(self):
@@ -291,7 +300,9 @@ class TestHostData:
 class TestImportRule:
     def test_import_leaves_jax_out(self):
         code = ("import sys, tgt_torch, tgt_torch.serving, "
-                "tgt_torch.ops.kernels.triplet_dense; "
+                "tgt_torch.ops.kernels.triplet_dense, tgt_torch.training, "
+                "tgt_torch.training.harness, tgt_torch.data.loader, "
+                "tgt_torch.data.synthetic, tgt_torch.schemes.dist_pred; "
                 "bad = [m for m in sys.modules "
                 "if m.split('.')[0] in ('jax', 'jaxlib', 'tgt_tpu')]; "
                 "print(bad); sys.exit(1 if bad else 0)")

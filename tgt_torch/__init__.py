@@ -7,6 +7,8 @@ This package imports ``torch``, ``numpy`` and ``yaml``; it never imports
 ``jax`` or ``tgt_tpu``.
 
 Ported so far: serving of the distance predictor (``tgt_torch.serving.
-DistancePredictor``) with the gated/ungated triplet-attention models, whose
-triplet core runs the CUDA kernel ``csrc/triplet_dense_fwd.cu`` on the card.
+DistancePredictor``) and its training (``tgt_torch.training.Trainer`` on
+the ``pcqm.dist_pred`` scheme), with the gated/ungated triplet-attention
+models, whose triplet core runs the CUDA kernels
+``csrc/triplet_dense_fwd.cu`` and ``csrc/triplet_dense_bwd.cu`` on the card.
 """

@@ -1,0 +1,371 @@
+// Backward of dense triplet attention for Hopper (sm_90a).
+//
+// Replaces the TPU kernel tgt_tpu/ops/pallas/triplet_dense.py:_bwd_kernel
+// (reached through _dense_core_bwd) at dropout rate 0. Given the forward's
+// inputs and the output cotangent dva, for every batch row b, pair column j,
+// triplet head h and row i it recomputes
+//
+//   s[k]  = sum_d Q[b,i,j,d,h] K[b,j,k,d,h] + bias[b,i,k,h]     (Q pre-scaled)
+//   pn[k] = softmax_k(s)[k]         (max per (i, h), denominator >= 1e-30)
+//   g[k]  = sigmoid(gate[b,i,k,h])  (1 when ungated), a = pn g
+//   dA[k] = sum_d dva[b,j,i,d,h] V[b,j,k,d,h],  dp = dA g
+//   ds[k] = pn[k] (dp[k] - sum_k' dp[k'] pn[k'])
+//
+// and returns
+//
+//   dQ[b,i,j,:,h] = sum_k ds K[b,j,k,:,h]      dbias[b,i,k,h] = sum_j ds
+//   dK[b,j,k,:,h] = sum_i ds Q[b,i,j,:,h]      dgate[b,i,k,h] = sum_j dA pn g(1-g)
+//   dV[b,j,k,:,h] = sum_i a dva[b,j,i,:,h]
+//
+// in f32, whatever the storage type (f32 or bf16). No (b, N, N, N, h) tensor
+// reaches device memory and nothing N^3 is kept from the forward: the
+// logits are recomputed.
+//
+// Bound on the H100: at b=16, N=48, edge width 256, H=16, d=16 in bf16 the
+// function reads q, k, v, dva (4 x 18.9 MB), bias and gate (2 x 1.18 MB)
+// and writes dq, dk, dv (3 x 18.9 MB), dbias and dgate (2 x 1.18 MB):
+// about 138 MB, 41 us at 3.35 TB/s. Its five products take 10 d FLOP per
+// (b, j, i, k, h), 4.5 GFLOP, 4.6 us at the bf16 tensor-core peak. So it is
+// bound by device memory.
+//
+// Design (simple and right first; wgmma/TMA are later work). The TPU kernel
+// sums dbias and dgate over j on a sequential ("arbitrary") grid axis;
+// Hopper's blocks run in no order, and float atomics would make the sums
+// depend on that order. So the work is split in two kernels, each of whose
+// outputs is written by one thread, with every sum taken in a fixed order
+// (two launches on the same inputs give bitwise equal outputs):
+//  1. bwd_qkv: one block per (b, j, h), the forward's grid. It stages
+//     K[b,j], V[b,j], the column Q[b,:,j] and dva[b,j] (N x d each) in
+//     shared memory as f32. Each warp takes rows i in turn, lanes over k,
+//     recomputes pn and ds, writes the row of dQ, and leaves ds and a in
+//     shared memory (N x N each); then the block sums dK and dV over i,
+//     threads over (k, d).
+//  2. bwd_bias: one block per (b, h, tile of 16 rows i) that loops over j
+//     in order. Per j it stages K[b,j] and V[b,j]; each warp recomputes its
+//     two rows and adds ds and dA pn into registers. dbias and dgate are
+//     written once at the end.
+// The second kernel repeats the recompute (QK and dA) once more. Shared
+// memory of the first grows as N^2 and reaches 199 KB at N=128, d=32.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kQkvWarps = 4;
+constexpr int kBiasWarps = 8;
+constexpr int kRowsPerWarp = 2;
+constexpr int kBiasTile = kBiasWarps * kRowsPerWarp;  // rows i per bias block
+constexpr int kMaxN = 128;
+constexpr int kPerLane = kMaxN / 32;
+constexpr unsigned kFull = 0xffffffffu;
+
+struct Strides3 {
+  long long b, x, y;  // element strides of the three outer axes
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+__device__ __forceinline__ float warp_max(float x) {
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+
+// Stage the (n, d) panel at base (row stride `rs`, column stride h) into
+// dst[n][d + 1] as f32.
+template <typename T>
+__device__ __forceinline__ void stage(float* dst, const T* base, long long rs,
+                                      int n, int d, int h) {
+  for (int idx = threadIdx.x; idx < n * d; idx += blockDim.x) {
+    const int r = idx / d, c = idx - r * d;
+    dst[r * (d + 1) + c] = to_f32(base[r * rs + c * h]);
+  }
+}
+
+// One row i of one pair column j, in one warp: lanes take k = lane + 32 t.
+// qrow and grow are the row's q and dva (d floats); ks and vs the staged
+// K and V of column j ([n][d + 1]); brow and gtrow point at
+// bias[b, i, 0, h] and gate[b, i, 0, h] with k stride bs and gs. On return,
+// for k < n: pn = softmax weight, da = dA, g = sigmoid(gate) (1 ungated),
+// ds = the logit gradient; zero for k >= n.
+template <typename T, bool kGated>
+__device__ __forceinline__ void row_grads(
+    const float* qrow, const float* grow, const float* ks, const float* vs,
+    int n, int d, const T* brow, long long bs, const T* gtrow, long long gs,
+    int lane, float (&pn)[kPerLane], float (&da)[kPerLane],
+    float (&g)[kPerLane], float (&ds)[kPerLane]) {
+  const int dp1 = d + 1;
+  float m = -INFINITY;
+#pragma unroll
+  for (int t = 0; t < kPerLane; ++t) {
+    const int kk = lane + 32 * t;
+    pn[t] = -INFINITY;
+    if (kk < n) {
+      float acc = to_f32(brow[kk * bs]);
+      const float* kr = ks + kk * dp1;
+      for (int e = 0; e < d; ++e) acc = fmaf(qrow[e], kr[e], acc);
+      pn[t] = acc;
+      m = fmaxf(m, acc);
+    }
+  }
+  m = warp_max(m);
+  float sum = 0.f;
+#pragma unroll
+  for (int t = 0; t < kPerLane; ++t) {
+    const int kk = lane + 32 * t;
+    pn[t] = kk < n ? expf(pn[t] - m) : 0.f;
+    sum += pn[t];
+  }
+  sum = warp_sum(sum);
+  const float recip = 1.f / fmaxf(sum, 1e-30f);
+  float rs = 0.f;
+#pragma unroll
+  for (int t = 0; t < kPerLane; ++t) {
+    const int kk = lane + 32 * t;
+    pn[t] *= recip;
+    da[t] = 0.f;
+    g[t] = 0.f;
+    if (kk < n) {
+      const float* vr = vs + kk * dp1;
+      float acc = 0.f;
+      for (int e = 0; e < d; ++e) acc = fmaf(grow[e], vr[e], acc);
+      da[t] = acc;
+      g[t] = kGated ? sigmoid(to_f32(gtrow[kk * gs])) : 1.f;
+      rs = fmaf(acc * g[t], pn[t], rs);
+    }
+  }
+  rs = warp_sum(rs);
+#pragma unroll
+  for (int t = 0; t < kPerLane; ++t) ds[t] = pn[t] * (da[t] * g[t] - rs);
+}
+
+// q: (b, i, j, d, h); k, v: (b, j, k, d, h); bias, gate: (b, i, k, h);
+// dva: (b, j, i, d, h); the (d, h) axes of q/k/v/dva and the h axis of
+// bias/gate are contiguous, the outer axes take any strides. dq (b, i, j,
+// d, h) and dk, dv (b, j, k, d, h) are contiguous outputs.
+template <typename T, bool kGated>
+__global__ void __launch_bounds__(kQkvWarps * 32)
+bwd_qkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ bias,
+               const T* __restrict__ gate, const T* __restrict__ dva,
+               T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+               int n, int d, int h, Strides3 sq, Strides3 sk, Strides3 sv,
+               Strides3 sb, Strides3 sg, Strides3 sd) {
+  const int hh = blockIdx.x, j = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int dp1 = d + 1;
+
+  extern __shared__ float smem[];
+  float* ks = smem;                 // [n][d + 1]  K[b, j, k, :, h]
+  float* vs = ks + n * dp1;         // [n][d + 1]  V[b, j, k, :, h]
+  float* qs = vs + n * dp1;         // [n][d + 1]  Q[b, i, j, :, h]
+  float* gs = qs + n * dp1;         // [n][d + 1]  dva[b, j, i, :, h]
+  float* dss = gs + n * dp1;        // [n][n]      ds[i][k]
+  float* as = dss + n * n;          // [n][n]      a[i][k]
+
+  stage(ks, k + b * sk.b + j * sk.x + hh, sk.y, n, d, h);
+  stage(vs, v + b * sv.b + j * sv.x + hh, sv.y, n, d, h);
+  stage(qs, q + b * sq.b + j * sq.y + hh, sq.x, n, d, h);
+  stage(gs, dva + b * sd.b + j * sd.x + hh, sd.y, n, d, h);
+  __syncthreads();
+
+  const int groups = 32 / d;        // d is a power of two <= 32
+  const int dd = lane & (d - 1);
+  const int grp = lane / d;
+  for (int i = warp; i < n; i += kQkvWarps) {
+    float pn[kPerLane], da[kPerLane], g[kPerLane], ds[kPerLane];
+    row_grads<T, kGated>(qs + i * dp1, gs + i * dp1, ks, vs, n, d,
+                         bias + b * sb.b + i * sb.x + hh, sb.y,
+                         gate + b * sg.b + i * sg.x + hh, sg.y, lane,
+                         pn, da, g, ds);
+#pragma unroll
+    for (int t = 0; t < kPerLane; ++t) {
+      const int kk = lane + 32 * t;
+      if (kk < n) {
+        dss[i * n + kk] = ds[t];
+        as[i * n + kk] = pn[t] * g[t];
+      }
+    }
+    __syncwarp();
+    float acc = 0.f;
+    for (int kk = grp; kk < n; kk += groups) acc = fmaf(dss[i * n + kk], ks[kk * dp1 + dd], acc);
+    for (int off = d; off < 32; off <<= 1) acc += __shfl_down_sync(kFull, acc, off);
+    if (lane < d) store(dq + ((((long long)b * n + i) * n + j) * d + lane) * h + hh, acc);
+  }
+  __syncthreads();
+
+  for (int idx = threadIdx.x; idx < n * d; idx += blockDim.x) {
+    const int kk = idx / d, c = idx - kk * d;
+    float acc_k = 0.f, acc_v = 0.f;
+    for (int i = 0; i < n; ++i) {
+      acc_k = fmaf(dss[i * n + kk], qs[i * dp1 + c], acc_k);
+      acc_v = fmaf(as[i * n + kk], gs[i * dp1 + c], acc_v);
+    }
+    const long long o = ((((long long)b * n + j) * n + kk) * d + c) * h + hh;
+    store(dk + o, acc_k);
+    store(dv + o, acc_v);
+  }
+}
+
+// dbias, dgate: (b, i, k, h) contiguous outputs; dgate unused when ungated.
+template <typename T, bool kGated>
+__global__ void __launch_bounds__(kBiasWarps * 32)
+bwd_bias_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ bias,
+                const T* __restrict__ gate, const T* __restrict__ dva,
+                T* __restrict__ dbias, T* __restrict__ dgate, int n, int d,
+                int h, Strides3 sq, Strides3 sk, Strides3 sv, Strides3 sb,
+                Strides3 sg, Strides3 sd) {
+  const int hh = blockIdx.x, i0 = blockIdx.y * kBiasTile, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int dp1 = d + 1;
+
+  extern __shared__ float smem[];
+  float* ks = smem;                          // [n][d + 1]
+  float* vs = ks + n * dp1;                  // [n][d + 1]
+  float* qw = vs + n * dp1 + warp * 2 * d;   // [d] this warp's q row
+  float* gw = qw + d;                        // [d] this warp's dva row
+
+  float acc_b[kRowsPerWarp][kPerLane], acc_g[kRowsPerWarp][kPerLane];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+#pragma unroll
+    for (int t = 0; t < kPerLane; ++t) acc_b[r][t] = acc_g[r][t] = 0.f;
+  }
+
+  for (int j = 0; j < n; ++j) {
+    __syncthreads();                         // the last column is done with
+    stage(ks, k + b * sk.b + j * sk.x + hh, sk.y, n, d, h);
+    stage(vs, v + b * sv.b + j * sv.x + hh, sv.y, n, d, h);
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int i = i0 + warp + kBiasWarps * r;
+      if (i < n) {                           // warp-uniform
+        if (lane < d) {
+          qw[lane] = to_f32(q[b * sq.b + i * sq.x + j * sq.y + lane * h + hh]);
+          gw[lane] = to_f32(dva[b * sd.b + j * sd.x + i * sd.y + lane * h + hh]);
+        }
+        __syncwarp();
+        float pn[kPerLane], da[kPerLane], g[kPerLane], ds[kPerLane];
+        row_grads<T, kGated>(qw, gw, ks, vs, n, d,
+                             bias + b * sb.b + i * sb.x + hh, sb.y,
+                             gate + b * sg.b + i * sg.x + hh, sg.y, lane,
+                             pn, da, g, ds);
+#pragma unroll
+        for (int t = 0; t < kPerLane; ++t) {
+          acc_b[r][t] += ds[t];
+          if (kGated) acc_g[r][t] = fmaf(da[t], pn[t], acc_g[r][t]);
+        }
+        __syncwarp();                        // qw and gw are rewritten next
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const int i = i0 + warp + kBiasWarps * r;
+    if (i >= n) continue;
+#pragma unroll
+    for (int t = 0; t < kPerLane; ++t) {
+      const int kk = lane + 32 * t;
+      if (kk >= n) continue;
+      const long long o = (((long long)b * n + i) * n + kk) * h + hh;
+      store(dbias + o, acc_b[r][t]);
+      if (kGated) {
+        const float gv = sigmoid(to_f32(gate[b * sg.b + i * sg.x + kk * sg.y + hh]));
+        store(dgate + o, acc_g[r][t] * gv * (1.f - gv));
+      }
+    }
+  }
+}
+
+// Dynamic shared memory above 48 KB has to be allowed per kernel.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+template <typename T, bool kGated>
+int launch(const void* q, const void* k, const void* v, const void* bias,
+           const void* gate, const void* dva, void* dq, void* dk, void* dv,
+           void* dbias, void* dgate, int batch, int n, int d, int h,
+           const long long* st, cudaStream_t stream) {
+  const Strides3 sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
+      sv{st[6], st[7], st[8]}, sb{st[9], st[10], st[11]},
+      sg{st[12], st[13], st[14]}, sd{st[15], st[16], st[17]};
+  const T* g = (const T*)(kGated ? gate : bias);  // never read when ungated
+
+  const size_t smem_qkv = sizeof(float) * (4 * n * (d + 1) + 2 * n * n);
+  auto qkv = bwd_qkv_kernel<T, kGated>;
+  cudaError_t e = allow_smem(qkv, smem_qkv);
+  if (e != cudaSuccess) return (int)e;
+  qkv<<<dim3(h, n, batch), dim3(kQkvWarps * 32), smem_qkv, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)bias, g, (const T*)dva,
+      (T*)dq, (T*)dk, (T*)dv, n, d, h, sq, sk, sv, sb, sg, sd);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  const size_t smem_bias = sizeof(float) * (2 * n * (d + 1) + kBiasWarps * 2 * d);
+  const dim3 grid_bias(h, (n + kBiasTile - 1) / kBiasTile, batch);
+  bwd_bias_kernel<T, kGated><<<grid_bias, dim3(kBiasWarps * 32), smem_bias, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)bias, g, (const T*)dva,
+      (T*)dbias, (T*)dgate, n, d, h, sq, sk, sv, sb, sg, sd);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_gated(const void* q, const void* k, const void* v, const void* bias,
+                 const void* gate, const void* dva, void* dq, void* dk, void* dv,
+                 void* dbias, void* dgate, int batch, int n, int d, int h,
+                 const long long* st, cudaStream_t stream) {
+  if (gate != nullptr) {
+    return launch<T, true>(q, k, v, bias, gate, dva, dq, dk, dv, dbias, dgate,
+                           batch, n, d, h, st, stream);
+  }
+  return launch<T, false>(q, k, v, bias, gate, dva, dq, dk, dv, dbias, dgate,
+                          batch, n, d, h, st, stream);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. strides: 18 element strides, the three
+// outer axes of q, k, v, bias, gate and dva in that order. gate and dgate
+// are null when ungated. Launches both kernels on `stream`; returns the
+// first CUDA error (0 when both launched).
+extern "C" int triplet_dense_bwd(const void* q, const void* k, const void* v,
+                                 const void* bias, const void* gate,
+                                 const void* dva, void* dq, void* dk, void* dv,
+                                 void* dbias, void* dgate, int dtype, int batch,
+                                 int n, int d, int h, const long long* strides,
+                                 void* stream) {
+  if (n < 1 || n > kMaxN || d < 1 || d > 32 || (d & (d - 1)) != 0 || h < 1 ||
+      batch < 1 || batch > 65535 || ((gate == nullptr) != (dgate == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) {
+    return launch_gated<float>(q, k, v, bias, gate, dva, dq, dk, dv, dbias,
+                               dgate, batch, n, d, h, strides, s);
+  }
+  if (dtype == 1) {
+    return launch_gated<__nv_bfloat16>(q, k, v, bias, gate, dva, dq, dk, dv,
+                                       dbias, dgate, batch, n, d, h, strides, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}

@@ -16,13 +16,24 @@ The layers run as a Python loop. Randomness: one seed gives a table of
 per-layer seeds, drawn in layer order; each layer application gets its own
 ``torch.Generator`` on the device and draws its dropout masks from it in
 forward order.
+
+``cfg.remat`` (tgt_tpu: ``jax.checkpoint`` around the scanned inner layers,
+tgt_tpu/models/encoder.py:238-258) wraps each of the first
+``model_height - 1`` layer applications in ``torch.utils.checkpoint``; the
+last layer keeps its activations. The backward replays a layer's forward,
+and ``checkpoint`` replays only the global RNG, not an explicit generator:
+so each layer's generator is created and seeded inside the checkpointed
+function, and the replay draws the same dropout, source-dropout and
+drop-path masks as the forward did. Only ``remat_policy: none`` (full
+recompute) is ported.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tgt_torch.core.graph import Graph
 from tgt_torch.models.model_config import TGTConfig
@@ -116,12 +127,34 @@ class TGTEncoder(nn.Module):
             seeds = torch.randint(
                 0, 2**62, (cfg.model_height * reps,),
                 generator=torch.Generator().manual_seed(seed)).tolist()
+        remat = cfg.remat and torch.is_grad_enabled()
+        if remat and cfg.remat_policy != "none":
+            raise NotImplementedError(
+                f"remat_policy={cfg.remat_policy!r} is not ported yet "
+                f"(ROADMAP.md item 1f); only 'none' (full recompute) is")
+        last = len(self.TGT_layers) - 1
         for i, layer in enumerate(self.TGT_layers):
-            for m in range(reps):
-                gen = None
-                if seeds is not None:
-                    gen = torch.Generator(device=g.e.device)
-                    gen.manual_seed(seeds[i * reps + m])
-                g = layer(g, drop_path_rate=cfg.drop_path_rate(i),
-                          deterministic=deterministic, generator=gen)
+            args = (layer, g, cfg.drop_path_rate(i), deterministic,
+                    None if seeds is None else seeds[i * reps:(i + 1) * reps])
+            if remat and i < last:
+                # the layer draws only from the generators it creates, so
+                # the global RNG state needs no replay
+                g = checkpoint(_apply_layer, *args, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                g = _apply_layer(*args)
         return g
+
+
+def _apply_layer(layer: TGTLayer, g: Graph, drop_path_rate: float,
+                 deterministic: bool, seeds: Optional[Sequence[int]]) -> Graph:
+    """``layer_multiplier`` applications of one layer, each with a generator
+    made here from its seed (so that a remat replay draws the same masks)."""
+    for m in range(layer.cfg.layer_multiplier):
+        gen = None
+        if seeds is not None:
+            gen = torch.Generator(device=g.e.device)
+            gen.manual_seed(seeds[m])
+        g = layer(g, drop_path_rate=drop_path_rate,
+                  deterministic=deterministic, generator=gen)
+    return g

@@ -51,9 +51,10 @@ class TGTConfig:
     num_dist_bins: int = 256
     # execution
     compute_dtype: str = "float32"    # 'float32' | 'bfloat16'
-    # remat, remat_policy and use_scan are training-time memory/compile
-    # knobs of tgt_tpu; they are parsed and have no effect in the port's
-    # forward-only serving path.
+    # remat: the encoder recomputes the inner layers in the backward
+    # (torch.utils.checkpoint) when gradients are on; of remat_policy only
+    # 'none' (full recompute) is ported. use_scan is tgt_tpu's compile knob
+    # and has no effect in the port's Python layer loop.
     remat: bool = False
     remat_policy: str = "none"
     use_scan: bool = True

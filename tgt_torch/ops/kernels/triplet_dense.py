@@ -1,18 +1,25 @@
-"""Forward dense triplet attention: the CUDA kernel's wrapper and its plain
-version.
+"""Dense triplet attention: the CUDA kernels' wrappers, their plain
+versions, and the autograd function that joins forward and backward.
 
-Counterpart of ``tgt_tpu/ops/pallas/triplet_dense.py`` (its ``_fwd_kernel``
-at dropout rate 0). The kernel is ``tgt_torch/csrc/triplet_dense_fwd.cu``;
-its source note gives its bound on the H100 and its design. The TPU
-machinery (lane packing, ``JBLK`` j-padding, ``_pick_jblk`` VMEM budgets,
-the shard_map data mesh) has no counterpart: the kernel reads the natural
-``(..., d, h)`` layouts and needs no padding.
+Counterpart of ``tgt_tpu/ops/pallas/triplet_dense.py`` at dropout rate 0:
+its ``_fwd_kernel`` is ``tgt_torch/csrc/triplet_dense_fwd.cu`` and its
+``_bwd_kernel`` is ``tgt_torch/csrc/triplet_dense_bwd.cu``; the custom VJP
+``_dense_core`` is :class:`TripletDenseCore`. Each source note gives its
+kernel's bound on the H100 and its design. The TPU machinery (lane packing,
+``JBLK`` j-padding, ``_pick_jblk`` VMEM budgets, the shard_map data mesh)
+has no counterpart: the kernels read the natural ``(..., d, h)`` layouts and
+need no padding.
 
-Contract of :func:`triplet_dense_fwd`:
+Contract of :func:`triplet_dense` (and of :func:`triplet_dense_fwd`):
   q     (b, i, j, d, h), already scaled by d**-0.5
   k, v  (b, j, k, d, h)
   bias  (b, i, k, h) and gate (b, i, k, h) or None, in the compute dtype
   ->    va (b, j, i, d, h), float32 or bfloat16 like the inputs
+
+:func:`triplet_dense_bwd` takes the same inputs and the cotangent ``dva``
+(b, j, i, d, h) and returns ``dq``, ``dk``, ``dv`` (contiguous, in the
+inputs' shapes and dtype), and ``dbias``, ``dgate`` (b, i, k, h), summed
+over j in f32 and cast to the inputs' dtype.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel,
 and what the kernel cannot take raises. There is no fallback.
@@ -21,7 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -29,10 +36,23 @@ from tgt_torch.ops.kernels._build import load_library
 
 KERNEL_SOURCE = "tgt_torch/csrc/triplet_dense_fwd.cu"
 REPLACES = "tgt_tpu/ops/pallas/triplet_dense.py:222"
+BWD_KERNEL_SOURCE = "tgt_torch/csrc/triplet_dense_bwd.cu"
+BWD_REPLACES = "tgt_tpu/ops/pallas/triplet_dense.py:258"
 
 MAX_NODES = 128
 HEAD_DIMS = (1, 2, 4, 8, 16, 32)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _logits(q, k, bias):
+    """(b, j, h, i, k) f32 logits q.K + bias."""
+    return (torch.einsum("bijdh,bjkdh->bjhik", q.float(), k.float())
+            + bias.float().permute(0, 3, 1, 2)[:, None])
+
+
+def _gate(gate):
+    """(b, 1, h, i, k) f32 sigmoid of the gate."""
+    return torch.sigmoid(gate.float().permute(0, 3, 1, 2))[:, None]
 
 
 def triplet_dense_fwd_reference(q: torch.Tensor, k: torch.Tensor,
@@ -42,15 +62,44 @@ def triplet_dense_fwd_reference(q: torch.Tensor, k: torch.Tensor,
     """Plain version: the einsum form of ``tgt_tpu/ops/triplet.py:353-364``
     without ``lin_O``, computed in float32 like the kernel and returned in
     the input dtype. It materialises the (b, j, h, i, k) logits."""
-    s = (torch.einsum("bijdh,bjkdh->bjhik", q.float(), k.float())
-         + bias.float().permute(0, 3, 1, 2)[:, None])
-    a = torch.softmax(s, dim=-1)
+    a = torch.softmax(_logits(q, k, bias), dim=-1)
     if gate is not None:
-        a = a * torch.sigmoid(gate.float().permute(0, 3, 1, 2))[:, None]
+        a = a * _gate(gate)
     return torch.einsum("bjhik,bjkdh->bjidh", a, v.float()).to(q.dtype)
 
 
-def _check_shapes(q, k, v, bias, gate) -> None:
+def triplet_dense_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, bias: torch.Tensor,
+                                gate: Optional[torch.Tensor],
+                                dva: torch.Tensor):
+    """Plain backward: the formulas of ``_bwd_kernel``
+    (``tgt_tpu/ops/pallas/triplet_dense.py:288-324``) with the per-(i, h)
+    softmax max, in f32 math over materialised (b, j, h, i, k) tensors.
+    Returns ``(dq, dk, dv, dbias, dgate)`` in the inputs' dtype; ``dgate``
+    is None when ungated."""
+    pn = torch.softmax(_logits(q, k, bias), dim=-1)
+    dva32 = dva.float()
+    da = torch.einsum("bjidh,bjkdh->bjhik", dva32, v.float())
+    dgate = None
+    if gate is not None:
+        g = _gate(gate)
+        a = pn * g
+        dgate = (da * pn * g * (1.0 - g)).sum(1).permute(0, 2, 3, 1)
+        dp = da * g
+    else:
+        a = pn
+        dp = da
+    ds = pn * (dp - (dp * pn).sum(-1, keepdim=True))
+    dbias = ds.sum(1).permute(0, 2, 3, 1)
+    dq = torch.einsum("bjhik,bjkdh->bijdh", ds, k.float())
+    dk = torch.einsum("bjhik,bijdh->bjkdh", ds, q.float())
+    dv = torch.einsum("bjhik,bjidh->bjkdh", a, dva32)
+    dt = q.dtype
+    return (dq.to(dt), dk.to(dt), dv.to(dt), dbias.to(dt),
+            None if dgate is None else dgate.to(dt))
+
+
+def _check_shapes(q, k, v, bias, gate, dva=None) -> None:
     if q.dim() != 5:
         raise ValueError(f"q must be (b, i, j, d, h), got shape {tuple(q.shape)}")
     b, n, nj, d, h = q.shape
@@ -58,7 +107,8 @@ def _check_shapes(q, k, v, bias, gate) -> None:
         raise ValueError(f"q must be square in (i, j), got {tuple(q.shape)}")
     for name, t, want in (("k", k, (b, n, n, d, h)), ("v", v, (b, n, n, d, h)),
                           ("bias", bias, (b, n, n, h)),
-                          ("gate", gate, (b, n, n, h))):
+                          ("gate", gate, (b, n, n, h)),
+                          ("dva", dva, (b, n, n, d, h))):
         if t is None:
             continue
         if tuple(t.shape) != want:
@@ -70,25 +120,10 @@ def _check_shapes(q, k, v, bias, gate) -> None:
             raise ValueError(f"{name} is on {t.device}, q is on {q.device}")
 
 
-@functools.cache
-def _kernel():
-    fn = load_library("triplet_dense_fwd").triplet_dense_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def triplet_dense_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      bias: torch.Tensor,
-                      gate: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Gated (or, with ``gate=None``, ungated) dense triplet attention
-    forward. See the module docstring for the contract."""
-    _check_shapes(q, k, v, bias, gate)
-    if q.device.type == "cpu":
-        return triplet_dense_fwd_reference(q, k, v, bias, gate)
+def _check_kernel_limits(q, k, v, bias, gate, dva=None) -> None:
+    """What both kernels take; raises on anything else."""
     if q.device.type != "cuda":
-        raise ValueError(f"triplet_dense_fwd runs on cpu or cuda, not "
+        raise ValueError(f"the triplet kernels run on cpu or cuda, not "
                          f"{q.device}")
     b, n, _, d, h = q.shape
     if q.dtype not in _DTYPE_CODES:
@@ -100,26 +135,61 @@ def triplet_dense_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got {d}")
     if b > 65535:
         raise ValueError(f"the kernel takes at most 65535 batch rows, got {b}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(4) != 1 or t.stride(3) != h:
+    for name, t in (("q", q), ("k", k), ("v", v), ("dva", dva)):
+        if t is not None and (t.stride(4) != 1 or t.stride(3) != h):
             raise ValueError(f"{name}'s (d, h) axes must be contiguous, "
                              f"strides {t.stride()}")
-    gate_or_bias = bias if gate is None else gate
-    for name, t in (("bias", bias), ("gate", gate_or_bias)):
-        if t.stride(3) != 1:
+    for name, t in (("bias", bias), ("gate", gate)):
+        if t is not None and t.stride(3) != 1:
             raise ValueError(f"{name}'s h axis must be contiguous, strides "
                              f"{t.stride()}")
 
+
+@functools.cache
+def _fwd_kernel():
+    fn = load_library("triplet_dense_fwd").triplet_dense_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_kernel():
+    fn = load_library("triplet_dense_bwd").triplet_dense_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def triplet_dense_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      bias: torch.Tensor,
+                      gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Gated (or, with ``gate=None``, ungated) dense triplet attention
+    forward, with no gradient on the card: a caller that needs one takes
+    :func:`triplet_dense`. See the module docstring for the contract."""
+    _check_shapes(q, k, v, bias, gate)
+    if q.device.type == "cpu":
+        return triplet_dense_fwd_reference(q, k, v, bias, gate)
+    _check_kernel_limits(q, k, v, bias, gate)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, bias, gate)):
+        raise RuntimeError("triplet_dense_fwd returns no gradient on the "
+                           "card; call triplet_dense, which differentiates "
+                           "through the backward kernel")
+    b, n, _, d, h = q.shape
+    gate_or_bias = bias if gate is None else gate
     out = torch.empty((b, n, n, d, h), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 15)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *bias.stride()[:3], *gate_or_bias.stride()[:3])
-    fn = _kernel()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                None if gate is None else gate.data_ptr(), out.data_ptr(),
-                _DTYPE_CODES[q.dtype], b, n, d, h, strides, stream)
+        rc = _fwd_kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            None if gate is None else gate.data_ptr(), out.data_ptr(),
+            _DTYPE_CODES[q.dtype], b, n, d, h, strides,
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"triplet_dense_fwd kernel launch failed with "
                            f"CUDA error {rc}")
@@ -128,3 +198,65 @@ def triplet_dense_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 triplet_dense_fwd.launches = 0  # kernel launches, read by chip_smoke.py
+
+
+def triplet_dense_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      bias: torch.Tensor, gate: Optional[torch.Tensor],
+                      dva: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Gradients ``(dq, dk, dv, dbias, dgate)`` of the forward with respect
+    to its inputs, given the cotangent ``dva``; ``dgate`` is None when
+    ungated. One call launches the backward's two kernels and counts once."""
+    _check_shapes(q, k, v, bias, gate, dva)
+    if q.device.type == "cpu":
+        return triplet_dense_bwd_reference(q, k, v, bias, gate, dva)
+    _check_kernel_limits(q, k, v, bias, gate, dva)
+    b, n, _, d, h = q.shape
+    dq = torch.empty((b, n, n, d, h), dtype=q.dtype, device=q.device)
+    dk, dv = torch.empty_like(dq), torch.empty_like(dq)
+    dbias = torch.empty((b, n, n, h), dtype=q.dtype, device=q.device)
+    dgate = None if gate is None else torch.empty_like(dbias)
+    gate_or_bias = bias if gate is None else gate
+    strides = (ctypes.c_longlong * 18)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *bias.stride()[:3], *gate_or_bias.stride()[:3], *dva.stride()[:3])
+    with torch.cuda.device(q.device):
+        rc = _bwd_kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            None if gate is None else gate.data_ptr(), dva.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
+            None if dgate is None else dgate.data_ptr(),
+            _DTYPE_CODES[q.dtype], b, n, d, h, strides,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"triplet_dense_bwd kernel launch failed with "
+                           f"CUDA error {rc}")
+    triplet_dense_bwd.launches += 1
+    return dq, dk, dv, dbias, dgate
+
+
+triplet_dense_bwd.launches = 0  # one per call on the card, read by chip_smoke.py
+
+
+class TripletDenseCore(torch.autograd.Function):
+    """The dense core with its gradient: forward :func:`triplet_dense_fwd`,
+    backward :func:`triplet_dense_bwd`, as ``_dense_core`` with its
+    ``defvjp`` (``tgt_tpu/ops/pallas/triplet_dense.py:363-445``). Only the
+    inputs are kept for the backward, which recomputes the logits."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, gate):
+        ctx.save_for_backward(q, k, v, bias, gate)
+        return triplet_dense_fwd(q, k, v, bias, gate)
+
+    @staticmethod
+    def backward(ctx, dva):
+        q, k, v, bias, gate = ctx.saved_tensors
+        return triplet_dense_bwd(q, k, v, bias, gate, dva.contiguous())
+
+
+def triplet_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: torch.Tensor,
+                  gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable dense triplet attention core (see the module
+    docstring for the contract)."""
+    return TripletDenseCore.apply(q, k, v, bias, gate)

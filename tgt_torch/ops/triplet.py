@@ -9,9 +9,11 @@ direction attends over k through the edges (j, k), biased and gated by
 K, V, bias, gate and mask.
 
 The N^3 core (QK + bias, softmax over k, sigmoid gate, sum over k of a*V)
-is ``ops/kernels/triplet_dense.triplet_dense_fwd``: the CUDA kernel on the
-card with ``use_pallas='dense'`` (every published attention config), its
-plain PyTorch version on the CPU or with ``use_pallas=False``.
+is ``ops/kernels/triplet_dense.triplet_dense`` with ``use_pallas='dense'``
+(every published attention config): on the card the CUDA forward and
+backward kernels joined by ``TripletDenseCore``, on the CPU their plain
+versions. ``use_pallas=False`` takes the plain forward, differentiated by
+autograd.
 
 ``lin_O`` is applied split: its (2W, W) weight, rows indexed (d, 2h), is
 cut into the in-heads ``[:, :h]`` and out-heads ``[:, h:]`` and contracted
@@ -30,7 +32,7 @@ import torch
 from torch import nn
 
 from tgt_torch.ops.common import layernorm, linear
-from tgt_torch.ops.kernels.triplet_dense import (triplet_dense_fwd,
+from tgt_torch.ops.kernels.triplet_dense import (triplet_dense,
                                                  triplet_dense_fwd_reference)
 
 
@@ -61,7 +63,7 @@ class TripletAttention(nn.Module):
                 "triplet attention dropout is not ported yet (ROADMAP.md "
                 "item 2c, the rate > 0 branch of the dense kernel)")
         if use_pallas == "dense":
-            core = triplet_dense_fwd
+            core = triplet_dense
         elif use_pallas is False or use_pallas is None:
             core = triplet_dense_fwd_reference
         else:

@@ -1,18 +1,33 @@
-"""Scheme configuration: the layered defaults and the model config built
-from them (the model-config part of tgt_tpu/schemes/base.py).
+"""Scheme base: the layered defaults, the model config built from them,
+and what the Trainer needs of a task (counterpart of
+tgt_tpu/schemes/base.py).
 
 A scheme resolves a user config (a published YAML) over the reference's
 defaults and builds the ``TGTConfig``. The full key set of tgt_tpu is kept,
-so every published config loads and a mistyped key still raises; the keys
-of the trainer, data and distribution slices are carried and not read yet
-(ROADMAP.md item 1k).
+so every published config loads and a mistyped key still raises. Ported
+for training: the learning-rate schedule, the synthetic dataset, the train
+loader, the device batch (batch-axis padding and ``sample_mask``) and the
+edge mask. The PCQM parquet data, validation and test loaders and MC
+sampling come with ROADMAP.md items 1j and 1k.
+
+A task's ``loss_fn(model, batch, seed) -> (loss, aux)`` takes the model
+module (the parameters live in it) and a device batch of tensors.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import numpy as np
+import torch
+
 from tgt_torch.core.config import Config, Lazy
+from tgt_torch.data.collate import pad_batch_dim, padded_collate
+from tgt_torch.data.loader import DataLoader, DistributedTrainSampler
+from tgt_torch.data.synthetic import SyntheticDataset
+from tgt_torch.models.heads import make_model
 from tgt_torch.models.model_config import TGTConfig
+from tgt_torch.training import schedules
+from tgt_torch.training.harness import resolve_grad_accum
 
 
 def default_scheme_config() -> Config:
@@ -132,6 +147,9 @@ class TGTScheme:
             self.cfg.compute_dtype = "bfloat16"
         self.command = command
         self.model_cfg = self.build_model_cfg()
+        self.lr_scale = 1.0
+        self.lr_total_steps = self.cfg.lr_total_steps
+        self._datasets: Dict[str, Any] = {}
 
     def default_config(self, command: str) -> Config:
         return default_scheme_config()
@@ -165,3 +183,78 @@ class TGTScheme:
             use_scan=c.use_scan, use_pallas=c.use_pallas,
             dense_min_nodes=c.dense_min_nodes,
             dense_min_exact_nodes=c.dense_min_exact_nodes)
+
+    # -- model --------------------------------------------------------------
+    def init_model(self, seed: int, device=None):
+        """The task model with weights drawn from ``seed``."""
+        return make_model(self.MODEL, self.model_cfg, device=device, seed=seed)
+
+    def make_lr_schedule(self):
+        c = self.cfg
+        kind = c.lr_schedule or "constant"
+        if kind == "warmup_cosine":
+            return schedules.warmup_cosine(c.max_lr, c.lr_warmup_steps,
+                                           c.lr_total_steps, c.min_lr,
+                                           c.cosine_halfwave)
+        if kind == "warmup_linear":
+            return schedules.warmup_linear(c.max_lr, c.lr_warmup_steps)
+        return schedules.constant(c.max_lr)
+
+    # -- datasets -------------------------------------------------------------
+    def get_dataset(self, split: str):
+        if split in self._datasets:
+            return self._datasets[split]
+        if self.cfg.dataset_source != "synthetic":
+            raise NotImplementedError(
+                f"dataset_source={self.cfg.dataset_source!r}: the PCQM "
+                f"parquet data layer is not ported yet (ROADMAP.md item 1j); "
+                f"use dataset_source: synthetic")
+        n = (self.cfg.synth_train_samples if split == "train"
+             else self.cfg.synth_val_samples)
+        ds = SyntheticDataset(num_samples=n, max_nodes=self.cfg.synth_max_nodes,
+                              seed={"train": 0, "val": 1, "test": 2}[split])
+        self._datasets[split] = ds
+        return ds
+
+    def train_loader(self, epoch: int, rank: int, world_size: int):
+        """Host batches of ``batch_size * accum`` molecules: the Trainer
+        splits each back into ``batch_size`` micro-batches."""
+        ds = self.get_dataset("train")
+        bsz = self.cfg.batch_size * resolve_grad_accum(self.cfg, world_size)
+        sampler = DistributedTrainSampler(len(ds), bsz, rank=rank,
+                                          world_size=world_size,
+                                          seed=self.cfg.random_seed or 0)
+        sampler.set_epoch(epoch)
+        return DataLoader(ds, sampler,
+                          collate_fn=lambda rows: padded_collate(
+                              rows, buckets=tuple(self.cfg.buckets)))
+
+    # -- batch plumbing ---------------------------------------------------------
+    DEVICE_KEYS = ("node_features", "distance_matrix", "feature_matrix",
+                   "node_mask", "target")
+
+    def device_keys(self):
+        return self.DEVICE_KEYS
+
+    def batch_num_samples(self, batch: Dict[str, np.ndarray]) -> int:
+        return int(batch["node_mask"].shape[0])
+
+    def device_batch(self, batch: Dict[str, np.ndarray]
+                     ) -> Dict[str, np.ndarray]:
+        """The keys the task reads, with the batch axis zero-padded to at
+        least ``batch_size`` and a (b,) ``sample_mask`` of the real rows."""
+        sub = {k: batch[k] for k in self.device_keys() if k in batch}
+        sub, sample_mask = pad_batch_dim(sub, max(self.cfg.batch_size,
+                                                  len(batch["node_mask"])))
+        sub["sample_mask"] = sample_mask
+        return sub
+
+    @staticmethod
+    def edge_mask_of(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """(b, N, N) pair mask, zero for every pair of a padded sample."""
+        nm = batch["node_mask"].float() * batch["sample_mask"].float()[:, None]
+        return nm[:, :, None] * nm[:, None, :]
+
+    # -- task hooks -------------------------------------------------------------
+    def loss_fn(self, model, batch: Dict[str, torch.Tensor], seed: int):
+        raise NotImplementedError
