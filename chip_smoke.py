@@ -11,16 +11,18 @@ Phases, each of which fails the run (non-zero exit) on error:
    started together), with each kernel's ptxas report.
 2. Kernel against plain: ``triplet_dense_fwd`` against its plain PyTorch
    version on the card at b=16, N in {24, 40, 48, 56}, edge width 256,
-   16 triplet heads; gated and ungated; bf16 and f32; with a padded
+   16 triplet heads; gated and ungated; bf16 and f32; plus the training
+   micro-batch, b=32, N=48, bf16, gated, and its out direction's
+   pair-transposed K/V views in bf16 and f32; with a padded
    sample, a fully masked sample and a head whose bias sits 300 below the
    rest. Tolerance max|diff| <= 1e-4 max|ref| in f32, 1e-2 max|ref| in bf16
    (bf16 output rounding is 2^-8). One JSON line per case with the kernel's
    and the plain version's times (CUDA events, median of 20) and the bound.
 2b. The backward kernel against plain: ``triplet_dense_bwd`` against
    ``triplet_dense_bwd_reference`` on the same grid with a random cotangent;
-   dq, dk, dv, dbias and dgate each within the tolerances above; one case
-   with the out direction's pair-transposed K/V views; two launches on the
-   same inputs bitwise equal.
+   dq, dk, dv, dbias and dgate each within the tolerances above; the out
+   direction's pair-transposed K/V views at b=32, N=48 in bf16 and f32;
+   two launches on the same inputs bitwise equal.
 3. Serving at full width: the flagship TGT-At distance model of
    configs/pcqm/tgt_at_200m/dist_pred/tgt_at_dp_rdkit.yaml (24 layers,
    node 768, edge 256, 64 heads, 16 triplet heads, 256 bins, bf16) with
@@ -141,40 +143,68 @@ def bound(inputs, out, dtype):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# (b, N, dtype, gated): the serving grid at b=16, then the training
+# micro-batch of the flagship config (b=32 molecules of up to 48 atoms, bf16)
+KERNEL_CASES = [(16, n, dtype, gated) for n in (24, 40, 48, 56)
+                for dtype in (torch.bfloat16, torch.float32)
+                for gated in (True, False)] + [(32, 48, torch.bfloat16, True)]
+
+
+def is_flagship(b, n, dtype, gated):
+    """The case the kernels line reports: b=16, N=48, bf16, gated."""
+    return (b, n, dtype, gated) == (16, 48, torch.bfloat16, True)
+
+
 def kernel_phase(card):
     from tgt_torch.ops.kernels.triplet_dense import (
         triplet_dense_fwd, triplet_dense_fwd_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     flagship = None
-    for n in (24, 40, 48, 56):
-        for dtype in (torch.bfloat16, torch.float32):
-            for gated in (True, False):
-                inputs = core_inputs(16, n, 256, 16, dtype, gated, gen)
-                out = triplet_dense_fwd(*inputs)
-                torch.cuda.synchronize()
-                ref = triplet_dense_fwd_reference(*inputs)
-                torch.cuda.synchronize()
-                err = float((out.float() - ref.float()).abs().max())
-                scale = float(ref.float().abs().max())
-                ok = (bool(torch.isfinite(out.float()).all())
-                      and err <= KERNEL_TOL[dtype] * scale)
-                ms = time_ms(lambda: triplet_dense_fwd(*inputs))
-                plain_ms = time_ms(lambda: triplet_dense_fwd_reference(*inputs))
-                bound_ms, bound_by = bound(inputs, out, dtype)
-                row = {"case": "triplet_dense_fwd", "b": 16, "n": n,
-                       "edge_width": 256, "heads": 16,
-                       "dtype": str(dtype).replace("torch.", ""),
-                       "gated": gated, "max_abs_err": err, "max_abs_ref": scale,
-                       "tol": KERNEL_TOL[dtype] * scale, "ok": ok, "ms": ms,
-                       "plain_ms": plain_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "library_ms": None, "card": card}
-                print(json.dumps(row), flush=True)
-                if not ok:
-                    fail(f"kernel disagrees with its plain version: {row}")
-                if n == 48 and dtype == torch.bfloat16 and gated:
-                    flagship = row
-                del inputs, out, ref
+    for b, n, dtype, gated in KERNEL_CASES:
+        inputs = core_inputs(b, n, 256, 16, dtype, gated, gen)
+        out = triplet_dense_fwd(*inputs)
+        torch.cuda.synchronize()
+        ref = triplet_dense_fwd_reference(*inputs)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        ok = (bool(torch.isfinite(out.float()).all())
+              and err <= KERNEL_TOL[dtype] * scale)
+        ms = time_ms(lambda: triplet_dense_fwd(*inputs))
+        plain_ms = time_ms(lambda: triplet_dense_fwd_reference(*inputs))
+        bound_ms, bound_by = bound(inputs, out, dtype)
+        row = {"case": "triplet_dense_fwd", "b": b, "n": n,
+               "edge_width": 256, "heads": 16,
+               "dtype": str(dtype).replace("torch.", ""),
+               "gated": gated, "max_abs_err": err, "max_abs_ref": scale,
+               "tol": KERNEL_TOL[dtype] * scale, "ok": ok, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": None, "card": card}
+        print(json.dumps(row), flush=True)
+        if not ok:
+            fail(f"kernel disagrees with its plain version: {row}")
+        if is_flagship(b, n, dtype, gated):
+            flagship = row
+        del inputs, out, ref
+
+    # the out direction's pair-transposed K and V views at the training
+    # micro-batch
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, bias, gate = core_inputs(32, 48, 256, 16, dtype, True, gen)
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+        out = triplet_dense_fwd(q, k, v, bias, gate)
+        ref = triplet_dense_fwd_reference(q, k, v, bias, gate)
+        err = float((out.float() - ref.float()).abs().max())
+        tol = KERNEL_TOL[dtype] * float(ref.float().abs().max())
+        ok = bool(torch.isfinite(out.float()).all()) and err <= tol
+        print(json.dumps({"case": "triplet_dense_fwd transposed k/v", "b": 32,
+                          "n": 48, "dtype": str(dtype).replace("torch.", ""),
+                          "max_abs_err": err, "tol": tol, "ok": ok}),
+              flush=True)
+        if not ok:
+            fail(f"kernel disagrees on the transposed k/v views in {dtype}")
+        del q, k, v, bias, gate, out, ref
     return flagship
 
 
@@ -216,53 +246,58 @@ def backward_kernel_phase(card):
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     flagship = None
-    for n in (24, 40, 48, 56):
-        for dtype in (torch.bfloat16, torch.float32):
-            for gated in (True, False):
-                inputs = core_inputs(16, n, 256, 16, dtype, gated, gen)
-                dva = torch.randn(inputs[0].shape, device="cuda",
-                                  generator=gen).to(dtype)
-                got = triplet_dense_bwd(*inputs, dva)
-                torch.cuda.synchronize()
-                ref = triplet_dense_bwd_reference(*inputs, dva)
-                errs, ok = compare_bwd(got, ref, dtype)
-                ms = time_ms(lambda: triplet_dense_bwd(*inputs, dva))
-                plain_ms = time_ms(
-                    lambda: triplet_dense_bwd_reference(*inputs, dva))
-                bound_ms, bound_by = bwd_bound(inputs, dva, got, dtype)
-                row = {"case": "triplet_dense_bwd", "b": 16, "n": n,
-                       "edge_width": 256, "heads": 16,
-                       "dtype": str(dtype).replace("torch.", ""),
-                       "gated": gated, "errs": errs,
-                       "max_abs_err": max(e for e, _ in errs.values()),
-                       "ok": ok, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": bound_ms, "bound_by": bound_by,
-                       "library_ms": None, "card": card}
-                print(json.dumps(row), flush=True)
-                if not ok:
-                    fail(f"backward kernel disagrees with its plain version: "
-                         f"{row}")
-                if n == 48 and dtype == torch.bfloat16 and gated:
-                    flagship = row
-                    again = triplet_dense_bwd(*inputs, dva)
-                    same = all(torch.equal(a, b) for a, b in zip(got, again))
-                    print(json.dumps({"case": "triplet_dense_bwd determinism",
-                                      "bitwise_equal": same}), flush=True)
-                    if not same:
-                        fail("two backward launches on the same inputs differ")
-                del inputs, dva, got, ref
+    for b, n, dtype, gated in KERNEL_CASES:
+        inputs = core_inputs(b, n, 256, 16, dtype, gated, gen)
+        dva = torch.randn(inputs[0].shape, device="cuda",
+                          generator=gen).to(dtype)
+        got = triplet_dense_bwd(*inputs, dva)
+        torch.cuda.synchronize()
+        ref = triplet_dense_bwd_reference(*inputs, dva)
+        errs, ok = compare_bwd(got, ref, dtype)
+        ms = time_ms(lambda: triplet_dense_bwd(*inputs, dva))
+        plain_ms = time_ms(
+            lambda: triplet_dense_bwd_reference(*inputs, dva))
+        bound_ms, bound_by = bwd_bound(inputs, dva, got, dtype)
+        row = {"case": "triplet_dense_bwd", "b": b, "n": n,
+               "edge_width": 256, "heads": 16,
+               "dtype": str(dtype).replace("torch.", ""),
+               "gated": gated, "errs": errs,
+               "max_abs_err": max(e for e, _ in errs.values()),
+               "ok": ok, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": None, "card": card}
+        print(json.dumps(row), flush=True)
+        if not ok:
+            fail(f"backward kernel disagrees with its plain version: "
+                 f"{row}")
+        if is_flagship(b, n, dtype, gated):
+            flagship = row
+        if n == 48 and dtype == torch.bfloat16 and gated:
+            again = triplet_dense_bwd(*inputs, dva)
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            print(json.dumps({"case": "triplet_dense_bwd determinism",
+                              "b": b, "bitwise_equal": same}),
+                  flush=True)
+            if not same:
+                fail("two backward launches on the same inputs differ")
+        del inputs, dva, got, ref
 
-    # the out direction's pair-transposed K and V views, read in place
-    q, k, v, bias, gate = core_inputs(16, 48, 256, 16, torch.float32, True, gen)
-    k, v = k.transpose(1, 2), v.transpose(1, 2)
-    dva = torch.randn(q.shape, device="cuda", generator=gen)
-    got = triplet_dense_bwd(q, k, v, bias, gate, dva)
-    ref = triplet_dense_bwd_reference(q, k, v, bias, gate, dva)
-    errs, ok = compare_bwd(got, ref, torch.float32)
-    print(json.dumps({"case": "triplet_dense_bwd transposed k/v", "n": 48,
-                      "errs": errs, "ok": ok}), flush=True)
-    if not ok:
-        fail("backward kernel disagrees on the transposed k/v views")
+    # the out direction's pair-transposed K and V views, read in place, at
+    # the training micro-batch
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, bias, gate = core_inputs(32, 48, 256, 16, dtype, True, gen)
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+        dva = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+        got = triplet_dense_bwd(q, k, v, bias, gate, dva)
+        ref = triplet_dense_bwd_reference(q, k, v, bias, gate, dva)
+        errs, ok = compare_bwd(got, ref, dtype)
+        print(json.dumps({"case": "triplet_dense_bwd transposed k/v", "b": 32,
+                          "n": 48, "dtype": str(dtype).replace("torch.", ""),
+                          "errs": errs, "ok": ok}), flush=True)
+        if not ok:
+            fail(f"backward kernel disagrees on the transposed k/v views "
+                 f"in {dtype}")
+        del q, k, v, bias, gate, dva, got, ref
     return flagship
 
 

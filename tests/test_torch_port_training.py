@@ -13,7 +13,9 @@ tgt_tpu's init, mapped through ``state_dict_from_jax_params``:
   1e-3 of the summed learning rates (the triplet biases that shift a whole
   softmax row, whose gradient is zero in exact arithmetic, within them);
 - with dropout and drop path on, gradients with remat equal those without
-  under the same seed; the NaN-step guard; an all-padding micro-batch.
+  under the same seed; the NaN-step guard; an all-padding micro-batch;
+- the data path: the synthetic molecules, the train loader's batches and
+  the device batches equal tgt_tpu's, key by key, over epochs and ranks.
 """
 import numpy as np
 import pytest
@@ -27,6 +29,8 @@ from tgt_tpu.schemes.commons import coords2dist as jax_coords2dist
 from tgt_tpu.schemes.commons import discrete_dist_loss as jax_dd_loss
 from tgt_tpu.training import harness as jharness
 from tgt_tpu.training import schedules as jschedules
+from tgt_tpu.data.synthetic import SyntheticDataset as JaxSyntheticDataset
+from tgt_torch.data.synthetic import SyntheticDataset
 from tgt_torch.models.convert import state_dict_from_jax_params
 from tgt_torch.schemes import get_scheme
 from tgt_torch.schemes.commons import add_coords_noise, discrete_dist_loss
@@ -348,3 +352,58 @@ class TestTrainer:
         _, scheme = schemes(tmp_path, dataset_source="pcqm")
         with pytest.raises(NotImplementedError, match="1j"):
             scheme.train_loader(0, 0, 1)
+
+    def test_size_bucketed_batching_is_not_ported(self, tmp_path):
+        _, scheme = schemes(tmp_path, size_bucketed_batching=True)
+        with pytest.raises(NotImplementedError, match="1j"):
+            scheme.train_loader(0, 0, 1)
+
+
+def assert_arrays_equal(got, want, where):
+    assert set(got) == set(want), where
+    for k in want:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        assert (g.dtype, g.shape) == (w.dtype, w.shape), (where, k)
+        np.testing.assert_array_equal(g, w, err_msg=f"{where} {k}")
+
+
+class TestDataPath:
+    """The port's data path against tgt_tpu's on the same synthetic config:
+    23 molecules, so that the last batch is short and rank 1 of 2 wrap-pads;
+    ``global_batch_size=8`` gives host batches of 8 on one rank and of 4 on
+    each of two."""
+
+    def test_synthetic_molecules_match(self):
+        got = SyntheticDataset(num_samples=23, max_nodes=14, seed=0)
+        want = JaxSyntheticDataset(num_samples=23, max_nodes=14, seed=0)
+        assert len(got) == len(want)
+        for i in range(len(want)):
+            assert_arrays_equal(got[i], want[i], f"row {i}")
+
+    @pytest.mark.parametrize("epoch,rank,world_size",
+                             [(0, 0, 1), (1, 0, 1), (0, 0, 2), (0, 1, 2),
+                              (1, 0, 2), (1, 1, 2)])
+    def test_train_loader_and_device_batch_match(self, tmp_path, epoch, rank,
+                                                 world_size):
+        jscheme, scheme = schemes(tmp_path, synth_train_samples=23,
+                                  global_batch_size=8)
+        got = list(scheme.train_loader(epoch, rank, world_size))
+        want = list(jscheme.train_loader(epoch, rank, world_size))
+        assert len(got) == len(want) == 3
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_arrays_equal(g, w, f"host batch {i}")
+            assert scheme.batch_num_samples(g) == jscheme.batch_num_samples(w)
+            assert_arrays_equal(scheme.device_batch(g), jscheme.device_batch(w),
+                                f"device batch {i}")
+
+    @pytest.mark.parametrize("coords_input,coords_target",
+                             [("rdkit", "dft"), ("dft", "dft"),
+                              ("none", "dft"), ("rdkit", "rdkit")])
+    def test_device_keys_match(self, tmp_path, coords_input, coords_target):
+        jscheme, scheme = schemes(tmp_path, coords_input=coords_input,
+                                  coords_target=coords_target)
+        assert list(scheme.device_keys()) == list(jscheme.device_keys())
+        host = next(iter(jscheme.train_loader(0, 0, 1)))
+        db = scheme.device_batch(host)
+        assert_arrays_equal(db, jscheme.device_batch(host), "device batch")
+        assert {f"{coords_target}_coords", "sample_mask"} <= set(db)

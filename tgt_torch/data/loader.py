@@ -55,21 +55,21 @@ class DistributedTrainSampler:
 
 class DataLoader:
     """Prefetching loader: dataset rows -> ``collate_fn`` on one host
-    thread, at most ``prefetch`` batches ahead of the consumer."""
+    thread, at most ``PREFETCH`` batches ahead of the consumer."""
 
-    def __init__(self, dataset, sampler, collate_fn: Callable,
-                 prefetch: int = 4):
+    PREFETCH = 4
+
+    def __init__(self, dataset, sampler, collate_fn: Callable):
         self.dataset = dataset
         self.sampler = sampler
         self.collate_fn = collate_fn
-        self.prefetch = prefetch
 
     def _make_batch(self, batch_idx: List[int]) -> Dict[str, np.ndarray]:
         return self.collate_fn([self.dataset[i] for i in batch_idx])
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         batches = list(self.sampler)
-        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        q: "queue.Queue" = queue.Queue(maxsize=self.PREFETCH)
         stop = threading.Event()
 
         def put(item) -> bool:

@@ -1,15 +1,15 @@
 """Where the time of the flagship distance model goes, on one CUDA card.
 
     python -m tgt_torch.profiling [--path serve] [--n 48] [--batch 16]
-                                  [--steps 3] [--trace DIR]
+                                  [--steps 3]
     python -m tgt_torch.profiling --path train [--steps 2]
 
 Builds the flagship TGT-At distance model of
 configs/pcqm/tgt_at_200m/dist_pred/tgt_at_dp_rdkit.yaml with weights from a
 seed and traces, with ``torch.profiler`` after a warm-up:
 - ``serve``: ``--steps`` MC-dropout forwards (the serving forward) of one
-  device batch of ``--batch`` random molecules at bucket ``--n``; with
-  ``--trace DIR`` the Chrome trace goes to ``DIR/profile_serving_n<N>.json``;
+  device batch of ``--batch`` random molecules at bucket ``--n``; the
+  Chrome trace goes to ``chiprun_out/profile_serving_n<N>.json``;
 - ``train``: ``--steps`` optimizer steps of ``Trainer.train_step`` on one
   batch of 64 synthetic molecules of up to 48 atoms (2 accumulated
   micro-batches of 32, bf16, remat), as ``chip_smoke.py`` phase 4 trains.
@@ -114,8 +114,6 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=48)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--trace", metavar="DIR",
-                    help="write the serving Chrome trace into DIR")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling: no CUDA device is available")
@@ -154,10 +152,11 @@ def main() -> int:
                               e.self_device_time_total / 1e3 / args.steps,
                           "share": e.self_device_time_total / device_us}),
               flush=True)
-    if args.path == "serve" and args.trace:
-        os.makedirs(args.trace, exist_ok=True)
+    if args.path == "serve":
+        out_dir = os.path.join(REPO, "chiprun_out")
+        os.makedirs(out_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(
-            args.trace, f"profile_serving_n{args.n}.json"))
+            out_dir, f"profile_serving_n{args.n}.json"))
     return 0
 
 

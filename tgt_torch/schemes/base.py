@@ -147,8 +147,6 @@ class TGTScheme:
             self.cfg.compute_dtype = "bfloat16"
         self.command = command
         self.model_cfg = self.build_model_cfg()
-        self.lr_scale = 1.0
-        self.lr_total_steps = self.cfg.lr_total_steps
         self._datasets: Dict[str, Any] = {}
 
     def default_config(self, command: str) -> Config:
@@ -219,6 +217,10 @@ class TGTScheme:
     def train_loader(self, epoch: int, rank: int, world_size: int):
         """Host batches of ``batch_size * accum`` molecules: the Trainer
         splits each back into ``batch_size`` micro-batches."""
+        if self.cfg.size_bucketed_batching:
+            raise NotImplementedError(
+                "size_bucketed_batching: the size-bucketed train sampler is "
+                "not ported yet (ROADMAP.md item 1j)")
         ds = self.get_dataset("train")
         bsz = self.cfg.batch_size * resolve_grad_accum(self.cfg, world_size)
         sampler = DistributedTrainSampler(len(ds), bsz, rank=rank,

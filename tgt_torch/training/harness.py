@@ -145,18 +145,15 @@ class Trainer:
     """Epoch and step loop around a scheme's task functions, on one device:
     the card unless the caller passes ``device="cpu"``."""
 
-    def __init__(self, scheme, rank: int = 0, world_size: int = 1,
-                 device=None):
+    def __init__(self, scheme, device=None):
         self.device = resolve_device(device)
         self.scheme = scheme
         self.cfg = scheme.cfg
-        self.rank = rank
-        self.world_size = world_size
         self.schedule = scheme.make_lr_schedule()
         self.opt_init, self.opt_update = make_optimizer(self.cfg)
         self.epoch = 0
         self.global_step = 0
-        self.grad_accum = resolve_grad_accum(self.cfg, self.world_size)
+        self.grad_accum = resolve_grad_accum(self.cfg, 1)
 
     # -- state and batches ------------------------------------------------
     def init_state(self, seed: Optional[int] = None) -> Dict[str, Any]:
@@ -254,13 +251,13 @@ class Trainer:
                 grads)
 
     def train_step(self, state: Dict[str, Any], batch: Tensors, step: int,
-                   seed: int, lr_scale: float = 1.0):
+                   seed: int):
         """One optimizer step on a device batch; updates ``state`` in place
         and returns ``(state, metrics)``. A non-finite loss leaves the
         parameters and the optimizer state as they were."""
         model = state["model"]
         loss, aux, grads = self.accumulated_grad(model, batch, seed)
-        lr = self.schedule(step) * lr_scale
+        lr = self.schedule(step)
         named = dict(model.named_parameters())
         with torch.no_grad():
             params = {k: p.detach() for k, p in named.items()}
@@ -317,17 +314,15 @@ class Trainer:
             n = self.scheme.batch_num_samples(batch)
             device_batch = self.to_device(
                 self.pad_device_batch(self.scheme.device_batch(batch)))
-            seed = derive_seed(seed0, self.global_step * self.world_size
-                               + self.rank)
-            state, metrics = self.train_step(state, device_batch,
-                                             self.global_step, seed,
-                                             self.scheme.lr_scale)
+            state, metrics = self.train_step(
+                state, device_batch, self.global_step,
+                derive_seed(seed0, self.global_step))
             pending.append((metrics, n))
             stop_reason = drain()
             if stop_reason:
                 break
             self.global_step += 1
-            if self.global_step > self.scheme.lr_total_steps:
+            if self.global_step > self.cfg.lr_total_steps:
                 stop_reason = drain(flush=True) or "budget"
                 break
         if stop_reason is None:
