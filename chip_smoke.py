@@ -23,6 +23,17 @@ Phases, each of which fails the run (non-zero exit) on error:
    dq, dk, dv, dbias and dgate each within the tolerances above; the out
    direction's pair-transposed K/V views at b=32, N=48 in bf16 and f32;
    two launches on the same inputs bitwise equal.
+2d. The aggregate forward kernel against plain: ``triplet_aggregate_fwd``
+   against ``triplet_aggregate_fwd_reference`` at b=16, N in {24, 40, 48,
+   56}, edge width 256, 16 triplet heads, bf16 and f32, and the training
+   micro-batch (b=32, N=48, bf16), with a padded and a fully masked
+   sample; the out direction's pair-transposed V view at b=32 in bf16 and
+   f32. Tolerances as in 2. One JSON line per case with the kernel's, the
+   plain version's and the library call's times (``torch.einsum``) and the
+   bound.
+2e. The aggregate backward against plain: dA and dV on the same grid with
+   a random cotangent, the transposed V included; two launches bitwise
+   equal; the library time is that of the two einsums of dA and dV.
 3. Serving at full width: the flagship TGT-At distance model of
    configs/pcqm/tgt_at_200m/dist_pred/tgt_at_dp_rdkit.yaml (24 layers,
    node 768, edge 256, 64 heads, 16 triplet heads, 256 bins, bf16) with
@@ -31,10 +42,9 @@ Phases, each of which fails the run (non-zero exit) on error:
    ``DistancePredictor.predict`` and ``predict_bins`` with batch_size 16
    and 10 MC-dropout draws. Checks finite outputs, bins probabilities that
    sum to 1, shapes, that every bucket was served, and that every
-   triplet-attention core of every draw ran the kernel (48 launches per
-   forward). Then one
-   device batch per bucket in deterministic f32 through the kernel and
-   through the plain path: logits agree to 1e-3 max|ref|.
+   triplet core of every draw ran the kernel (48 launches per forward).
+   Then one device batch per bucket in deterministic f32 through the
+   kernel and through the plain path: logits agree to 1e-3 max|ref|.
 4. Training at full width and depth: the same config (bf16, remat, its
    dropouts and drop path) on synthetic molecules of up to 48 atoms,
    ``Trainer.train_epoch`` for one epoch of 256 molecules: 4 optimizer
@@ -48,7 +58,17 @@ Phases, each of which fails the run (non-zero exit) on error:
    random numbers, so both draw the same masks): loss to 1e-5 relative,
    every parameter's gradient to 1e-3 of its max|ref|, and non-zero
    gradients on the triplet projections.
-5. The kernels line, then ``{"ok": true, "device": {...}}`` as the last line.
+5, 6, 6b. Phases 3, 4 and 4b for TGT-Agx2, the aggregate variant:
+   configs/pcqm/tgt_agx2_100m/dist_pred/tgt_agx2_dp_rdkit.yaml (12 layers
+   applied twice each, node 768, edge 256, 64 heads, 16 triplet heads) with
+   ``use_pallas: dense`` set by the caller, through the aggregate kernels:
+   48 forward launches per served forward (2 directions x 12 layers x 2
+   applications); per training micro-batch 48 + 44 forward (the remat
+   replay of the 11 inner layers, twice each) and 48 backward, 736 and 384
+   over the run.
+7. The kernels line, then ``{"ok": true, "device": {...}}`` as the last line.
+
+Each phase prints its wall seconds.
 
 It needs no network and imports nothing of JAX; without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero and prints
@@ -62,6 +82,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -69,6 +90,9 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP_YAML = os.path.join(
     REPO, "configs", "pcqm", "tgt_at_200m", "dist_pred", "tgt_at_dp_rdkit.yaml")
+AGX2_YAML = os.path.join(
+    REPO, "configs", "pcqm", "tgt_agx2_100m", "dist_pred",
+    "tgt_agx2_dp_rdkit.yaml")
 
 # H100 SXM data-sheet peaks (dense): device memory, and the rate of the
 # operations' type (bf16 inputs: tensor cores; f32: the f32 units)
@@ -301,6 +325,142 @@ def backward_kernel_phase(card):
     return flagship
 
 
+# -- phases 2d and 2e: the aggregate kernels against plain --------------------
+
+def agg_inputs(b, n, w, h, dtype, gen):
+    """Weights a (b, i, k, h) = softmax_k(e) * sigmoid(g) and v (b, j, k, d,
+    h) of one direction: sample 1 padded, sample 2 fully masked (its
+    weights are exact zeros, so its output is zero)."""
+    d = w // h
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    node_mask = torch.ones(b, n, device="cuda")
+    node_mask[1, n - 7:] = 0
+    node_mask[2] = 0
+    pair = node_mask[:, :, None] * node_mask[:, None, :]
+    mask = ((1.0 - pair) * -1e9)[..., None]
+    a = (torch.softmax(randn(b, n, n, h) + mask, dim=2)
+         * torch.sigmoid(randn(b, n, n, h) + mask))
+    return a.to(dtype), randn(b, n, n, d, h).to(dtype)
+
+
+def agg_bound(tensors, flops_per_unit, dtype):
+    """Least time (ms): each tensor read or written once over the memory
+    rate, against ``flops_per_unit`` * N^3 * b * d * h flops over the
+    dtype's peak rate."""
+    b, n, _, d, h = tensors[1].shape
+    nbytes = sum(x.numel() * x.element_size() for x in tensors)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops_per_unit * b * n ** 3 * d * h / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# (b, N, dtype): the serving grid at b=16, then the training micro-batch
+AGG_CASES = [(16, n, dtype) for n in (24, 40, 48, 56)
+             for dtype in (torch.bfloat16, torch.float32)] + [
+                 (32, 48, torch.bfloat16)]
+
+
+def dtype_name(dtype):
+    return str(dtype).replace("torch.", "")
+
+
+def aggregate_kernel_phase(card):
+    """Phase 2d; returns the rows at (16, 48, bf16) and (32, 48, bf16)."""
+    from tgt_torch.ops.kernels.triplet_aggregate import (
+        triplet_aggregate_fwd, triplet_aggregate_fwd_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = {}
+    cases = [(b, n, dt, False) for b, n, dt in AGG_CASES] + [
+        (32, 48, dt, True) for dt in (torch.bfloat16, torch.float32)]
+    for b, n, dtype, transposed in cases:
+        a, v = agg_inputs(b, n, 256, 16, dtype, gen)
+        if transposed:
+            v = v.transpose(1, 2)   # the out direction's view, read in place
+        out = triplet_aggregate_fwd(a, v)
+        torch.cuda.synchronize()
+        ref = triplet_aggregate_fwd_reference(a, v)
+        err = float((out.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        ok = (bool(torch.isfinite(out.float()).all())
+              and err <= KERNEL_TOL[dtype] * scale
+              and not bool(out[2].any()))          # the fully masked sample
+        ms = time_ms(lambda: triplet_aggregate_fwd(a, v))
+        plain_ms = time_ms(lambda: triplet_aggregate_fwd_reference(a, v))
+        library_ms = time_ms(lambda: torch.einsum("bikh,bjkdh->bjidh", a, v))
+        bound_ms, bound_by = agg_bound((a, v, out), 2.0, dtype)
+        row = {"case": "triplet_aggregate_fwd", "b": b, "n": n,
+               "edge_width": 256, "heads": 16, "dtype": dtype_name(dtype),
+               "transposed_v": transposed, "max_abs_err": err,
+               "max_abs_ref": scale, "tol": KERNEL_TOL[dtype] * scale,
+               "ok": ok, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": library_ms, "card": card}
+        print(json.dumps(row), flush=True)
+        if not ok:
+            fail(f"aggregate kernel disagrees with its plain version: {row}")
+        if n == 48 and dtype == torch.bfloat16 and not transposed:
+            rows[b] = row
+        del a, v, out, ref
+    return rows
+
+
+AGG_BWD_NAMES = ("da", "dv")
+
+
+def aggregate_backward_phase(card):
+    """Phase 2e; returns the rows at (16, 48, bf16) and (32, 48, bf16)."""
+    from tgt_torch.ops.kernels.triplet_aggregate import (
+        triplet_aggregate_bwd, triplet_aggregate_bwd_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = {}
+    cases = [(b, n, dt, False) for b, n, dt in AGG_CASES] + [
+        (32, 48, dt, True) for dt in (torch.bfloat16, torch.float32)]
+    for b, n, dtype, transposed in cases:
+        a, v = agg_inputs(b, n, 256, 16, dtype, gen)
+        if transposed:
+            v = v.transpose(1, 2)
+        dva = torch.randn(v.shape, device="cuda", generator=gen).to(dtype)
+        got = triplet_aggregate_bwd(a, v, dva)
+        torch.cuda.synchronize()
+        ref = triplet_aggregate_bwd_reference(a, v, dva)
+        errs, ok = {}, True
+        for name, g, r in zip(AGG_BWD_NAMES, got, ref):
+            err = float((g.float() - r.float()).abs().max())
+            tol = KERNEL_TOL[dtype] * float(r.float().abs().max())
+            errs[name] = [err, tol]
+            ok &= bool(torch.isfinite(g.float()).all()) and err <= tol
+        again = triplet_aggregate_bwd(a, v, dva)
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        ms = time_ms(lambda: triplet_aggregate_bwd(a, v, dva))
+        plain_ms = time_ms(lambda: triplet_aggregate_bwd_reference(a, v, dva))
+        library_ms = time_ms(lambda: (
+            torch.einsum("bjidh,bjkdh->bikh", dva, v),
+            torch.einsum("bikh,bjidh->bjkdh", a, dva)))
+        bound_ms, bound_by = agg_bound((a, v, dva, *got), 4.0, dtype)
+        row = {"case": "triplet_aggregate_bwd", "b": b, "n": n,
+               "edge_width": 256, "heads": 16, "dtype": dtype_name(dtype),
+               "transposed_v": transposed, "errs": errs,
+               "max_abs_err": max(e for e, _ in errs.values()), "ok": ok,
+               "bitwise_equal": same, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": library_ms, "card": card}
+        print(json.dumps(row), flush=True)
+        if not ok:
+            fail(f"aggregate backward disagrees with its plain version: "
+                 f"{row}")
+        if not same:
+            fail(f"two aggregate backward launches differ: {row}")
+        if n == 48 and dtype == torch.bfloat16 and not transposed:
+            rows[b] = row
+        del a, v, dva, got, ref, again
+    return rows
+
+
 # -- phase 3: serving ---------------------------------------------------------
 
 def random_molecule(rs: np.random.RandomState, n: int) -> dict:
@@ -359,16 +519,51 @@ def device_batch(mols, buckets):
     return feed
 
 
-def serving_phase(card):
+class ModelSpec(NamedTuple):
+    """A published distance-model config, what the caller sets on it, and
+    the wrappers of the kernels its triplet layers launch."""
+    yaml: str
+    overrides: dict
+    fwd: Callable
+    bwd: Callable
+
+
+def kernel_wrappers():
+    from tgt_torch.ops.kernels import triplet_aggregate as ta
+    from tgt_torch.ops.kernels import triplet_dense as td
+    return (td.triplet_dense_fwd, td.triplet_dense_bwd,
+            ta.triplet_aggregate_fwd, ta.triplet_aggregate_bwd)
+
+
+def reset_counts() -> None:
+    for wrapper in kernel_wrappers():
+        wrapper.launches = 0
+
+
+def check_only(spec: ModelSpec) -> None:
+    """The path launched no kernel but its own."""
+    others = {w.__name__: w.launches for w in kernel_wrappers()
+              if w not in (spec.fwd, spec.bwd) and w.launches}
+    if others:
+        fail(f"{os.path.basename(spec.yaml)} launched other kernels: {others}")
+
+
+def load_config(spec: ModelSpec, **extra) -> dict:
     from tgt_torch.core.config import load_yaml
+
+    raw = load_yaml(spec.yaml)
+    raw.update(spec.overrides, **extra)
+    return raw
+
+
+def serving_phase(card, spec: ModelSpec):
     from tgt_torch.data.collate import pick_bucket
     from tgt_torch.models import make_model
     from tgt_torch.models.heads import DistanceModel
-    from tgt_torch.ops.kernels.triplet_dense import triplet_dense_fwd
     from tgt_torch.schemes import get_scheme
     from tgt_torch.serving import DistancePredictor
 
-    raw = load_yaml(FLAGSHIP_YAML)
+    raw = load_config(spec)
     scheme = get_scheme(raw["scheme"])(raw, command="evaluate")
     cfg = scheme.model_cfg
     buckets = tuple(scheme.cfg.buckets)
@@ -377,8 +572,10 @@ def serving_phase(card):
     model = make_model("distance", cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    print(json.dumps({"model": os.path.relpath(FLAGSHIP_YAML, REPO),
+    print(json.dumps({"model": os.path.relpath(spec.yaml, REPO),
                       "params": n_params, "model_height": cfg.model_height,
+                      "layer_multiplier": cfg.layer_multiplier,
+                      "triplet_type": cfg.triplet_type,
                       "node_width": cfg.node_width,
                       "edge_width": cfg.edge_width,
                       "triplet_heads": cfg.triplet_heads,
@@ -400,7 +597,7 @@ def serving_phase(card):
     requests = [request(rs) for _ in range(3)]
     requests.append(bucket_sweep(rs, buckets, bs))
 
-    triplet_dense_fwd.launches = 0         # the main path starts here
+    reset_counts()                         # the main path starts here
     lat, lat_bins, hit = [], [], set()
     for r, mols in enumerate(requests):
         sizes = sorted(m["num_nodes"] for m in mols)
@@ -411,11 +608,11 @@ def serving_phase(card):
         expect = per_forward * mc * n_batches
         for name, call in (("predict", pred.predict),
                            ("predict_bins", pred.predict_bins)):
-            before = triplet_dense_fwd.launches
+            before = spec.fwd.launches
             t0 = time.perf_counter()
             out = call(mols)
             dt = time.perf_counter() - t0
-            launched = triplet_dense_fwd.launches - before
+            launched = spec.fwd.launches - before
             if launched != expect:
                 fail(f"{name}: {launched} kernel launches, expected {expect}")
             if name == "predict":
@@ -444,13 +641,15 @@ def serving_phase(card):
                           "timed": r < 3, "device_batches": n_batches,
                           "predict_s": req_s, "predict_bins_s": bins_s,
                           "launches_per_call": expect}), flush=True)
-    main_launches = triplet_dense_fwd.launches    # the main path ends here
+    main_launches = spec.fwd.launches      # the main path ends here
+    check_only(spec)
     if hit != set(buckets):
         fail(f"served buckets {sorted(hit)}, expected {list(buckets)}")
 
     p50 = float(np.median(lat))
     print(json.dumps({
-        "serving": "DistancePredictor.predict", "card": card,
+        "serving": "DistancePredictor.predict",
+        "model": os.path.relpath(spec.yaml, REPO), "card": card,
         "molecules_per_s": 64 / p50, "p50_request_s": p50,
         "request_s": lat, "predict_bins_p50_s": float(np.median(lat_bins)),
         "buckets_hit": sorted(hit), "kernel_launches": main_launches}),
@@ -477,9 +676,9 @@ def serving_phase(card):
     for t, nb in enumerate(buckets):
         feed = device_batch(sweep[t * bs:(t + 1) * bs], buckets)
         with torch.inference_mode():
-            before = triplet_dense_fwd.launches
+            before = spec.fwd.launches
             got = paths["dense"](feed)
-            if triplet_dense_fwd.launches - before != per_forward:
+            if spec.fwd.launches - before != per_forward:
                 fail("the f32 kernel path did not launch the kernel")
             ref = paths[False](feed)
         torch.cuda.synchronize()
@@ -497,24 +696,20 @@ def serving_phase(card):
 
 # -- phase 4: training ----------------------------------------------------------
 
-def training_scheme():
-    """The flagship config for training on synthetic molecules of up to 48
-    atoms, 64 molecules per optimizer step: accumulation 2 of 32."""
-    from tgt_torch.core.config import load_yaml
+def training_scheme(spec: ModelSpec):
+    """A config for training on synthetic molecules of up to 48 atoms, 64
+    molecules per optimizer step: accumulation 2 of 32."""
     from tgt_torch.schemes import get_scheme
 
-    raw = load_yaml(FLAGSHIP_YAML)
-    raw.update(dataset_source="synthetic", synth_max_nodes=48,
-               synth_train_samples=256, global_batch_size=64)
+    raw = load_config(spec, dataset_source="synthetic", synth_max_nodes=48,
+                      synth_train_samples=256, global_batch_size=64)
     return get_scheme(raw["scheme"])(raw, command="train")
 
 
-def training_phase(card):
-    from tgt_torch.ops.kernels.triplet_dense import (triplet_dense_bwd,
-                                                     triplet_dense_fwd)
+def training_phase(card, spec: ModelSpec):
     from tgt_torch.training import Trainer
 
-    scheme = training_scheme()
+    scheme = training_scheme(spec)
     cfg = scheme.model_cfg
     trainer = Trainer(scheme, device="cuda")
     if trainer.grad_accum != 2:
@@ -522,9 +717,11 @@ def training_phase(card):
     state = trainer.init_state(seed=0)
     model = state["model"]
     before = {k: v.detach().clone() for k, v in model.named_parameters()}
-    print(json.dumps({"train": os.path.relpath(FLAGSHIP_YAML, REPO),
+    print(json.dumps({"train": os.path.relpath(spec.yaml, REPO),
                       "params": sum(v.numel() for v in before.values()),
                       "model_height": cfg.model_height,
+                      "layer_multiplier": cfg.layer_multiplier,
+                      "triplet_type": cfg.triplet_type,
                       "node_width": cfg.node_width,
                       "edge_width": cfg.edge_width,
                       "triplet_heads": cfg.triplet_heads,
@@ -547,12 +744,13 @@ def training_phase(card):
     loader = scheme.train_loader(0, 0, 1)   # makes the 256 molecules
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.Event(enable_timing=True)
-    triplet_dense_fwd.launches = triplet_dense_bwd.launches = 0  # main path
+    reset_counts()                                  # the main path starts
     start.record()
     state, logs, stop = trainer.train_epoch(state, loader)
     torch.cuda.synchronize()
-    launches = {"fwd": triplet_dense_fwd.launches,
-                "bwd": triplet_dense_bwd.launches}       # main path ends
+    launches = {"fwd": spec.fwd.launches,
+                "bwd": spec.bwd.launches}       # the main path ends
+    check_only(spec)
     n_steps = len(steps)
     per_micro = 2 * cfg.model_height * cfg.layer_multiplier
     expect = {"fwd": n_steps * trainer.grad_accum
@@ -565,7 +763,9 @@ def training_phase(card):
     moved = sum(int(not torch.equal(before[k], v.detach()))
                 for k, v in model.named_parameters())
     steady = float(np.median(step_ms[1:]))
-    row = {"training": "Trainer.train_epoch", "card": card, "steps": n_steps,
+    row = {"training": "Trainer.train_epoch",
+           "model": os.path.relpath(spec.yaml, REPO), "card": card,
+           "steps": n_steps,
            "losses": losses, "ok": oks, "stop": stop, "epoch_loss": logs["loss"],
            "step_ms": step_ms, "median_step_ms_after_first": steady,
            "molecules_per_s": 64 / (steady / 1e3),
@@ -584,12 +784,12 @@ def training_phase(card):
     return launches, model.state_dict()
 
 
-def gradient_phase(card, weights):
+def gradient_phase(card, spec: ModelSpec, weights):
     """One micro-batch in f32: loss and every parameter's gradient through
     the kernels against the plain path, the same weights and seed."""
     from tgt_torch.models.heads import DistanceModel
 
-    scheme = training_scheme()
+    scheme = training_scheme(spec)
     cfg32 = scheme.model_cfg.replace(compute_dtype="float32")
     host = next(iter(scheme.train_loader(1, 0, 1)))
     host = {k: v[:scheme.cfg.batch_size] for k, v in host.items()}
@@ -615,7 +815,8 @@ def gradient_phase(card, weights):
             bad.append((k, err, scale))
     tri = {k: float(g.abs().max()) for k, g in got.items()
            if ".tria." in k and "lin_O" not in k}
-    row = {"gradients_f32": "kernel path vs plain path", "card": card,
+    row = {"gradients_f32": "kernel path vs plain path",
+           "model": os.path.relpath(spec.yaml, REPO), "card": card,
            "n": int(feed["node_features"].shape[1]), "loss": loss,
            "plain_loss": ref_loss, "loss_rel_err": abs(loss - ref_loss)
            / abs(ref_loss), "worst_grad_err_over_max_ref": worst,
@@ -635,6 +836,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     from tgt_torch.ops.kernels import _build
+    from tgt_torch.ops.kernels import triplet_aggregate as ta
     from tgt_torch.ops.kernels import triplet_dense as td
 
     card = card_line()
@@ -644,37 +846,62 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.time()
-    libs = ["triplet_dense_fwd", "triplet_dense_bwd"]
-    _build.build_libraries(libs)
-    build_s = time.time() - t0
+    def phase(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        print(json.dumps({"phase": name, "wall_s": time.time() - t0}),
+              flush=True)
+        return out
+
+    libs = ["triplet_dense_fwd", "triplet_dense_bwd", "triplet_aggregate_fwd",
+            "triplet_aggregate_bwd"]
+    phase("1 build", _build.build_libraries, libs)
     regs = {name: [ln.strip() for ln in
                    (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
                    if "registers" in ln or "spill" in ln] for name in libs}
-    print(json.dumps({"build_s": build_s, "ptxas": regs}), flush=True)
+    print(json.dumps({"ptxas": regs}), flush=True)
 
-    flagship = kernel_phase(card)
-    flagship_bwd = backward_kernel_phase(card)
-    served = serving_phase(card)
-    if served == 0:
-        fail("the served path never launched triplet_dense_fwd")
-    trained, weights = training_phase(card)
-    gradient_phase(card, weights)
+    at = ModelSpec(FLAGSHIP_YAML, {}, td.triplet_dense_fwd,
+                   td.triplet_dense_bwd)
+    agx2 = ModelSpec(AGX2_YAML, {"use_pallas": "dense"},
+                     ta.triplet_aggregate_fwd, ta.triplet_aggregate_bwd)
 
-    def entry(name, source, replaces, launches, by_path, row):
+    flagship = phase("2 attention fwd kernel", kernel_phase, card)
+    flagship_bwd = phase("2b attention bwd kernel", backward_kernel_phase,
+                         card)
+    agg = phase("2d aggregate fwd kernel", aggregate_kernel_phase, card)
+    agg_bwd = phase("2e aggregate bwd kernel", aggregate_backward_phase,
+                    card)
+    served = phase("3 TGT-At serving", serving_phase, card, at)
+    trained, weights = phase("4 TGT-At training", training_phase, card, at)
+    phase("4b TGT-At f32 gradients", gradient_phase, card, at, weights)
+    del weights
+    served_agx2 = phase("5 TGT-Agx2 serving", serving_phase, card, agx2)
+    trained_agx2, weights = phase("6 TGT-Agx2 training", training_phase,
+                                  card, agx2)
+    phase("6b TGT-Agx2 f32 gradients", gradient_phase, card, agx2, weights)
+    if served == 0 or served_agx2 == 0:
+        fail("a served path never launched its triplet kernel")
+
+    def entry(name, source, replaces, by_path, row):
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
+                "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"], "library_ms": None}
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
+    print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": [
         entry("triplet_dense_fwd", td.KERNEL_SOURCE, td.REPLACES,
-              served + trained["fwd"],
               {"serving": served, "training": trained["fwd"]}, flagship),
         entry("triplet_dense_bwd", td.BWD_KERNEL_SOURCE, td.BWD_REPLACES,
-              trained["bwd"], {"training": trained["bwd"]}, flagship_bwd),
+              {"training": trained["bwd"]}, flagship_bwd),
+        entry("triplet_aggregate_fwd", ta.KERNEL_SOURCE, ta.REPLACES,
+              {"serving": served_agx2, "training": trained_agx2["fwd"]},
+              agg[16]),
+        entry("triplet_aggregate_bwd", ta.BWD_KERNEL_SOURCE, ta.BWD_REPLACES,
+              {"training": trained_agx2["bwd"]}, agg_bwd[16]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

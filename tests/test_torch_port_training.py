@@ -13,7 +13,11 @@ tgt_tpu's init, mapped through ``state_dict_from_jax_params``:
   1e-3 of the summed learning rates (the triplet biases that shift a whole
   softmax row, whose gradient is zero in exact arithmetic, within them);
 - with dropout and drop path on, gradients with remat equal those without
-  under the same seed; the NaN-step guard; an all-padding micro-batch;
+  under the same seed, also at ``layer_multiplier=2`` (attention, and
+  aggregate with triplet dropout); the NaN-step guard; an all-padding
+  micro-batch;
+- ``layer_multiplier=2`` with and without remat: deterministic logits to
+  1e-4 of max|ref|, loss and gradients as above, against tgt_tpu;
 - the data path: the synthetic molecules, the train loader's batches and
   the device batches equal tgt_tpu's, key by key, over epochs and ranks.
 """
@@ -98,6 +102,24 @@ def assert_grads_close(model, jgrads, cfg, rel=1e-4):
         assert p.grad is not None, name
         np.testing.assert_allclose(p.grad.numpy(), r, rtol=0,
                                    atol=rel * np.abs(r).max(), err_msg=name)
+
+
+def assert_remat_equals_no_remat(tmp_path, **extra):
+    """Gradients of one stochastic loss with remat equal those without, bit
+    for bit, under the same seed; another seed changes them."""
+    grads = {}
+    for remat, seed in ((False, 5), (True, 5), (False, 6)):
+        _, scheme = schemes(tmp_path, remat=remat, **extra)
+        model = scheme.init_model(0, "cpu")
+        db = tensors(scheme.device_batch(
+            next(iter(scheme.train_loader(0, 0, 1)))))
+        loss, _ = scheme.loss_fn(model, db, seed=seed)
+        loss.backward()
+        grads[remat, seed] = {k: p.grad for k, p in model.named_parameters()}
+    for k, g in grads[False, 5].items():
+        torch.testing.assert_close(grads[True, 5][k], g, rtol=0, atol=0)
+    assert any(not torch.equal(grads[False, 6][k], g)
+               for k, g in grads[False, 5].items())   # masks matter
 
 
 class TestLoss:
@@ -285,21 +307,7 @@ class TestTrainer:
         """checkpoint replays each layer's forward in the backward; the
         layer's generator is made inside the replayed function, so the
         replay draws the forward's masks and the gradients are the same."""
-        grads = {}
-        for remat, seed in ((False, 5), (True, 5), (False, 6)):
-            _, scheme = schemes(tmp_path, remat=remat, model_height=3,
-                                **DROPOUT)
-            model = scheme.init_model(0, "cpu")
-            db = tensors(scheme.device_batch(
-                next(iter(scheme.train_loader(0, 0, 1)))))
-            loss, _ = scheme.loss_fn(model, db, seed=seed)
-            loss.backward()
-            grads[remat, seed] = {k: p.grad for k, p in
-                                  model.named_parameters()}
-        for k, g in grads[False, 5].items():
-            torch.testing.assert_close(grads[True, 5][k], g, rtol=0, atol=0)
-        assert any(not torch.equal(grads[False, 6][k], g)
-                   for k, g in grads[False, 5].items())   # masks matter
+        assert_remat_equals_no_remat(tmp_path, model_height=3, **DROPOUT)
 
     def test_nan_loss_leaves_params_and_moments(self, tmp_path):
         _, scheme = schemes(tmp_path)
@@ -357,6 +365,52 @@ class TestTrainer:
         _, scheme = schemes(tmp_path, size_bucketed_batching=True)
         with pytest.raises(NotImplementedError, match="1j"):
             scheme.train_loader(0, 0, 1)
+
+
+class TestLayerMultiplier:
+    """``layer_multiplier=2`` (each layer applied twice, as every TGT-Agx2
+    config runs), on the attention variant."""
+
+    @pytest.mark.parametrize("remat", [True, False],
+                             ids=["remat", "no_remat"])
+    def test_logits_and_grads_match_tgt_tpu(self, tmp_path, remat):
+        jscheme, scheme = schemes(tmp_path, layer_multiplier=2, remat=remat)
+        params = jscheme.init_params(jax.random.PRNGKey(2))
+        db = first_batch(jscheme)
+        model = port_model(scheme, params)
+        batch = tensors(db)
+        feed = scheme._model_inputs(batch, scheme.edge_mask_of(batch),
+                                    torch.Generator())
+        with torch.no_grad():
+            logits = model(feed, deterministic=True).numpy()
+        ref = np.asarray(jscheme.apply_model(
+            params, {k: jnp.asarray(v.numpy()) for k, v in feed.items()},
+            deterministic=True))
+        np.testing.assert_allclose(logits, ref, rtol=0,
+                                   atol=1e-4 * np.abs(ref).max())
+        (jloss, _), jgrads = jax.jit(jax.value_and_grad(
+            lambda p: jscheme.loss_fn(p, {k: jnp.asarray(v)
+                                          for k, v in db.items()},
+                                      jax.random.PRNGKey(1)),
+            has_aux=True))(params)
+        loss, _ = scheme.loss_fn(model, batch, seed=1)
+        loss.backward()
+        np.testing.assert_allclose(float(loss.detach()), float(jloss),
+                                   rtol=1e-5)
+        assert_grads_close(model, jgrads, scheme.model_cfg)
+
+    @pytest.mark.parametrize("triplet_type", ["attention", "aggregate"])
+    def test_remat_gradients_equal_without_remat_under_dropout(
+            self, tmp_path, triplet_type):
+        """Each application of a layer draws from its own generator, made
+        inside the checkpointed function; the aggregate case also drops
+        triplet weights."""
+        extra = dict(triplet_dropout=0.2) if triplet_type == "aggregate" \
+            else {}
+        assert_remat_equals_no_remat(tmp_path, model_height=2,
+                                     layer_multiplier=2,
+                                     triplet_type=triplet_type,
+                                     **DROPOUT, **extra)
 
 
 def assert_arrays_equal(got, want, where):

@@ -27,8 +27,9 @@ from tgt_torch.models.convert import state_dict_from_jax_params
 from tgt_torch.models.model_config import TGTConfig
 from tgt_torch.ops.kernels.triplet_dense import (triplet_dense_fwd,
                                                  triplet_dense_fwd_reference)
-from tgt_torch.ops.triplet import (TRIPLET_VARIANTS, TripletAttention,
-                                   get_triplet_module)
+from tgt_torch.ops.triplet import (TRIPLET_VARIANTS, AxialAttention,
+                                   TriangularUpdate, TripletAggregate,
+                                   TripletAttention, get_triplet_module)
 
 torch.set_num_threads(1)
 
@@ -208,10 +209,14 @@ class TestRegistry:
         assert len(TRIPLET_VARIANTS) == 6
         assert get_triplet_module("attention")(32, 4).gated
         assert not get_triplet_module("attention_ungated")(32, 4).gated
-        for name in ("aggregate", "aggregate_ungated", "triangular_update",
-                     "tiangular_update", "axial_attention"):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md item 1h"):
-                get_triplet_module(name)
+        for name, cls in (("aggregate", TripletAggregate),
+                          ("aggregate_ungated", TripletAggregate),
+                          ("triangular_update", TriangularUpdate),
+                          ("tiangular_update", TriangularUpdate),
+                          ("axial_attention", AxialAttention)):
+            mod = get_triplet_module(name)(32, 4)
+            assert type(mod) is cls
+            assert getattr(mod, "gated", True) == (name != "aggregate_ungated")
         with pytest.raises(ValueError, match="invalid"):
             get_triplet_module("bogus")
 

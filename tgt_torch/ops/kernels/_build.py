@@ -3,7 +3,8 @@
 Each ``tgt_torch/csrc/<name>.cu`` exposes a plain C entry point. It is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``tgt_torch/_build/`` at first use, and loaded with ``ctypes``. The library
-name carries a hash of the source and flags, so an edited source is rebuilt.
+name carries a hash of the source, the ``csrc/*.cuh`` headers and the flags,
+so an edited source or header is rebuilt.
 The compiler's own report (``-Xptxas -v``: registers, shared memory, spills)
 is kept beside the library as ``<name>.log``.
 
@@ -47,10 +48,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by a hash of its source, the headers beside
+    it and the flags."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_libraries(names: Sequence[str]) -> Dict[str, Path]:

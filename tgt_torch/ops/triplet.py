@@ -1,27 +1,35 @@
 """Triplet interaction layers on the edge channel (counterpart of
-tgt_tpu/ops/triplet.py).
+tgt_tpu/ops/triplet.py): all six variants of the reference registry
+(lib/tgt/layers/triplet.py:6-20). For a pair (i, j) the "in" direction
+works through the edges (j, k), weighted by (i, k); the "out" direction is
+the same computation on pair-transposed tensors.
 
-Ported: gated and ungated triplet attention (``attention``,
-``attention_ungated``), as ``_triplet_attention_impl`` in tgt_tpu
-(reference lib/tgt/layers/triplet.py:179-322). For a pair (i, j) the "in"
-direction attends over k through the edges (j, k), biased and gated by
-(i, k); the "out" direction is the same computation on pair-transposed
-K, V, bias, gate and mask.
+- ``attention``, ``attention_ungated`` (:class:`TripletAttention`): the
+  N^3 core (QK + bias, softmax over k, sigmoid gate, sum over k of a*V) is
+  ``ops/kernels/triplet_dense.triplet_dense`` with ``use_pallas='dense'``
+  (every published TGT-At config): on the card the CUDA forward and
+  backward kernels joined by ``TripletDenseCore``, on the CPU their plain
+  versions. ``use_pallas=False`` takes the plain forward, differentiated
+  by autograd.
+- ``aggregate``, ``aggregate_ungated`` (:class:`TripletAggregate`, the
+  TGT-Agx2 family): the N^2 weights (softmax over k, sigmoid gate, dropout)
+  are plain PyTorch; the O(N^3) k-aggregation is
+  ``ops/kernels/triplet_aggregate.triplet_aggregate_core`` with
+  ``use_pallas='dense'`` (the CUDA kernels of ``_agg_core`` on the card),
+  the plain einsum otherwise (``False``, ``None`` or ``True``: tgt_tpu's
+  aggregate runs its jnp path for ``True``).
+- ``triangular_update`` (:class:`TriangularUpdate`) and
+  ``axial_attention`` (:class:`AxialAttention`): plain PyTorch, as in
+  tgt_tpu, which has no kernel for them; they take ``use_pallas`` and
+  ignore it.
 
-The N^3 core (QK + bias, softmax over k, sigmoid gate, sum over k of a*V)
-is ``ops/kernels/triplet_dense.triplet_dense`` with ``use_pallas='dense'``
-(every published attention config): on the card the CUDA forward and
-backward kernels joined by ``TripletDenseCore``, on the CPU their plain
-versions. ``use_pallas=False`` takes the plain forward, differentiated by
-autograd.
+``lin_O`` is applied split where the reference splits it: its (2W, W)
+weight, rows indexed (d, 2h), is cut into the in-heads ``[:, :h]`` and
+out-heads ``[:, h:]`` and contracted straight out of each direction's
+(b, j, i, d, h) output; one transpose of axes 1 and 2 at the end restores
+(b, i, j, W).
 
-``lin_O`` is applied split: its (2W, W) weight, rows indexed (d, 2h), is
-cut into the in-heads ``[:, :h]`` and out-heads ``[:, h:]`` and contracted
-straight out of each direction's (b, j, i, d, h) output; one transpose of
-axes 1 and 2 at the end restores (b, i, j, W).
-
-The registry keeps all six reference variant names and accepts the
-reference's ``tiangular_update`` typo; the variants not ported yet raise.
+The registry accepts the reference's ``tiangular_update`` typo.
 """
 from __future__ import annotations
 
@@ -31,7 +39,9 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
-from tgt_torch.ops.common import layernorm, linear
+from tgt_torch.ops.common import dropout, layernorm, linear, siglin
+from tgt_torch.ops.kernels.triplet_aggregate import (
+    triplet_aggregate_core, triplet_aggregate_fwd_reference)
 from tgt_torch.ops.kernels.triplet_dense import (triplet_dense,
                                                  triplet_dense_fwd_reference)
 
@@ -103,6 +113,147 @@ class TripletAttention(nn.Module):
         return out_t.transpose(1, 2) + self.lin_O.bias.to(e.dtype)
 
 
+class TripletAggregate(nn.Module):
+    """Gated (``lin_EG``) or ungated (``lin_E``) triplet aggregation
+    (tgt_tpu/ops/triplet.py:109-214, triplet_dense.py:543-610).
+
+    ``mask_out`` says whether the out direction's weights are masked: the
+    reference leaves them unmasked in the gated variant (triplet.py:162,
+    kept for checkpoint parity, so padded rows contribute) and masks both
+    directions in the ungated one."""
+
+    def __init__(self, edge_width: int, num_heads: int, gated: bool = True,
+                 device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.gated = gated
+        self.mask_out = not gated
+        self.tri_ln_e = nn.LayerNorm(edge_width, device=device)
+        self.lin_V = nn.Linear(edge_width, edge_width * 2, device=device)
+        if gated:
+            self.lin_EG = nn.Linear(edge_width, num_heads * 4, device=device)
+        else:
+            self.lin_E = nn.Linear(edge_width, num_heads * 2, device=device)
+        self.lin_O = nn.Linear(edge_width * 2, edge_width, device=device)
+
+    def forward(self, e: torch.Tensor, mask: torch.Tensor, *,
+                attention_dropout: float = 0.0, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None,
+                use_pallas=False) -> torch.Tensor:
+        core = (triplet_aggregate_core if use_pallas == "dense"
+                else triplet_aggregate_fwd_reference)
+        b, n, _, w = e.shape
+        h = self.num_heads
+        d = w // h
+        e_ln = layernorm(self.tri_ln_e, e)
+        v_in, v_out = linear(self.lin_V, e_ln).chunk(2, dim=-1)
+        if self.gated:
+            e_in, g_in, e_out, g_out = linear(self.lin_EG, e_ln).chunk(4, dim=-1)
+        else:
+            e_in, e_out = linear(self.lin_E, e_ln).chunk(2, dim=-1)
+            g_in = g_out = None
+        # torch weight (W_out, 2W) -> tgt_tpu's (2W, W_out) -> (d, 2h, W_out)
+        w_o = self.lin_O.weight.to(e.dtype).t().reshape(d, 2 * h, -1)
+
+        def direction(e_l, g_l, v, w_dir, transpose_pair, masked):
+            v = v.reshape(b, n, n, d, h)
+            m = mask
+            if transpose_pair:
+                e_l = e_l.transpose(1, 2)
+                g_l = None if g_l is None else g_l.transpose(1, 2)
+                v = v.transpose(1, 2)
+                m = mask.transpose(1, 2)
+            if masked:
+                e_l = e_l + m
+                g_l = None if g_l is None else g_l + m
+            a = torch.softmax(e_l, dim=2)                   # (b, i, k, h)
+            if g_l is not None:
+                a = a * torch.sigmoid(g_l)
+            a = dropout(a, attention_dropout, deterministic, generator)
+            va = core(a, v)                                 # (b, j, i, d, h)
+            return torch.einsum("bjidh,dhw->bjiw", va, w_dir)
+
+        out_t = (direction(e_in, g_in, v_in, w_o[:, :h], False, True)
+                 + direction(e_out, g_out, v_out, w_o[:, h:], True,
+                             self.mask_out))
+        return out_t.transpose(1, 2) + self.lin_O.bias.to(e.dtype)
+
+
+class TriangularUpdate(nn.Module):
+    """Gated linear triangle multiplication (tgt_tpu/ops/triplet.py:221-252;
+    reference triplet.py:134-176). No dropout and no kernel."""
+
+    def __init__(self, edge_width: int, num_heads: int, device=None):
+        super().__init__()
+        self.tri_ln_e = nn.LayerNorm(edge_width, device=device)
+        self.lin_V = nn.Linear(edge_width, num_heads * 4, device=device)
+        self.lin_E = nn.Linear(edge_width, num_heads * 4, device=device)
+        self.lin_O = nn.Linear(num_heads * 2, edge_width * 2, device=device)
+
+    def forward(self, e: torch.Tensor, mask: torch.Tensor, *,
+                attention_dropout: float = 0.0, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None,
+                use_pallas=False) -> torch.Tensor:
+        e_ln = layernorm(self.tri_ln_e, e)
+        v_in_g, v_in_l, v_out_g, v_out_l = linear(self.lin_V, e_ln).chunk(4, -1)
+        e_in_g, e_in_l, e_out_g, e_out_l = linear(self.lin_E, e_ln).chunk(4, -1)
+        v_in = siglin(v_in_g + mask, v_in_l)
+        v_out = siglin(v_out_g + mask, v_out_l)
+        e_in = siglin(e_in_g + mask, e_in_l)
+        e_out = siglin(e_out_g + mask, e_out_l)
+        va_in = torch.einsum("bikh,bjkh->bijh", e_in, v_in)
+        va_out = torch.einsum("bkih,bkjh->bijh", e_out, v_out)
+        va = torch.cat([va_in, va_out], dim=-1)
+        out_g, out_l = linear(self.lin_O, va).chunk(2, dim=-1)
+        return siglin(out_g, out_l)
+
+
+class AxialAttention(nn.Module):
+    """Row/column attention without the E/G bias (tgt_tpu/ops/triplet.py:
+    392-436; reference triplet.py:325-387). Plain PyTorch."""
+
+    def __init__(self, edge_width: int, num_heads: int, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.tri_ln_e = nn.LayerNorm(edge_width, device=device)
+        self.lin_QKV_in = nn.Linear(edge_width, edge_width * 3, device=device)
+        self.lin_QKV_out = nn.Linear(edge_width, edge_width * 3, device=device)
+        self.lin_O = nn.Linear(edge_width * 2, edge_width, device=device)
+
+    def forward(self, e: torch.Tensor, mask: torch.Tensor, *,
+                attention_dropout: float = 0.0, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None,
+                use_pallas=False) -> torch.Tensor:
+        b, n, _, w = e.shape
+        h = self.num_heads
+        d = w // h
+        scale = d ** -0.5
+        e_ln = layernorm(self.tri_ln_e, e)
+        w_o = self.lin_O.weight.to(e.dtype).t().reshape(d, 2 * h, -1)
+
+        def direction(which: str, w_dir: torch.Tensor,
+                      transpose_pair: bool) -> torch.Tensor:
+            qkv = linear(getattr(self, f"lin_QKV_{which}"), e_ln)
+            q, k, v = (t.reshape(b, n, n, d, h) for t in qkv.chunk(3, dim=-1))
+            q = q * scale
+            m = mask
+            if transpose_pair:
+                k = k.transpose(1, 2)
+                v = v.transpose(1, 2)
+                m = mask.transpose(1, 2)
+            # mask (b, i, k, 1) -> (b, 1, 1, i, k), broadcast over (j, h)
+            s = (torch.einsum("bijdh,bjkdh->bjhik", q, k)
+                 + m.permute(0, 3, 1, 2)[:, None])
+            a = dropout(torch.softmax(s, dim=-1), attention_dropout,
+                        deterministic, generator)
+            va = torch.einsum("bjhik,bjkdh->bjhid", a, v)
+            return torch.einsum("bjhid,dhw->bjiw", va, w_dir)
+
+        out_t = (direction("in", w_o[:, :h], False)
+                 + direction("out", w_o[:, h:], True))
+        return out_t.transpose(1, 2) + self.lin_O.bias.to(e.dtype)
+
+
 # ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
@@ -110,12 +261,13 @@ class TripletAttention(nn.Module):
 TRIPLET_VARIANTS = ("aggregate", "aggregate_ungated", "attention",
                     "attention_ungated", "triangular_update", "axial_attention")
 
-# variant -> the ROADMAP.md item that ports it
-_NOT_PORTED = {
-    "aggregate": "1h (with kernels 2d/2e)",
-    "aggregate_ungated": "1h (with kernels 2d/2e)",
-    "triangular_update": "1h",
-    "axial_attention": "1h",
+_CONSTRUCTORS = {
+    "aggregate": functools.partial(TripletAggregate, gated=True),
+    "aggregate_ungated": functools.partial(TripletAggregate, gated=False),
+    "attention": functools.partial(TripletAttention, gated=True),
+    "attention_ungated": functools.partial(TripletAttention, gated=False),
+    "triangular_update": TriangularUpdate,
+    "axial_attention": AxialAttention,
 }
 
 
@@ -131,9 +283,4 @@ def _canon(variant: str) -> str:
 def get_triplet_module(variant: str) -> Callable[..., nn.Module]:
     """Constructor ``(edge_width, num_heads, device=None) -> nn.Module`` of
     a triplet variant."""
-    variant = _canon(variant)
-    if variant in _NOT_PORTED:
-        raise NotImplementedError(
-            f"triplet variant {variant!r} is not ported yet (ROADMAP.md item "
-            f"{_NOT_PORTED[variant]})")
-    return functools.partial(TripletAttention, gated=variant == "attention")
+    return _CONSTRUCTORS[_canon(variant)]

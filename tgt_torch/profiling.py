@@ -1,15 +1,18 @@
-"""Where the time of the flagship distance model goes, on one CUDA card.
+"""Where the time of a distance model goes, on one CUDA card.
 
     python -m tgt_torch.profiling [--path serve] [--n 48] [--batch 16]
-                                  [--steps 3]
-    python -m tgt_torch.profiling --path train [--steps 2]
+                                  [--steps 3] [--config YAML]
+                                  [--use-pallas dense]
+    python -m tgt_torch.profiling --path train [--steps 2] [--config YAML]
 
-Builds the flagship TGT-At distance model of
-configs/pcqm/tgt_at_200m/dist_pred/tgt_at_dp_rdkit.yaml with weights from a
+Builds the distance model of ``--config`` (by default the flagship TGT-At,
+configs/pcqm/tgt_at_200m/dist_pred/tgt_at_dp_rdkit.yaml; for TGT-Agx2 pass
+configs/pcqm/tgt_agx2_100m/dist_pred/tgt_agx2_dp_rdkit.yaml with
+``--use-pallas dense``, which that config leaves unset) with weights from a
 seed and traces, with ``torch.profiler`` after a warm-up:
 - ``serve``: ``--steps`` MC-dropout forwards (the serving forward) of one
   device batch of ``--batch`` random molecules at bucket ``--n``; the
-  Chrome trace goes to ``chiprun_out/profile_serving_n<N>.json``;
+  Chrome trace goes to ``chiprun_out/profile_serving_<config>_n<N>.json``;
 - ``train``: ``--steps`` optimizer steps of ``Trainer.train_step`` on one
   batch of 64 synthetic molecules of up to 48 atoms (2 accumulated
   micro-batches of 32, bf16, remat), as ``chip_smoke.py`` phase 4 trains.
@@ -62,13 +65,22 @@ def _batch(rs, n_bucket: int, b: int, device):
     return feed
 
 
+def _raw_config(args, **extra):
+    from tgt_torch.core.config import load_yaml
+
+    raw = load_yaml(args.config)
+    if args.use_pallas is not None:
+        raw["use_pallas"] = args.use_pallas
+    raw.update(extra)
+    return raw
+
+
 def _serving(args):
     """(run(i), description) of one MC-dropout forward."""
-    from tgt_torch.core.config import load_yaml
     from tgt_torch.models import make_model
     from tgt_torch.schemes import get_scheme
 
-    raw = load_yaml(FLAGSHIP_YAML)
+    raw = _raw_config(args)
     cfg = get_scheme(raw["scheme"])(raw, command="evaluate").model_cfg
     model = make_model("distance", cfg, device="cuda", seed=0)
     feed = _batch(np.random.RandomState(0), args.n, args.batch, "cuda")
@@ -78,18 +90,16 @@ def _serving(args):
             model(feed, deterministic=False, seed=i)
 
     return run, {"profile": "serving forward (MC dropout on)", "n": args.n,
-                 "batch": args.batch}
+                 "batch": args.batch, "use_pallas": cfg.use_pallas}
 
 
 def _training(args):
     """(run(i), description) of one optimizer step of the trainer."""
-    from tgt_torch.core.config import load_yaml
     from tgt_torch.schemes import get_scheme
     from tgt_torch.training import Trainer
 
-    raw = load_yaml(FLAGSHIP_YAML)
-    raw.update(dataset_source="synthetic", synth_max_nodes=48,
-               synth_train_samples=64, global_batch_size=64)
+    raw = _raw_config(args, dataset_source="synthetic", synth_max_nodes=48,
+                      synth_train_samples=64, global_batch_size=64)
     scheme = get_scheme(raw["scheme"])(raw, command="train")
     trainer = Trainer(scheme, device="cuda")
     state = trainer.init_state(seed=0)
@@ -103,7 +113,8 @@ def _training(args):
     return run, {"profile": "training step (Trainer.train_step)",
                  "n": int(batch["node_features"].shape[1]),
                  "batch": int(batch["node_features"].shape[0]),
-                 "accum": trainer.grad_accum}
+                 "accum": trainer.grad_accum,
+                 "use_pallas": scheme.model_cfg.use_pallas}
 
 
 def main() -> int:
@@ -114,6 +125,10 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=48)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--config", default=FLAGSHIP_YAML,
+                    help="a dist_pred config (default: the flagship TGT-At)")
+    ap.add_argument("--use-pallas", default=None,
+                    help="override the config's use_pallas, e.g. dense")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling: no CUDA device is available")
@@ -137,7 +152,8 @@ def main() -> int:
     kernels = [e for e in events if e.device_type == cuda]
     device_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
-    print(json.dumps({**desc, "card": card, "steps": args.steps,
+    print(json.dumps({**desc, "config": os.path.relpath(args.config, REPO),
+                      "card": card, "steps": args.steps,
                       "wall_ms_per_step": wall * 1e3 / args.steps,
                       "device_ms_per_step": device_us / 1e3 / args.steps,
                       "device_busy_share": device_us / 1e6 / wall,
@@ -155,8 +171,9 @@ def main() -> int:
     if args.path == "serve":
         out_dir = os.path.join(REPO, "chiprun_out")
         os.makedirs(out_dir, exist_ok=True)
+        name = os.path.splitext(os.path.basename(args.config))[0]
         prof.export_chrome_trace(os.path.join(
-            out_dir, f"profile_serving_n{args.n}.json"))
+            out_dir, f"profile_serving_{name}_n{args.n}.json"))
     return 0
 
 
