@@ -357,10 +357,13 @@ def agg_bound(tensors, flops_per_unit, dtype):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-# (b, N, dtype): the serving grid at b=16, then the training micro-batch
-AGG_CASES = [(16, n, dtype) for n in (24, 40, 48, 56)
+# (b, N, dtype, transposed V): the serving grid at b=16, the training
+# micro-batch, and the out direction's pair-transposed V view at b=32
+AGG_CASES = [(16, n, dtype, False) for n in (24, 40, 48, 56)
              for dtype in (torch.bfloat16, torch.float32)] + [
-                 (32, 48, torch.bfloat16)]
+                 (32, 48, torch.bfloat16, False)] + [
+                 (32, 48, dtype, True)
+                 for dtype in (torch.bfloat16, torch.float32)]
 
 
 def dtype_name(dtype):
@@ -374,9 +377,7 @@ def aggregate_kernel_phase(card):
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = {}
-    cases = [(b, n, dt, False) for b, n, dt in AGG_CASES] + [
-        (32, 48, dt, True) for dt in (torch.bfloat16, torch.float32)]
-    for b, n, dtype, transposed in cases:
+    for b, n, dtype, transposed in AGG_CASES:
         a, v = agg_inputs(b, n, 256, 16, dtype, gen)
         if transposed:
             v = v.transpose(1, 2)   # the out direction's view, read in place
@@ -408,9 +409,6 @@ def aggregate_kernel_phase(card):
     return rows
 
 
-AGG_BWD_NAMES = ("da", "dv")
-
-
 def aggregate_backward_phase(card):
     """Phase 2e; returns the rows at (16, 48, bf16) and (32, 48, bf16)."""
     from tgt_torch.ops.kernels.triplet_aggregate import (
@@ -418,9 +416,7 @@ def aggregate_backward_phase(card):
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = {}
-    cases = [(b, n, dt, False) for b, n, dt in AGG_CASES] + [
-        (32, 48, dt, True) for dt in (torch.bfloat16, torch.float32)]
-    for b, n, dtype, transposed in cases:
+    for b, n, dtype, transposed in AGG_CASES:
         a, v = agg_inputs(b, n, 256, 16, dtype, gen)
         if transposed:
             v = v.transpose(1, 2)
@@ -429,7 +425,7 @@ def aggregate_backward_phase(card):
         torch.cuda.synchronize()
         ref = triplet_aggregate_bwd_reference(a, v, dva)
         errs, ok = {}, True
-        for name, g, r in zip(AGG_BWD_NAMES, got, ref):
+        for name, g, r in zip(("da", "dv"), got, ref):
             err = float((g.float() - r.float()).abs().max())
             tol = KERNEL_TOL[dtype] * float(r.float().abs().max())
             errs[name] = [err, tol]

@@ -8,7 +8,9 @@ This package imports ``torch``, ``numpy`` and ``yaml``; it never imports
 
 Ported so far: serving of the distance predictor (``tgt_torch.serving.
 DistancePredictor``) and its training (``tgt_torch.training.Trainer`` on
-the ``pcqm.dist_pred`` scheme), with the gated/ungated triplet-attention
-models, whose triplet core runs the CUDA kernels
-``csrc/triplet_dense_fwd.cu`` and ``csrc/triplet_dense_bwd.cu`` on the card.
+the ``pcqm.dist_pred`` scheme), with all six triplet variants. With
+``use_pallas: dense`` the triplet core runs hand-written CUDA kernels on the
+card: ``csrc/triplet_dense_{fwd,bwd}.cu`` for the attention variants
+(TGT-At), ``csrc/triplet_aggregate_{fwd,bwd}.cu`` for the aggregate variants
+(TGT-Agx2).
 """

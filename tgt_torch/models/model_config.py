@@ -58,10 +58,12 @@ class TGTConfig:
     remat: bool = False
     remat_policy: str = "none"
     use_scan: bool = True
-    # Triplet-attention core: 'dense' = the hand-written CUDA kernel
-    # (ops/kernels/triplet_dense.py) on every bucket; False = the plain
-    # PyTorch einsum path. True/'fused' (tgt_tpu's legacy kernel) is not
-    # ported yet.
+    # Triplet core: 'dense' = the hand-written CUDA kernels on every bucket
+    # (ops/kernels/triplet_dense.py for the attention variants,
+    # ops/kernels/triplet_aggregate.py for the aggregate ones); False = the
+    # plain PyTorch einsum path. True (tgt_tpu's legacy fused kernel) is not
+    # ported for the attention variants yet; the aggregate variants take
+    # their plain path for it, as tgt_tpu does.
     use_pallas: object = False
     # tgt_tpu's measured TPU crossover for its dense kernel. Parsed so
     # configs load; the port does not read them (no TPU crossover applies).

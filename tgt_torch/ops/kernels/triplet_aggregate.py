@@ -99,7 +99,7 @@ def shared_bytes(n: int, d: int, h: int, itemsize: int) -> int:
     return max(panel, 4 * (12 * d * h + v_rows * (d * h + h)))
 
 
-def _check_kernel_limits(v, dva=None) -> None:
+def _check_kernel_limits(v) -> None:
     """What both kernels take; raises on anything else."""
     if v.device.type != "cuda":
         raise ValueError(f"the aggregate kernels run on cpu or cuda, not "
@@ -117,10 +117,9 @@ def _check_kernel_limits(v, dva=None) -> None:
     if b * -(-n // J_CHUNK) > 65535:
         raise ValueError(f"the kernel takes at most 65535 (batch row, chunk "
                          f"of {J_CHUNK} j) pairs, got b={b}, N={n}")
-    for name, t in (("v", v), ("dva", dva)):
-        if t is not None and (t.stride(4) != 1 or t.stride(3) != h):
-            raise ValueError(f"{name}'s (d, h) axes must be contiguous, "
-                             f"strides {t.stride()}")
+    if v.stride(4) != 1 or v.stride(3) != h:
+        raise ValueError(f"v's (d, h) axes must be contiguous, strides "
+                         f"{v.stride()}")
 
 
 @functools.cache
@@ -181,8 +180,8 @@ def triplet_aggregate_bwd(a: torch.Tensor, v: torch.Tensor,
     _check_shapes(a, v, dva)
     if v.device.type == "cpu":
         return triplet_aggregate_bwd_reference(a, v, dva)
+    _check_kernel_limits(v)
     dva = dva.contiguous()
-    _check_kernel_limits(v, dva)
     b, n, _, d, h = v.shape
     a = a.contiguous()
     da = torch.empty((b, n, n, h), dtype=a.dtype, device=v.device)
