@@ -12,7 +12,8 @@ configs/pcqm/tgt_agx2_100m/dist_pred/tgt_agx2_dp_rdkit.yaml with
 seed and traces, with ``torch.profiler`` after a warm-up:
 - ``serve``: ``--steps`` MC-dropout forwards (the serving forward) of one
   device batch of ``--batch`` random molecules at bucket ``--n``; the
-  Chrome trace goes to ``chiprun_out/profile_serving_<config>_n<N>.json``;
+  Chrome trace is written as ``profile_serving_<config>_n<N>.json`` into
+  the repository's git-ignored output directory;
 - ``train``: ``--steps`` optimizer steps of ``Trainer.train_step`` on one
   batch of 64 synthetic molecules of up to 48 atoms (2 accumulated
   micro-batches of 32, bf16, remat), as ``chip_smoke.py`` phase 4 trains.
