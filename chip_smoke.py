@@ -6,9 +6,9 @@
 Phases, each of which fails the run (non-zero exit) on error:
 
 1. Environment and build: versions, the card's name and power limit, and
-   the build of every CUDA kernel of the served and trained paths from the
-   sources in this checkout (``nvcc`` for sm_90a, one process per source,
-   started together), with each kernel's ptxas report.
+   the build of the six CUDA kernel sources of the package from this
+   checkout (``nvcc`` for sm_90a, one process per source, started
+   together), with each kernel's ptxas report.
 2. Kernel against plain: ``triplet_dense_fwd`` against its plain PyTorch
    version on the card at b=16, N in {24, 40, 48, 56}, edge width 256,
    16 triplet heads; gated and ungated; bf16 and f32; plus the training
@@ -17,12 +17,21 @@ Phases, each of which fails the run (non-zero exit) on error:
    sample, a fully masked sample and a head whose bias sits 300 below the
    rest. Tolerance max|diff| <= 1e-4 max|ref| in f32, 1e-2 max|ref| in bf16
    (bf16 output rounding is 2^-8). One JSON line per case with the kernel's
-   and the plain version's times (CUDA events, median of 20) and the bound.
+   and the plain version's times (CUDA events, median of 20) and the bound;
+   for the ungated cases also the library time: one call of
+   ``scaled_dot_product_attention`` with the bias as an additive mask on
+   head-major copies, and the backend that ran.
 2b. The backward kernel against plain: ``triplet_dense_bwd`` against
    ``triplet_dense_bwd_reference`` on the same grid with a random cotangent;
    dq, dk, dv, dbias and dgate each within the tolerances above; the out
    direction's pair-transposed K/V views at b=32, N=48 in bf16 and f32;
-   two launches on the same inputs bitwise equal.
+   two launches on the same inputs bitwise equal; the library time is
+   SDPA's backward.
+2c. The dense pair at dropout rate 0.3 against its plain versions with the
+   same per-row seeds, on phase 2's grid and the transposed K/V views at
+   b=32: the forward and the five gradients within the tolerances above,
+   the backward bitwise equal on repeat, and other seeds change the
+   output.
 2d. The aggregate forward kernel against plain: ``triplet_aggregate_fwd``
    against ``triplet_aggregate_fwd_reference`` at b=16, N in {24, 40, 48,
    56}, edge width 256, 16 triplet heads, bf16 and f32, and the training
@@ -34,6 +43,10 @@ Phases, each of which fails the run (non-zero exit) on error:
 2e. The aggregate backward against plain: dA and dV on the same grid with
    a random cotangent, the transposed V included; two launches bitwise
    equal; the library time is that of the two einsums of dA and dV.
+2f, 2g. The legacy pair (``use_pallas: true``) against its plain versions
+   on phase 2's grid, both directions stacked on the head axis (2 x 16
+   heads, head-major), ungated with the constant gate 30.0; tolerances,
+   determinism and library times as in 2 and 2b.
 3. Serving at full width: the flagship TGT-At distance model of
    configs/pcqm/tgt_at_200m/dist_pred/tgt_at_dp_rdkit.yaml (24 layers,
    node 768, edge 256, 64 heads, 16 triplet heads, 256 bins, bf16) with
@@ -58,6 +71,19 @@ Phases, each of which fails the run (non-zero exit) on error:
    random numbers, so both draw the same masks): loss to 1e-5 relative,
    every parameter's gradient to 1e-3 of its max|ref|, and non-zero
    gradients on the triplet projections.
+3d, 4d, 4bd. Phases 3, 4 and 4b for Path D: the same config with
+   ``triplet_dropout: 0.1`` set by the caller (the yaml's own activation-
+   dropout rate; no published config sets it), so every MC draw and
+   training step runs the dense pair at rate > 0, counted apart
+   (``dropout_launches``: 48 per served forward, 752 forward and 384
+   backward over the training run, and no rate-0 launch); the f32
+   gradients are held against the same model with the core swapped for
+   its plain version, which draws the same seeds and masks. The
+   deterministic checks of phase 3 are not repeated.
+3l, 4l, 4bl. Phases 3, 4 and 4b for Path L: the same config with
+   ``use_pallas: True``, through the legacy pair, one launch for both
+   directions: 24 forward launches per served forward; per training
+   micro-batch 24 + 23 forward and 24 backward, 376 and 192 over the run.
 5, 6, 6b. Phases 3, 4 and 4b for TGT-Agx2, the aggregate variant:
    configs/pcqm/tgt_agx2_100m/dist_pred/tgt_agx2_dp_rdkit.yaml (12 layers
    applied twice each, node 768, edge 256, 64 heads, 16 triplet heads) with
@@ -66,9 +92,12 @@ Phases, each of which fails the run (non-zero exit) on error:
    applications); per training micro-batch 48 + 44 forward (the remat
    replay of the 11 inner layers, twice each) and 48 backward, 736 and 384
    over the run.
-7. The kernels line, then ``{"ok": true, "device": {...}}`` as the last line.
+7. The kernels line (six kernels, launches by path, the dense pair's
+   dropout launches and rate > 0 times), then ``{"ok": true, "device":
+   {...}}`` as the last line.
 
-Each phase prints its wall seconds.
+Each phase prints its wall seconds. Every JSON row is also appended to
+``chiprun_out/chip_smoke_rows.jsonl``, which the run starts empty.
 
 It needs no network and imports nothing of JAX; without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero and prints
@@ -76,6 +105,7 @@ no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -100,10 +130,21 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 MODEL_TOL = 1e-3
+RATE = 0.3          # the dropout rate of the kernel phase 2c
+ROWS_PATH = os.path.join(REPO, "chiprun_out", "chip_smoke_rows.jsonl")
 
 
 def fail(msg: str) -> None:
     raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def emit(row: dict) -> None:
+    """Print one JSON row and append it to ROWS_PATH (the end of a long
+    output may be all that a caller keeps)."""
+    line = json.dumps(row)
+    print(line, flush=True)
+    with open(ROWS_PATH, "a") as f:
+        f.write(line + "\n")
 
 
 def card_line() -> str:
@@ -167,6 +208,77 @@ def bound(inputs, out, dtype):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# The ungated cores are one PyTorch call: scaled_dot_product_attention with
+# the bias as an additive mask (the legacy pair's constant gate of 30.0 has a
+# sigmoid of exactly 1.0 in f32). Its fused backends take 4-D (B, H, L, E)
+# tensors with E contiguous: B is the row j and H the pair (b, h), whose
+# (i, k) bias broadcasts over j. The first backend of SDPA_BACKENDS that
+# runs the call is timed and named.
+SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION",
+                 "MATH")
+
+
+def dense_as_sdpa(q, k, v, bias, dva=None):
+    """The dense core's operands as SDPA's: copies to (j, b*h, i|k, d), the
+    mask (1, b*h, i, k) and the cotangent like q. The copies are made here,
+    outside the timed call."""
+    b, n, _, d, h = q.shape
+
+    def heads(x, order):
+        return x.permute(*order).contiguous().reshape(n, b * h, n, d)
+
+    out = (heads(q, (2, 0, 4, 1, 3)), heads(k, (1, 0, 4, 2, 3)),
+           heads(v, (1, 0, 4, 2, 3)),
+           bias.permute(0, 3, 1, 2).contiguous().reshape(1, b * h, n, n))
+    return out if dva is None else out + (heads(dva, (1, 0, 4, 2, 3)),)
+
+
+def legacy_as_sdpa(q_t, k_t, v_t, bias, dout=None):
+    """The legacy core's head-major operands as SDPA's (j, b*h, i|k, d)
+    views (no copy), the mask (1, b*h, i, k) and the cotangent like q."""
+    b, h, nj, n, d = q_t.shape
+
+    def heads(x):
+        return x.permute(2, 0, 1, 3, 4).reshape(nj, b * h, n, d)
+
+    out = (heads(q_t), heads(k_t), heads(v_t), bias.reshape(1, b * h, n, n))
+    return out if dout is None else out + (heads(dout),)
+
+
+def sdpa_time(scale, q, k, v, mask, dout=None):
+    """(ms, backend) of SDPA's forward on these inputs or, given the output
+    cotangent ``dout``, of its backward; (None, None) if no backend runs."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        try:
+            with sdpa_kernel([backend]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")     # why a backend declined
+                if dout is None:
+                    def call():
+                        return sdpa(q, k, v, attn_mask=mask, scale=scale)
+                else:
+                    leaves = [x.detach().requires_grad_()
+                              for x in (q, k, v, mask)]
+                    out = sdpa(*leaves[:3], attn_mask=leaves[3], scale=scale)
+
+                    def call():
+                        return torch.autograd.grad(out, leaves, dout,
+                                                   retain_graph=True)
+                call()
+                torch.cuda.synchronize()
+                return time_ms(call), name
+        except RuntimeError:
+            continue
+    return None, None
+
+
 # (b, N, dtype, gated): the serving grid at b=16, then the training
 # micro-batch of the flagship config (b=32 molecules of up to 48 atoms, bf16)
 KERNEL_CASES = [(16, n, dtype, gated) for n in (24, 40, 48, 56)
@@ -174,9 +286,10 @@ KERNEL_CASES = [(16, n, dtype, gated) for n in (24, 40, 48, 56)
                 for gated in (True, False)] + [(32, 48, torch.bfloat16, True)]
 
 
-def is_flagship(b, n, dtype, gated):
-    """The case the kernels line reports: b=16, N=48, bf16, gated."""
-    return (b, n, dtype, gated) == (16, 48, torch.bfloat16, True)
+# the cases the kernels line reports: b=16, N=48, bf16, gated (and ungated,
+# whose library time SDPA gives)
+FLAGSHIP = (16, 48, torch.bfloat16, True)
+UNGATED = (16, 48, torch.bfloat16, False)
 
 
 def kernel_phase(card):
@@ -184,7 +297,7 @@ def kernel_phase(card):
         triplet_dense_fwd, triplet_dense_fwd_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    flagship = None
+    rows = {}
     for b, n, dtype, gated in KERNEL_CASES:
         inputs = core_inputs(b, n, 256, 16, dtype, gated, gen)
         out = triplet_dense_fwd(*inputs)
@@ -198,18 +311,20 @@ def kernel_phase(card):
         ms = time_ms(lambda: triplet_dense_fwd(*inputs))
         plain_ms = time_ms(lambda: triplet_dense_fwd_reference(*inputs))
         bound_ms, bound_by = bound(inputs, out, dtype)
+        library_ms, backend = (None, None) if gated else sdpa_time(
+            1.0, *dense_as_sdpa(*inputs[:4]))
         row = {"case": "triplet_dense_fwd", "b": b, "n": n,
                "edge_width": 256, "heads": 16,
                "dtype": str(dtype).replace("torch.", ""),
                "gated": gated, "max_abs_err": err, "max_abs_ref": scale,
                "tol": KERNEL_TOL[dtype] * scale, "ok": ok, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": None, "card": card}
-        print(json.dumps(row), flush=True)
+               "bound_by": bound_by, "library_ms": library_ms,
+               "library": backend, "card": card}
+        emit(row)
         if not ok:
             fail(f"kernel disagrees with its plain version: {row}")
-        if is_flagship(b, n, dtype, gated):
-            flagship = row
+        rows[(b, n, dtype, gated)] = row
         del inputs, out, ref
 
     # the out direction's pair-transposed K and V views at the training
@@ -222,14 +337,13 @@ def kernel_phase(card):
         err = float((out.float() - ref.float()).abs().max())
         tol = KERNEL_TOL[dtype] * float(ref.float().abs().max())
         ok = bool(torch.isfinite(out.float()).all()) and err <= tol
-        print(json.dumps({"case": "triplet_dense_fwd transposed k/v", "b": 32,
+        emit({"case": "triplet_dense_fwd transposed k/v", "b": 32,
                           "n": 48, "dtype": str(dtype).replace("torch.", ""),
-                          "max_abs_err": err, "tol": tol, "ok": ok}),
-              flush=True)
+                          "max_abs_err": err, "tol": tol, "ok": ok})
         if not ok:
             fail(f"kernel disagrees on the transposed k/v views in {dtype}")
         del q, k, v, bias, gate, out, ref
-    return flagship
+    return rows
 
 
 # -- phase 2b: the backward kernel against plain -----------------------------
@@ -269,7 +383,7 @@ def backward_kernel_phase(card):
         triplet_dense_bwd, triplet_dense_bwd_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    flagship = None
+    rows = {}
     for b, n, dtype, gated in KERNEL_CASES:
         inputs = core_inputs(b, n, 256, 16, dtype, gated, gen)
         dva = torch.randn(inputs[0].shape, device="cuda",
@@ -282,6 +396,8 @@ def backward_kernel_phase(card):
         plain_ms = time_ms(
             lambda: triplet_dense_bwd_reference(*inputs, dva))
         bound_ms, bound_by = bwd_bound(inputs, dva, got, dtype)
+        library_ms, backend = (None, None) if gated else sdpa_time(
+            1.0, *dense_as_sdpa(*inputs[:4], dva))
         row = {"case": "triplet_dense_bwd", "b": b, "n": n,
                "edge_width": 256, "heads": 16,
                "dtype": str(dtype).replace("torch.", ""),
@@ -289,19 +405,17 @@ def backward_kernel_phase(card):
                "max_abs_err": max(e for e, _ in errs.values()),
                "ok": ok, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": None, "card": card}
-        print(json.dumps(row), flush=True)
+               "library_ms": library_ms, "library": backend, "card": card}
+        emit(row)
         if not ok:
             fail(f"backward kernel disagrees with its plain version: "
                  f"{row}")
-        if is_flagship(b, n, dtype, gated):
-            flagship = row
+        rows[(b, n, dtype, gated)] = row
         if n == 48 and dtype == torch.bfloat16 and gated:
             again = triplet_dense_bwd(*inputs, dva)
             same = all(torch.equal(x, y) for x, y in zip(got, again))
-            print(json.dumps({"case": "triplet_dense_bwd determinism",
-                              "b": b, "bitwise_equal": same}),
-                  flush=True)
+            emit({"case": "triplet_dense_bwd determinism",
+                              "b": b, "bitwise_equal": same})
             if not same:
                 fail("two backward launches on the same inputs differ")
         del inputs, dva, got, ref
@@ -315,13 +429,92 @@ def backward_kernel_phase(card):
         got = triplet_dense_bwd(q, k, v, bias, gate, dva)
         ref = triplet_dense_bwd_reference(q, k, v, bias, gate, dva)
         errs, ok = compare_bwd(got, ref, dtype)
-        print(json.dumps({"case": "triplet_dense_bwd transposed k/v", "b": 32,
+        emit({"case": "triplet_dense_bwd transposed k/v", "b": 32,
                           "n": 48, "dtype": str(dtype).replace("torch.", ""),
-                          "errs": errs, "ok": ok}), flush=True)
+                          "errs": errs, "ok": ok})
         if not ok:
             fail(f"backward kernel disagrees on the transposed k/v views "
                  f"in {dtype}")
         del q, k, v, bias, gate, dva, got, ref
+    return rows
+
+
+# -- phase 2c: the dense pair at rate > 0 against plain ----------------------
+
+# phase 2's cases, then the out direction's pair-transposed K/V views at the
+# training micro-batch: (b, N, dtype, gated, transposed K/V)
+DROPOUT_CASES = [case + (False,) for case in KERNEL_CASES] + [
+    (32, 48, dtype, True, True) for dtype in (torch.bfloat16, torch.float32)]
+
+
+def dropout_kernel_phase(card):
+    """Phase 2c; returns the forward and backward rows at (16, 48, bf16,
+    gated)."""
+    from tgt_torch.ops.kernels.triplet_dense import (
+        triplet_dense_bwd, triplet_dense_bwd_reference, triplet_dense_fwd,
+        triplet_dense_fwd_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    flagship = {}
+    for b, n, dtype, gated, transposed in DROPOUT_CASES:
+        inputs = core_inputs(b, n, 256, 16, dtype, gated, gen)
+        if transposed:
+            q, k, v, bias, gate = inputs
+            inputs = (q, k.transpose(1, 2), v.transpose(1, 2), bias, gate)
+        seed = torch.randint(0, 2 ** 31 - 1, (b, 1), device="cuda",
+                             generator=gen, dtype=torch.int32)
+        dva = torch.randn(inputs[0].shape, device="cuda",
+                          generator=gen).to(dtype)
+        out = triplet_dense_fwd(*inputs, seed, RATE)
+        ref = triplet_dense_fwd_reference(*inputs, seed, RATE)
+        err = float((out.float() - ref.float()).abs().max())
+        tol = KERNEL_TOL[dtype] * float(ref.float().abs().max())
+        other = triplet_dense_fwd(*inputs, seed + 1, RATE)
+        reseeded = not torch.equal(out, other)
+        got = triplet_dense_bwd(*inputs, dva, seed, RATE)
+        ref_g = triplet_dense_bwd_reference(*inputs, dva, seed, RATE)
+        errs, bwd_ok = compare_bwd(got, ref_g, dtype)
+        again = triplet_dense_bwd(*inputs, dva, seed, RATE)
+        same = all(x is None and y is None or torch.equal(x, y)
+                   for x, y in zip(got, again))
+        torch.cuda.synchronize()
+        fwd_ok = bool(torch.isfinite(out.float()).all()) and err <= tol
+        common = {"b": b, "n": n, "edge_width": 256, "heads": 16,
+                  "dtype": dtype_name(dtype), "gated": gated,
+                  "transposed_kv": transposed, "rate": RATE, "card": card}
+        rows = ({"case": "triplet_dense_fwd dropout", **common,
+                 "max_abs_err": err, "tol": tol, "ok": fwd_ok,
+                 "reseeded_differs": reseeded},
+                {"case": "triplet_dense_bwd dropout", **common, "errs": errs,
+                 "max_abs_err": max(e for e, _ in errs.values()),
+                 "ok": bwd_ok, "bitwise_equal": same})
+        if not transposed:
+            seed_b = (seed,)
+            rows[0].update(
+                ms=time_ms(lambda: triplet_dense_fwd(*inputs, seed, RATE)),
+                plain_ms=time_ms(lambda: triplet_dense_fwd_reference(
+                    *inputs, seed, RATE)), library_ms=None)
+            rows[0]["bound_ms"], rows[0]["bound_by"] = bound(
+                inputs + seed_b, out, dtype)
+            rows[1].update(
+                ms=time_ms(lambda: triplet_dense_bwd(*inputs, dva, seed,
+                                                     RATE)),
+                plain_ms=time_ms(lambda: triplet_dense_bwd_reference(
+                    *inputs, dva, seed, RATE)), library_ms=None)
+            rows[1]["bound_ms"], rows[1]["bound_by"] = bwd_bound(
+                inputs + seed_b, dva, got, dtype)
+        for row in rows:
+            emit(row)
+        if not (fwd_ok and bwd_ok):
+            fail(f"the dropout kernels disagree with their plain versions: "
+                 f"{rows}")
+        if not reseeded:
+            fail("the dropout forward ignored its seeds")
+        if not same:
+            fail("two dropout backward launches on the same inputs differ")
+        if (b, n, dtype, gated) == FLAGSHIP and not transposed:
+            flagship = {"fwd": rows[0], "bwd": rows[1]}
+        del inputs, out, ref, other, got, ref_g, again, dva
     return flagship
 
 
@@ -400,7 +593,7 @@ def aggregate_kernel_phase(card):
                "ok": ok, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": library_ms, "card": card}
-        print(json.dumps(row), flush=True)
+        emit(row)
         if not ok:
             fail(f"aggregate kernel disagrees with its plain version: {row}")
         if n == 48 and dtype == torch.bfloat16 and not transposed:
@@ -445,7 +638,7 @@ def aggregate_backward_phase(card):
                "bitwise_equal": same, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": library_ms, "card": card}
-        print(json.dumps(row), flush=True)
+        emit(row)
         if not ok:
             fail(f"aggregate backward disagrees with its plain version: "
                  f"{row}")
@@ -454,6 +647,117 @@ def aggregate_backward_phase(card):
         if n == 48 and dtype == torch.bfloat16 and not transposed:
             rows[b] = row
         del a, v, dva, got, ref, again
+    return rows
+
+
+# -- phases 2f and 2g: the legacy pair against plain -------------------------
+
+def legacy_inputs(b, n, w, h, dtype, gated, gen):
+    """q_t, k_t, v_t (b, 2h, N, N, d) and bias, gate (b, 2h, N, N): both
+    directions stacked on the head axis, as the model passes them; sample
+    1 padded, sample 2 fully masked; ungated, the constant gate 30.0."""
+    d = w // h
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    q, k, v = (randn(b, 2 * h, n, n, d) for _ in range(3))
+    node_mask = torch.ones(b, n, device="cuda")
+    node_mask[1, n - 7:] = 0
+    node_mask[2] = 0
+    pair = node_mask[:, :, None] * node_mask[:, None, :]
+    mask = ((1.0 - pair) * -1e9)[:, None]
+    bias = randn(b, 2 * h, n, n) + mask
+    gate = (randn(b, 2 * h, n, n) + mask if gated
+            else torch.full_like(bias, 30.0))
+    return tuple(x.to(dtype) for x in (q, k, v, bias, gate))
+
+
+def legacy_bound(tensors, flops_per_unit, dtype):
+    """Least time (ms): each tensor read or written once over the memory
+    rate, against ``flops_per_unit`` * d per (b, h, j, i, k) over the
+    dtype's peak rate."""
+    b, h, nj, n, d = tensors[0].shape
+    nbytes = sum(x.numel() * x.element_size() for x in tensors)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops_per_unit * d * b * h * nj * n * n / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def legacy_forward_phase(card):
+    """Phase 2f; returns the rows by case."""
+    from tgt_torch.ops.kernels.triplet_attention import (
+        triplet_attention_fwd, triplet_core_fwd_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = {}
+    for b, n, dtype, gated in KERNEL_CASES:
+        inputs = legacy_inputs(b, n, 256, 16, dtype, gated, gen)
+        scale = 16 ** -0.5
+        out = triplet_attention_fwd(*inputs, scale)
+        torch.cuda.synchronize()
+        ref = triplet_core_fwd_reference(*inputs, scale)
+        err = float((out.float() - ref.float()).abs().max())
+        tol = KERNEL_TOL[dtype] * float(ref.float().abs().max())
+        ok = bool(torch.isfinite(out.float()).all()) and err <= tol
+        library_ms, backend = (None, None) if gated else sdpa_time(
+            scale, *legacy_as_sdpa(*inputs[:4]))
+        bound_ms, bound_by = legacy_bound((*inputs, out), 4.0, dtype)
+        row = {"case": "triplet_attention_fwd", "b": b, "n": n,
+               "edge_width": 256, "heads": "2 x 16", "dtype": dtype_name(dtype),
+               "gated": gated, "max_abs_err": err, "tol": tol, "ok": ok,
+               "ms": time_ms(lambda: triplet_attention_fwd(*inputs, scale)),
+               "plain_ms": time_ms(
+                   lambda: triplet_core_fwd_reference(*inputs, scale)),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": library_ms, "library": backend, "card": card}
+        emit(row)
+        if not ok:
+            fail(f"legacy forward disagrees with its plain version: {row}")
+        rows[(b, n, dtype, gated)] = row
+        del inputs, out, ref
+    return rows
+
+
+def legacy_backward_phase(card):
+    """Phase 2g; returns the rows by case."""
+    from tgt_torch.ops.kernels.triplet_attention import (
+        triplet_attention_bwd, triplet_core_bwd_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = {}
+    for b, n, dtype, gated in KERNEL_CASES:
+        inputs = legacy_inputs(b, n, 256, 16, dtype, gated, gen)
+        scale = 16 ** -0.5
+        dout = torch.randn(inputs[0].shape, device="cuda",
+                           generator=gen).to(dtype)
+        got = triplet_attention_bwd(*inputs, dout, scale)
+        torch.cuda.synchronize()
+        ref = triplet_core_bwd_reference(*inputs, dout, scale)
+        errs, ok = compare_bwd(got, ref, dtype)
+        again = triplet_attention_bwd(*inputs, dout, scale)
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        library_ms, backend = (None, None) if gated else sdpa_time(
+            scale, *legacy_as_sdpa(*inputs[:4], dout))
+        bound_ms, bound_by = legacy_bound((*inputs, dout, *got), 10.0, dtype)
+        row = {"case": "triplet_attention_bwd", "b": b, "n": n,
+               "edge_width": 256, "heads": "2 x 16", "dtype": dtype_name(dtype),
+               "gated": gated, "errs": errs,
+               "max_abs_err": max(e for e, _ in errs.values()), "ok": ok,
+               "bitwise_equal": same,
+               "ms": time_ms(
+                   lambda: triplet_attention_bwd(*inputs, dout, scale)),
+               "plain_ms": time_ms(
+                   lambda: triplet_core_bwd_reference(*inputs, dout, scale)),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": library_ms, "library": backend, "card": card}
+        emit(row)
+        if not ok:
+            fail(f"legacy backward disagrees with its plain version: {row}")
+        if not same:
+            fail(f"two legacy backward launches differ: {row}")
+        rows[(b, n, dtype, gated)] = row
+        del inputs, dout, got, ref, again
     return rows
 
 
@@ -516,32 +820,67 @@ def device_batch(mols, buckets):
 
 
 class ModelSpec(NamedTuple):
-    """A published distance-model config, what the caller sets on it, and
-    the wrappers of the kernels its triplet layers launch."""
+    """A published distance-model config, what the caller sets on it, the
+    wrappers of the kernels its triplet layers launch, the counter that
+    counts them (``dropout_launches`` for the dense pair at rate > 0), and
+    the launches of each wrapper per layer application (2: one per
+    direction; 1: the legacy pair serves both directions in one launch)."""
+    name: str
     yaml: str
     overrides: dict
     fwd: Callable
     bwd: Callable
+    counter: str = "launches"
+    per_layer: int = 2
+
+    def launches(self, wrapper) -> int:
+        return getattr(wrapper, self.counter)
 
 
-def kernel_wrappers():
+def kernel_counters():
+    """Every launch counter of the package: (wrapper, attribute)."""
     from tgt_torch.ops.kernels import triplet_aggregate as ta
+    from tgt_torch.ops.kernels import triplet_attention as tl
     from tgt_torch.ops.kernels import triplet_dense as td
-    return (td.triplet_dense_fwd, td.triplet_dense_bwd,
-            ta.triplet_aggregate_fwd, ta.triplet_aggregate_bwd)
+    return [(td.triplet_dense_fwd, "launches"),
+            (td.triplet_dense_fwd, "dropout_launches"),
+            (td.triplet_dense_bwd, "launches"),
+            (td.triplet_dense_bwd, "dropout_launches"),
+            (ta.triplet_aggregate_fwd, "launches"),
+            (ta.triplet_aggregate_bwd, "launches"),
+            (tl.triplet_attention_fwd, "launches"),
+            (tl.triplet_attention_bwd, "launches")]
 
 
 def reset_counts() -> None:
-    for wrapper in kernel_wrappers():
-        wrapper.launches = 0
+    for wrapper, attr in kernel_counters():
+        setattr(wrapper, attr, 0)
 
 
 def check_only(spec: ModelSpec) -> None:
-    """The path launched no kernel but its own."""
-    others = {w.__name__: w.launches for w in kernel_wrappers()
-              if w not in (spec.fwd, spec.bwd) and w.launches}
+    """The path launched no kernel but its own, counted by its counter."""
+    own = ((spec.fwd, spec.counter), (spec.bwd, spec.counter))
+    others = {f"{w.__name__}.{a}": getattr(w, a)
+              for w, a in kernel_counters()
+              if (w, a) not in own and getattr(w, a)}
     if others:
-        fail(f"{os.path.basename(spec.yaml)} launched other kernels: {others}")
+        fail(f"{spec.name} launched other kernels: {others}")
+
+
+@contextlib.contextmanager
+def plain_dense_core():
+    """TripletAttention's dense core swapped for the kernels' plain version:
+    the same seeds give the same dropout masks, so the model's gradients
+    through the kernels can be held against it."""
+    import tgt_torch.ops.triplet as tri
+    from tgt_torch.ops.kernels.triplet_dense import triplet_dense_fwd_reference
+
+    saved = tri.triplet_dense
+    tri.triplet_dense = triplet_dense_fwd_reference
+    try:
+        yield
+    finally:
+        tri.triplet_dense = saved
 
 
 def load_config(spec: ModelSpec, **extra) -> dict:
@@ -568,7 +907,8 @@ def serving_phase(card, spec: ModelSpec):
     model = make_model("distance", cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    print(json.dumps({"model": os.path.relpath(spec.yaml, REPO),
+    emit({"model": os.path.relpath(spec.yaml, REPO), "path": spec.name,
+                      "triplet_dropout": cfg.triplet_dropout,
                       "params": n_params, "model_height": cfg.model_height,
                       "layer_multiplier": cfg.layer_multiplier,
                       "triplet_type": cfg.triplet_type,
@@ -579,10 +919,10 @@ def serving_phase(card, spec: ModelSpec):
                       "compute_dtype": cfg.compute_dtype,
                       "use_pallas": cfg.use_pallas, "mc_samples": mc,
                       "batch_size": bs, "buckets": list(buckets),
-                      "init_s": time.time() - t0}), flush=True)
+                      "init_s": time.time() - t0})
     pred = DistancePredictor(model, cfg, mc_samples=mc, batch_size=bs,
                              buckets=buckets, seed=0, device="cuda")
-    per_forward = 2 * cfg.model_height * cfg.layer_multiplier
+    per_forward = spec.per_layer * cfg.model_height * cfg.layer_multiplier
     rs = np.random.RandomState(0)
 
     pred.predict(request(rs, 16))          # warm-up: cuBLAS and kernel load
@@ -604,11 +944,11 @@ def serving_phase(card, spec: ModelSpec):
         expect = per_forward * mc * n_batches
         for name, call in (("predict", pred.predict),
                            ("predict_bins", pred.predict_bins)):
-            before = spec.fwd.launches
+            before = spec.launches(spec.fwd)
             t0 = time.perf_counter()
             out = call(mols)
             dt = time.perf_counter() - t0
-            launched = spec.fwd.launches - before
+            launched = spec.launches(spec.fwd) - before
             if launched != expect:
                 fail(f"{name}: {launched} kernel launches, expected {expect}")
             if name == "predict":
@@ -633,38 +973,42 @@ def serving_phase(card, spec: ModelSpec):
         if r < 3:
             lat.append(req_s)
             lat_bins.append(bins_s)
-        print(json.dumps({"request": r, "molecules": len(mols),
+        emit({"request": r, "molecules": len(mols),
                           "timed": r < 3, "device_batches": n_batches,
                           "predict_s": req_s, "predict_bins_s": bins_s,
-                          "launches_per_call": expect}), flush=True)
-    main_launches = spec.fwd.launches      # the main path ends here
+                          "launches_per_call": expect})
+    main_launches = spec.launches(spec.fwd)  # the main path ends here
     check_only(spec)
     if hit != set(buckets):
         fail(f"served buckets {sorted(hit)}, expected {list(buckets)}")
 
     p50 = float(np.median(lat))
-    print(json.dumps({
-        "serving": "DistancePredictor.predict",
+    emit({
+        "serving": "DistancePredictor.predict", "path": spec.name,
         "model": os.path.relpath(spec.yaml, REPO), "card": card,
         "molecules_per_s": 64 / p50, "p50_request_s": p50,
         "request_s": lat, "predict_bins_p50_s": float(np.median(lat_bins)),
-        "buckets_hit": sorted(hit), "kernel_launches": main_launches}),
-        flush=True)
+        "buckets_hit": sorted(hit), "kernel_launches": main_launches})
+
+    if spec.counter != "launches":
+        # a deterministic forward runs no dropout: the rate-0 checks below
+        # would repeat those of the path without it
+        return main_launches
 
     # one deterministic bf16 forward at N=48, b=16: the kernel's share
     feed48 = device_batch([random_molecule(rs, int(n))
                            for n in rs.randint(41, 49, size=bs)], buckets)
     with torch.inference_mode():
         fwd_ms = time_ms(lambda: model(feed48), reps=5)
-    print(json.dumps({"forward": "deterministic bf16", "b": bs, "n": 48,
-                      "forward_ms": fwd_ms, "card": card}), flush=True)
+    emit({"forward": "deterministic bf16", "path": spec.name, "b": bs,
+          "n": 48, "forward_ms": fwd_ms, "card": card})
 
     # every bucket, deterministic f32: kernel path against the plain path
     cfg32 = cfg.replace(compute_dtype="float32")
     state = model.state_dict()
     del pred, model
     paths = {}
-    for use_pallas in ("dense", False):
+    for use_pallas in (cfg.use_pallas, False):
         m = DistanceModel(cfg32.replace(use_pallas=use_pallas), device="cuda")
         m.load_state_dict(state)
         paths[use_pallas] = m.requires_grad_(False)
@@ -672,9 +1016,9 @@ def serving_phase(card, spec: ModelSpec):
     for t, nb in enumerate(buckets):
         feed = device_batch(sweep[t * bs:(t + 1) * bs], buckets)
         with torch.inference_mode():
-            before = spec.fwd.launches
-            got = paths["dense"](feed)
-            if spec.fwd.launches - before != per_forward:
+            before = spec.launches(spec.fwd)
+            got = paths[cfg.use_pallas](feed)
+            if spec.launches(spec.fwd) - before != per_forward:
                 fail("the f32 kernel path did not launch the kernel")
             ref = paths[False](feed)
         torch.cuda.synchronize()
@@ -682,9 +1026,9 @@ def serving_phase(card, spec: ModelSpec):
         scale = float(ref.abs().max())
         ok = (got.shape[1] == nb and bool(torch.isfinite(got).all())
               and err <= MODEL_TOL * scale)
-        print(json.dumps({"logits_f32": "kernel vs plain", "n": nb,
+        emit({"logits_f32": "kernel vs plain", "path": spec.name, "n": nb,
                           "max_abs_err": err, "max_abs_ref": scale,
-                          "ok": ok}), flush=True)
+                          "ok": ok})
         if not ok:
             fail(f"f32 logits disagree at bucket {nb}")
     return main_launches
@@ -713,7 +1057,8 @@ def training_phase(card, spec: ModelSpec):
     state = trainer.init_state(seed=0)
     model = state["model"]
     before = {k: v.detach().clone() for k, v in model.named_parameters()}
-    print(json.dumps({"train": os.path.relpath(spec.yaml, REPO),
+    emit({"train": os.path.relpath(spec.yaml, REPO), "path": spec.name,
+                      "triplet_dropout": cfg.triplet_dropout,
                       "params": sum(v.numel() for v in before.values()),
                       "model_height": cfg.model_height,
                       "layer_multiplier": cfg.layer_multiplier,
@@ -724,7 +1069,7 @@ def training_phase(card, spec: ModelSpec):
                       "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
                       "use_pallas": cfg.use_pallas,
                       "micro_batch": scheme.cfg.batch_size,
-                      "accum": trainer.grad_accum}), flush=True)
+                      "accum": trainer.grad_accum})
 
     # record each step's metrics and a CUDA event at its end
     steps, train_step = [], trainer.train_step
@@ -744,13 +1089,13 @@ def training_phase(card, spec: ModelSpec):
     start.record()
     state, logs, stop = trainer.train_epoch(state, loader)
     torch.cuda.synchronize()
-    launches = {"fwd": spec.fwd.launches,
-                "bwd": spec.bwd.launches}       # the main path ends
+    launches = {"fwd": spec.launches(spec.fwd),
+                "bwd": spec.launches(spec.bwd)}  # the main path ends
     check_only(spec)
     n_steps = len(steps)
-    per_micro = 2 * cfg.model_height * cfg.layer_multiplier
-    expect = {"fwd": n_steps * trainer.grad_accum
-              * (per_micro + (per_micro - 2 * cfg.layer_multiplier)),
+    per_micro = spec.per_layer * cfg.model_height * cfg.layer_multiplier
+    replay = per_micro - spec.per_layer * cfg.layer_multiplier  # remat
+    expect = {"fwd": n_steps * trainer.grad_accum * (per_micro + replay),
               "bwd": n_steps * trainer.grad_accum * per_micro}
     ends = [start] + [e for _, e in steps]
     step_ms = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
@@ -759,7 +1104,7 @@ def training_phase(card, spec: ModelSpec):
     moved = sum(int(not torch.equal(before[k], v.detach()))
                 for k, v in model.named_parameters())
     steady = float(np.median(step_ms[1:]))
-    row = {"training": "Trainer.train_epoch",
+    row = {"training": "Trainer.train_epoch", "path": spec.name,
            "model": os.path.relpath(spec.yaml, REPO), "card": card,
            "steps": n_steps,
            "losses": losses, "ok": oks, "stop": stop, "epoch_loss": logs["loss"],
@@ -768,7 +1113,7 @@ def training_phase(card, spec: ModelSpec):
            "params_moved": moved, "params": len(before),
            "launches": launches, "expected_launches": expect,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    print(json.dumps(row), flush=True)
+    emit(row)
     if n_steps != 4 or stop is not None:
         fail(f"{n_steps} optimizer steps (stop {stop}), expected 4")
     if not all(oks) or not all(math.isfinite(x) for x in losses):
@@ -782,7 +1127,11 @@ def training_phase(card, spec: ModelSpec):
 
 def gradient_phase(card, spec: ModelSpec, weights):
     """One micro-batch in f32: loss and every parameter's gradient through
-    the kernels against the plain path, the same weights and seed."""
+    the kernels against the plain path, the same weights and seed. With
+    triplet dropout (Path D) the plain side keeps the dense path and swaps
+    its core for the kernels' plain version, so both draw the same seeds
+    and masks; otherwise it is ``use_pallas: false``, whose dropout draws
+    match the kernel path's because the core draws none."""
     from tgt_torch.models.heads import DistanceModel
 
     scheme = training_scheme(spec)
@@ -791,17 +1140,27 @@ def gradient_phase(card, spec: ModelSpec, weights):
     host = {k: v[:scheme.cfg.batch_size] for k, v in host.items()}
     feed = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
             for k, v in scheme.device_batch(host).items()}
+    kernel = cfg32.use_pallas
+    plain = ((kernel, plain_dense_core) if spec.counter == "dropout_launches"
+             else (False, contextlib.nullcontext))
     out = {}
-    for use_pallas in ("dense", False):
+    for name, (use_pallas, context) in (
+            ("kernel", (kernel, contextlib.nullcontext)), ("plain", plain)):
         model = DistanceModel(cfg32.replace(use_pallas=use_pallas),
                               device="cuda")
         model.load_state_dict(weights)
-        loss, _ = scheme.loss_fn(model, feed, seed=7)
-        names, params = zip(*model.named_parameters())
-        grads = torch.autograd.grad(loss, params)
-        out[use_pallas] = (float(loss.detach()), dict(zip(names, grads)))
+        before = spec.launches(spec.bwd)
+        with context():
+            loss, _ = scheme.loss_fn(model, feed, seed=7)
+            names, params = zip(*model.named_parameters())
+            grads = torch.autograd.grad(loss, params)
+        launched = spec.launches(spec.bwd) - before
+        if (launched > 0) != (name == "kernel"):
+            fail(f"the {name} side of the f32 gradients launched "
+                 f"{launched} backward kernels")
+        out[name] = (float(loss.detach()), dict(zip(names, grads)))
         del model, loss, params, grads
-    (loss, got), (ref_loss, ref) = out["dense"], out[False]
+    (loss, got), (ref_loss, ref) = out["kernel"], out["plain"]
     worst, bad = 0.0, []
     for k, r in ref.items():
         scale = float(r.abs().max())
@@ -811,14 +1170,14 @@ def gradient_phase(card, spec: ModelSpec, weights):
             bad.append((k, err, scale))
     tri = {k: float(g.abs().max()) for k, g in got.items()
            if ".tria." in k and "lin_O" not in k}
-    row = {"gradients_f32": "kernel path vs plain path",
+    row = {"gradients_f32": "kernel path vs plain path", "path": spec.name,
            "model": os.path.relpath(spec.yaml, REPO), "card": card,
            "n": int(feed["node_features"].shape[1]), "loss": loss,
            "plain_loss": ref_loss, "loss_rel_err": abs(loss - ref_loss)
            / abs(ref_loss), "worst_grad_err_over_max_ref": worst,
            "tensors": len(ref), "bad": bad[:5],
            "min_triplet_projection_grad": min(tri.values())}
-    print(json.dumps(row), flush=True)
+    emit(row)
     if abs(loss - ref_loss) > 1e-5 * abs(ref_loss):
         fail(f"f32 loss {loss} against plain {ref_loss}")
     if bad:
@@ -833,8 +1192,11 @@ def main() -> int:
         return 1
     from tgt_torch.ops.kernels import _build
     from tgt_torch.ops.kernels import triplet_aggregate as ta
+    from tgt_torch.ops.kernels import triplet_attention as tl
     from tgt_torch.ops.kernels import triplet_dense as td
 
+    os.makedirs(os.path.dirname(ROWS_PATH), exist_ok=True)
+    open(ROWS_PATH, "w").close()
     card = card_line()
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
@@ -845,60 +1207,102 @@ def main() -> int:
     def phase(name, fn, *args):
         t0 = time.time()
         out = fn(*args)
-        print(json.dumps({"phase": name, "wall_s": time.time() - t0}),
-              flush=True)
+        emit({"phase": name, "wall_s": time.time() - t0})
         return out
 
-    libs = ["triplet_dense_fwd", "triplet_dense_bwd", "triplet_aggregate_fwd",
-            "triplet_aggregate_bwd"]
+    libs = _build.LIBRARIES
     phase("1 build", _build.build_libraries, libs)
     regs = {name: [ln.strip() for ln in
                    (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
                    if "registers" in ln or "spill" in ln] for name in libs}
-    print(json.dumps({"ptxas": regs}), flush=True)
+    emit({"ptxas": regs})
 
-    at = ModelSpec(FLAGSHIP_YAML, {}, td.triplet_dense_fwd,
+    at = ModelSpec("TGT-At", FLAGSHIP_YAML, {}, td.triplet_dense_fwd,
                    td.triplet_dense_bwd)
-    agx2 = ModelSpec(AGX2_YAML, {"use_pallas": "dense"},
+    # Path D: the yaml's own node and edge activation-dropout rate on the
+    # triplet weights (no published config sets triplet_dropout)
+    at_d = ModelSpec("TGT-At Path D", FLAGSHIP_YAML, {"triplet_dropout": 0.1},
+                     td.triplet_dense_fwd, td.triplet_dense_bwd,
+                     counter="dropout_launches")
+    # Path L: the legacy fused pair, one launch for both directions
+    at_l = ModelSpec("TGT-At Path L", FLAGSHIP_YAML, {"use_pallas": True},
+                     tl.triplet_attention_fwd, tl.triplet_attention_bwd,
+                     per_layer=1)
+    agx2 = ModelSpec("TGT-Agx2", AGX2_YAML, {"use_pallas": "dense"},
                      ta.triplet_aggregate_fwd, ta.triplet_aggregate_bwd)
 
-    flagship = phase("2 attention fwd kernel", kernel_phase, card)
-    flagship_bwd = phase("2b attention bwd kernel", backward_kernel_phase,
-                         card)
+    dense = phase("2 attention fwd kernel", kernel_phase, card)
+    dense_bwd = phase("2b attention bwd kernel", backward_kernel_phase, card)
+    drop = phase("2c attention kernels at rate > 0", dropout_kernel_phase,
+                 card)
     agg = phase("2d aggregate fwd kernel", aggregate_kernel_phase, card)
     agg_bwd = phase("2e aggregate bwd kernel", aggregate_backward_phase,
                     card)
-    served = phase("3 TGT-At serving", serving_phase, card, at)
-    trained, weights = phase("4 TGT-At training", training_phase, card, at)
-    phase("4b TGT-At f32 gradients", gradient_phase, card, at, weights)
-    del weights
-    served_agx2 = phase("5 TGT-Agx2 serving", serving_phase, card, agx2)
-    trained_agx2, weights = phase("6 TGT-Agx2 training", training_phase,
-                                  card, agx2)
-    phase("6b TGT-Agx2 f32 gradients", gradient_phase, card, agx2, weights)
-    if served == 0 or served_agx2 == 0:
-        fail("a served path never launched its triplet kernel")
+    legacy = phase("2f legacy fwd kernel", legacy_forward_phase, card)
+    legacy_bwd = phase("2g legacy bwd kernel", legacy_backward_phase, card)
 
-    def entry(name, source, replaces, by_path, row):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": sum(by_path.values()),
-                "launches_by_path": by_path,
-                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+    served, trained = {}, {}
+    for tag, spec in (("3", at), ("3d", at_d), ("3l", at_l),
+                      ("5", agx2)):
+        served[spec.name] = phase(f"{tag} {spec.name} serving",
+                                  serving_phase, card, spec)
+        trained[spec.name], weights = phase(
+            f"{int(tag[0]) + 1}{tag[1:]} {spec.name} training",
+            training_phase, card, spec)
+        phase(f"{int(tag[0]) + 1}b{tag[1:]} {spec.name} f32 gradients",
+              gradient_phase, card, spec, weights)
+        del weights
+    if not all(served.values()):
+        fail(f"a served path never launched its triplet kernel: {served}")
 
+    def entry(name, source, replaces, by_path, row, ungated=None):
+        out = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": sum(by_path.values()),
+               "launches_by_path": by_path,
+               "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+               "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+               "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+        if ungated is not None:
+            out.update(library_ms_ungated=ungated["library_ms"],
+                       library=ungated["library"], ms_ungated=ungated["ms"])
+        return out
+
+    def with_dropout(out, row, by_path):
+        out.update(dropout_launches=sum(by_path.values()),
+                   dropout={"replaces": td.DROPOUT_REPLACES,
+                            **{k: row[k] for k in (
+                                "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")}})
+        return out
+
+    d_serve, d_train = served[at_d.name], trained[at_d.name]
     print(f"card: {card}", flush=True)
-    print(json.dumps({"kernels": [
-        entry("triplet_dense_fwd", td.KERNEL_SOURCE, td.REPLACES,
-              {"serving": served, "training": trained["fwd"]}, flagship),
-        entry("triplet_dense_bwd", td.BWD_KERNEL_SOURCE, td.BWD_REPLACES,
-              {"training": trained["bwd"]}, flagship_bwd),
+    emit({"kernels": [
+        with_dropout(entry(
+            "triplet_dense_fwd", td.KERNEL_SOURCE, td.REPLACES,
+            {"serving": served[at.name], "training": trained[at.name]["fwd"],
+             "serving_dropout": d_serve, "training_dropout": d_train["fwd"]},
+            dense[FLAGSHIP], dense[UNGATED]),
+            drop["fwd"], {"serving": d_serve, "training": d_train["fwd"]}),
+        with_dropout(entry(
+            "triplet_dense_bwd", td.BWD_KERNEL_SOURCE, td.BWD_REPLACES,
+            {"training": trained[at.name]["bwd"],
+             "training_dropout": d_train["bwd"]},
+            dense_bwd[FLAGSHIP], dense_bwd[UNGATED]),
+            drop["bwd"], {"training": d_train["bwd"]}),
         entry("triplet_aggregate_fwd", ta.KERNEL_SOURCE, ta.REPLACES,
-              {"serving": served_agx2, "training": trained_agx2["fwd"]},
-              agg[16]),
+              {"serving": served[agx2.name],
+               "training": trained[agx2.name]["fwd"]}, agg[16]),
         entry("triplet_aggregate_bwd", ta.BWD_KERNEL_SOURCE, ta.BWD_REPLACES,
-              {"training": trained_agx2["bwd"]}, agg_bwd[16]),
-    ]}), flush=True)
+              {"training": trained[agx2.name]["bwd"]}, agg_bwd[16]),
+        entry("triplet_attention_fwd", tl.KERNEL_SOURCE, tl.REPLACES,
+              {"serving": served[at_l.name],
+               "training": trained[at_l.name]["fwd"]},
+              legacy[FLAGSHIP], legacy[UNGATED]),
+        entry("triplet_attention_bwd", tl.BWD_KERNEL_SOURCE, tl.BWD_REPLACES,
+              {"training": trained[at_l.name]["bwd"]},
+              legacy_bwd[FLAGSHIP], legacy_bwd[UNGATED]),
+    ]})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -300,7 +300,9 @@ class TestHostData:
 class TestImportRule:
     def test_import_leaves_jax_out(self):
         code = ("import sys, tgt_torch, tgt_torch.serving, "
-                "tgt_torch.ops.kernels.triplet_dense, tgt_torch.training, "
+                "tgt_torch.ops.kernels.triplet_dense, "
+                "tgt_torch.ops.kernels.triplet_attention, tgt_torch.profiling, "
+                "tgt_torch.training, "
                 "tgt_torch.training.harness, tgt_torch.data.loader, "
                 "tgt_torch.data.synthetic, tgt_torch.schemes.dist_pred; "
                 "bad = [m for m in sys.modules "

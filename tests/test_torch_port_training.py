@@ -13,9 +13,9 @@ tgt_tpu's init, mapped through ``state_dict_from_jax_params``:
   1e-3 of the summed learning rates (the triplet biases that shift a whole
   softmax row, whose gradient is zero in exact arithmetic, within them);
 - with dropout and drop path on, gradients with remat equal those without
-  under the same seed, also at ``layer_multiplier=2`` (attention, and
-  aggregate with triplet dropout); the NaN-step guard; an all-padding
-  micro-batch;
+  under the same seed, also at ``layer_multiplier=2`` (attention, aggregate
+  with triplet dropout, and dense attention with its in-core triplet
+  dropout); the NaN-step guard; an all-padding micro-batch;
 - ``layer_multiplier=2`` with and without remat: deterministic logits to
   1e-4 of max|ref|, loss and gradients as above, against tgt_tpu;
 - the data path: the synthetic molecules, the train loader's batches and
@@ -399,14 +399,19 @@ class TestLayerMultiplier:
                                    rtol=1e-5)
         assert_grads_close(model, jgrads, scheme.model_cfg)
 
-    @pytest.mark.parametrize("triplet_type", ["attention", "aggregate"])
+    @pytest.mark.parametrize("triplet_type,extra", [
+        pytest.param("attention", {}, id="attention"),
+        pytest.param("aggregate", dict(triplet_dropout=0.2), id="aggregate"),
+        pytest.param("attention", dict(triplet_dropout=0.2,
+                                       use_pallas="dense"),
+                     id="attention-dense-dropout")])
     def test_remat_gradients_equal_without_remat_under_dropout(
-            self, tmp_path, triplet_type):
+            self, tmp_path, triplet_type, extra):
         """Each application of a layer draws from its own generator, made
         inside the checkpointed function; the aggregate case also drops
-        triplet weights."""
-        extra = dict(triplet_dropout=0.2) if triplet_type == "aggregate" \
-            else {}
+        triplet weights, and the dense attention case draws its in-core
+        dropout seeds from that generator, so the remat replay rebuilds the
+        same keep masks."""
         assert_remat_equals_no_remat(tmp_path, model_height=2,
                                      layer_multiplier=2,
                                      triplet_type=triplet_type,

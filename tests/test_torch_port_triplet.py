@@ -195,13 +195,22 @@ class TestTripletAttention:
         assert np.all(tpu[..., 0] == 0)          # the fault the port drops
 
     def test_unported_options_raise(self):
+        """The two options that once raised NotImplementedError, the legacy
+        fused pair (``use_pallas=True``) and triplet dropout in training,
+        now run: test_torch_port_legacy.py and test_torch_port_dropout.py
+        hold them against tgt_tpu."""
         mod = TripletAttention(32, 4)
-        e, mask = torch.zeros(1, 4, 4, 32), torch.zeros(1, 4, 4, 1)
-        with pytest.raises(NotImplementedError, match="2f"):
-            mod(e, mask, use_pallas=True)
-        with pytest.raises(NotImplementedError, match="2c"):
-            mod(e, mask, attention_dropout=0.1, deterministic=False,
-                generator=torch.Generator())
+        e = torch.randn(1, 4, 4, 32, generator=torch.Generator().manual_seed(0))
+        mask = torch.zeros(1, 4, 4, 1)
+        ref = mod(e, mask)
+        torch.testing.assert_close(mod(e, mask, use_pallas=True), ref,
+                                   rtol=1e-5, atol=1e-6)
+        for use_pallas in ("dense", False):
+            out = mod(e, mask, attention_dropout=0.1, deterministic=False,
+                      generator=torch.Generator().manual_seed(1),
+                      use_pallas=use_pallas)
+            assert out.shape == ref.shape and torch.isfinite(out).all()
+            assert not torch.allclose(out, ref)
 
 
 class TestRegistry:

@@ -11,6 +11,8 @@ DistancePredictor``) and its training (``tgt_torch.training.Trainer`` on
 the ``pcqm.dist_pred`` scheme), with all six triplet variants. With
 ``use_pallas: dense`` the triplet core runs hand-written CUDA kernels on the
 card: ``csrc/triplet_dense_{fwd,bwd}.cu`` for the attention variants
-(TGT-At), ``csrc/triplet_aggregate_{fwd,bwd}.cu`` for the aggregate variants
-(TGT-Agx2).
+(TGT-At, with triplet dropout drawn in the kernels),
+``csrc/triplet_aggregate_{fwd,bwd}.cu`` for the aggregate variants
+(TGT-Agx2); with ``use_pallas: true`` the attention variants run
+``csrc/triplet_attention_{fwd,bwd}.cu``, tgt_tpu's legacy fused pair.
 """

@@ -1,15 +1,21 @@
 // Backward of dense triplet attention for Hopper (sm_90a).
 //
 // Replaces the TPU kernel tgt_tpu/ops/pallas/triplet_dense.py:_bwd_kernel
-// (reached through _dense_core_bwd) at dropout rate 0. Given the forward's
-// inputs and the output cotangent dva, for every batch row b, pair column j,
-// triplet head h and row i it recomputes
+// (reached through _dense_core_bwd), at dropout rate 0 and at rate > 0. Given
+// the forward's inputs, its seeds and the output cotangent dva, for every
+// batch row b, pair column j, triplet head h and row i it recomputes
 //
 //   s[k]  = sum_d Q[b,i,j,d,h] K[b,j,k,d,h] + bias[b,i,k,h]     (Q pre-scaled)
 //   pn[k] = softmax_k(s)[k]         (max per (i, h), denominator >= 1e-30)
-//   g[k]  = sigmoid(gate[b,i,k,h])  (1 when ungated), a = pn g
-//   dA[k] = sum_d dva[b,j,i,d,h] V[b,j,k,d,h],  dp = dA g
+//   g[k]  = sigmoid(gate[b,i,k,h])  (1 when ungated)
+//   m[k]  = keep(seed[b], (j*n + i)*(n*H) + k*H + h)  (1 at rate 0), a = pn g m
+//   dA[k] = m[k] sum_d dva[b,j,i,d,h] V[b,j,k,d,h],  dp = dA g
 //   ds[k] = pn[k] (dp[k] - sum_k' dp[k'] pn[k'])
+//
+// The keep mask m is the forward's, rebuilt from the same stateless hash
+// (dropout_hash.cuh) of the same index: it multiplies both the dV operand a
+// and the dA chain, as the TPU kernel does. The rate > 0 branch is a
+// template flag: the rate-0 instantiations carry none of it.
 //
 // and returns
 //
@@ -46,9 +52,10 @@
 //     written once at the end.
 // The second kernel repeats the recompute (QK and dA) once more. Shared
 // memory of the first grows as N^2 and reaches 199 KB at N=128, d=32.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include <stdint.h>
+
+#include "dropout_hash.cuh"
+#include "triplet_common.cuh"
 
 namespace {
 
@@ -58,28 +65,19 @@ constexpr int kRowsPerWarp = 2;
 constexpr int kBiasTile = kBiasWarps * kRowsPerWarp;  // rows i per bias block
 constexpr int kMaxN = 128;
 constexpr int kPerLane = kMaxN / 32;
-constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kFull = kFullMask;
 
 struct Strides3 {
   long long b, x, y;  // element strides of the three outer axes
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+// The dropout arguments of one launch: (b) int32 seeds, the threshold and
+// the kept value of dropout_hash.cuh. Unread by the rate-0 kernels.
+struct Dropout {
+  const int* seeds;
+  uint32_t thresh;
+  float scale;
+};
 
 // Stage the (n, d) panel at base (row stride `rs`, column stride h) into
 // dst[n][d + 1] as f32.
@@ -95,15 +93,18 @@ __device__ __forceinline__ void stage(float* dst, const T* base, long long rs,
 // One row i of one pair column j, in one warp: lanes take k = lane + 32 t.
 // qrow and grow are the row's q and dva (d floats); ks and vs the staged
 // K and V of column j ([n][d + 1]); brow and gtrow point at
-// bias[b, i, 0, h] and gate[b, i, 0, h] with k stride bs and gs. On return,
-// for k < n: pn = softmax weight, da = dA, g = sigmoid(gate) (1 ungated),
-// ds = the logit gradient; zero for k >= n.
-template <typename T, bool kGated>
+// bias[b, i, 0, h] and gate[b, i, 0, h] with k stride bs and gs. With
+// kDropout, element k's keep-mask index is lin0 + k*h under `seed`. On
+// return, for k < n: pn = softmax weight, da = dA (masked), g =
+// sigmoid(gate) (1 ungated), keep = the keep mask (1 at rate 0), ds = the
+// logit gradient; zero for k >= n.
+template <typename T, bool kGated, bool kDropout>
 __device__ __forceinline__ void row_grads(
     const float* qrow, const float* grow, const float* ks, const float* vs,
-    int n, int d, const T* brow, long long bs, const T* gtrow, long long gs,
-    int lane, float (&pn)[kPerLane], float (&da)[kPerLane],
-    float (&g)[kPerLane], float (&ds)[kPerLane]) {
+    int n, int d, int h, const T* brow, long long bs, const T* gtrow,
+    long long gs, const Dropout& drop, uint32_t seed, uint32_t lin0, int lane,
+    float (&pn)[kPerLane], float (&da)[kPerLane], float (&g)[kPerLane],
+    float (&keep)[kPerLane], float (&ds)[kPerLane]) {
   const int dp1 = d + 1;
   float m = -INFINITY;
 #pragma unroll
@@ -135,10 +136,15 @@ __device__ __forceinline__ void row_grads(
     pn[t] *= recip;
     da[t] = 0.f;
     g[t] = 0.f;
+    keep[t] = 1.f;
     if (kk < n) {
       const float* vr = vs + kk * dp1;
       float acc = 0.f;
       for (int e = 0; e < d; ++e) acc = fmaf(grow[e], vr[e], acc);
+      if (kDropout) {
+        keep[t] = dropout_keep(lin0 + (uint32_t)(kk * h), seed, drop.thresh, drop.scale);
+        acc *= keep[t];
+      }
       da[t] = acc;
       g[t] = kGated ? sigmoid(to_f32(gtrow[kk * gs])) : 1.f;
       rs = fmaf(acc * g[t], pn[t], rs);
@@ -153,17 +159,18 @@ __device__ __forceinline__ void row_grads(
 // dva: (b, j, i, d, h); the (d, h) axes of q/k/v/dva and the h axis of
 // bias/gate are contiguous, the outer axes take any strides. dq (b, i, j,
 // d, h) and dk, dv (b, j, k, d, h) are contiguous outputs.
-template <typename T, bool kGated>
+template <typename T, bool kGated, bool kDropout>
 __global__ void __launch_bounds__(kQkvWarps * 32)
 bwd_qkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ bias,
                const T* __restrict__ gate, const T* __restrict__ dva,
                T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
-               int n, int d, int h, Strides3 sq, Strides3 sk, Strides3 sv,
-               Strides3 sb, Strides3 sg, Strides3 sd) {
+               Dropout drop, int n, int d, int h, Strides3 sq, Strides3 sk,
+               Strides3 sv, Strides3 sb, Strides3 sg, Strides3 sd) {
   const int hh = blockIdx.x, j = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int dp1 = d + 1;
+  const uint32_t seed = kDropout ? (uint32_t)drop.seeds[b] : 0u;
 
   extern __shared__ float smem[];
   float* ks = smem;                 // [n][d + 1]  K[b, j, k, :, h]
@@ -183,17 +190,18 @@ bwd_qkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int dd = lane & (d - 1);
   const int grp = lane / d;
   for (int i = warp; i < n; i += kQkvWarps) {
-    float pn[kPerLane], da[kPerLane], g[kPerLane], ds[kPerLane];
-    row_grads<T, kGated>(qs + i * dp1, gs + i * dp1, ks, vs, n, d,
-                         bias + b * sb.b + i * sb.x + hh, sb.y,
-                         gate + b * sg.b + i * sg.x + hh, sg.y, lane,
-                         pn, da, g, ds);
+    float pn[kPerLane], da[kPerLane], g[kPerLane], keep[kPerLane], ds[kPerLane];
+    row_grads<T, kGated, kDropout>(
+        qs + i * dp1, gs + i * dp1, ks, vs, n, d, h,
+        bias + b * sb.b + i * sb.x + hh, sb.y, gate + b * sg.b + i * sg.x + hh,
+        sg.y, drop, seed, (uint32_t)(j * n + i) * n * h + hh, lane, pn, da, g,
+        keep, ds);
 #pragma unroll
     for (int t = 0; t < kPerLane; ++t) {
       const int kk = lane + 32 * t;
       if (kk < n) {
         dss[i * n + kk] = ds[t];
-        as[i * n + kk] = pn[t] * g[t];
+        as[i * n + kk] = kDropout ? pn[t] * g[t] * keep[t] : pn[t] * g[t];
       }
     }
     __syncwarp();
@@ -218,17 +226,18 @@ bwd_qkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // dbias, dgate: (b, i, k, h) contiguous outputs; dgate unused when ungated.
-template <typename T, bool kGated>
+template <typename T, bool kGated, bool kDropout>
 __global__ void __launch_bounds__(kBiasWarps * 32)
 bwd_bias_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ bias,
                 const T* __restrict__ gate, const T* __restrict__ dva,
-                T* __restrict__ dbias, T* __restrict__ dgate, int n, int d,
-                int h, Strides3 sq, Strides3 sk, Strides3 sv, Strides3 sb,
-                Strides3 sg, Strides3 sd) {
+                T* __restrict__ dbias, T* __restrict__ dgate, Dropout drop,
+                int n, int d, int h, Strides3 sq, Strides3 sk, Strides3 sv,
+                Strides3 sb, Strides3 sg, Strides3 sd) {
   const int hh = blockIdx.x, i0 = blockIdx.y * kBiasTile, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int dp1 = d + 1;
+  const uint32_t seed = kDropout ? (uint32_t)drop.seeds[b] : 0u;
 
   extern __shared__ float smem[];
   float* ks = smem;                          // [n][d + 1]
@@ -257,11 +266,11 @@ bwd_bias_kernel(const T* __restrict__ q, const T* __restrict__ k,
           gw[lane] = to_f32(dva[b * sd.b + j * sd.x + i * sd.y + lane * h + hh]);
         }
         __syncwarp();
-        float pn[kPerLane], da[kPerLane], g[kPerLane], ds[kPerLane];
-        row_grads<T, kGated>(qw, gw, ks, vs, n, d,
-                             bias + b * sb.b + i * sb.x + hh, sb.y,
-                             gate + b * sg.b + i * sg.x + hh, sg.y, lane,
-                             pn, da, g, ds);
+        float pn[kPerLane], da[kPerLane], g[kPerLane], keep[kPerLane], ds[kPerLane];
+        row_grads<T, kGated, kDropout>(
+            qw, gw, ks, vs, n, d, h, bias + b * sb.b + i * sb.x + hh, sb.y,
+            gate + b * sg.b + i * sg.x + hh, sg.y, drop, seed,
+            (uint32_t)(j * n + i) * n * h + hh, lane, pn, da, g, keep, ds);
 #pragma unroll
         for (int t = 0; t < kPerLane; ++t) {
           acc_b[r][t] += ds[t];
@@ -290,82 +299,85 @@ bwd_bias_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Dynamic shared memory above 48 KB has to be allowed per kernel.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  return cudaSuccess;
-}
-
-template <typename T, bool kGated>
+template <typename T, bool kGated, bool kDropout>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            const void* gate, const void* dva, void* dq, void* dk, void* dv,
-           void* dbias, void* dgate, int batch, int n, int d, int h,
-           const long long* st, cudaStream_t stream) {
+           void* dbias, void* dgate, const Dropout& drop, int batch, int n,
+           int d, int h, const long long* st, cudaStream_t stream) {
   const Strides3 sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
       sv{st[6], st[7], st[8]}, sb{st[9], st[10], st[11]},
       sg{st[12], st[13], st[14]}, sd{st[15], st[16], st[17]};
   const T* g = (const T*)(kGated ? gate : bias);  // never read when ungated
 
   const size_t smem_qkv = sizeof(float) * (4 * n * (d + 1) + 2 * n * n);
-  auto qkv = bwd_qkv_kernel<T, kGated>;
+  auto qkv = bwd_qkv_kernel<T, kGated, kDropout>;
   cudaError_t e = allow_smem(qkv, smem_qkv);
   if (e != cudaSuccess) return (int)e;
   qkv<<<dim3(h, n, batch), dim3(kQkvWarps * 32), smem_qkv, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)bias, g, (const T*)dva,
-      (T*)dq, (T*)dk, (T*)dv, n, d, h, sq, sk, sv, sb, sg, sd);
+      (T*)dq, (T*)dk, (T*)dv, drop, n, d, h, sq, sk, sv, sb, sg, sd);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
   const size_t smem_bias = sizeof(float) * (2 * n * (d + 1) + kBiasWarps * 2 * d);
   const dim3 grid_bias(h, (n + kBiasTile - 1) / kBiasTile, batch);
-  bwd_bias_kernel<T, kGated><<<grid_bias, dim3(kBiasWarps * 32), smem_bias, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)bias, g, (const T*)dva,
-      (T*)dbias, (T*)dgate, n, d, h, sq, sk, sv, sb, sg, sd);
+  bwd_bias_kernel<T, kGated, kDropout>
+      <<<grid_bias, dim3(kBiasWarps * 32), smem_bias, stream>>>(
+          (const T*)q, (const T*)k, (const T*)v, (const T*)bias, g,
+          (const T*)dva, (T*)dbias, (T*)dgate, drop, n, d, h, sq, sk, sv, sb,
+          sg, sd);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_gated(const void* q, const void* k, const void* v, const void* bias,
-                 const void* gate, const void* dva, void* dq, void* dk, void* dv,
-                 void* dbias, void* dgate, int batch, int n, int d, int h,
-                 const long long* st, cudaStream_t stream) {
-  if (gate != nullptr) {
-    return launch<T, true>(q, k, v, bias, gate, dva, dq, dk, dv, dbias, dgate,
-                           batch, n, d, h, st, stream);
+int dispatch(const void* q, const void* k, const void* v, const void* bias,
+             const void* gate, const void* dva, void* dq, void* dk, void* dv,
+             void* dbias, void* dgate, const Dropout& drop, int batch, int n,
+             int d, int h, const long long* st, cudaStream_t stream) {
+  if (gate != nullptr && drop.seeds != nullptr) {
+    return launch<T, true, true>(q, k, v, bias, gate, dva, dq, dk, dv, dbias,
+                                 dgate, drop, batch, n, d, h, st, stream);
   }
-  return launch<T, false>(q, k, v, bias, gate, dva, dq, dk, dv, dbias, dgate,
-                          batch, n, d, h, st, stream);
+  if (gate != nullptr) {
+    return launch<T, true, false>(q, k, v, bias, gate, dva, dq, dk, dv, dbias,
+                                  dgate, drop, batch, n, d, h, st, stream);
+  }
+  if (drop.seeds != nullptr) {
+    return launch<T, false, true>(q, k, v, bias, gate, dva, dq, dk, dv, dbias,
+                                  dgate, drop, batch, n, d, h, st, stream);
+  }
+  return launch<T, false, false>(q, k, v, bias, gate, dva, dq, dk, dv, dbias,
+                                 dgate, drop, batch, n, d, h, st, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 18 element strides, the three
 // outer axes of q, k, v, bias, gate and dva in that order. gate and dgate
-// are null when ungated. Launches both kernels on `stream`; returns the
-// first CUDA error (0 when both launched).
+// are null when ungated. seeds: null at rate 0, else the forward's (batch)
+// int32 seeds on the device, with its threshold and kept value. Launches
+// both kernels on `stream`; returns the first CUDA error (0 when both
+// launched).
 extern "C" int triplet_dense_bwd(const void* q, const void* k, const void* v,
                                  const void* bias, const void* gate,
                                  const void* dva, void* dq, void* dk, void* dv,
-                                 void* dbias, void* dgate, int dtype, int batch,
-                                 int n, int d, int h, const long long* strides,
-                                 void* stream) {
+                                 void* dbias, void* dgate, const void* seeds,
+                                 unsigned thresh, float keep_scale, int dtype,
+                                 int batch, int n, int d, int h,
+                                 const long long* strides, void* stream) {
   if (n < 1 || n > kMaxN || d < 1 || d > 32 || (d & (d - 1)) != 0 || h < 1 ||
       batch < 1 || batch > 65535 || ((gate == nullptr) != (dgate == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;
+  const Dropout drop{(const int*)seeds, thresh, keep_scale};
   if (dtype == 0) {
-    return launch_gated<float>(q, k, v, bias, gate, dva, dq, dk, dv, dbias,
-                               dgate, batch, n, d, h, strides, s);
+    return dispatch<float>(q, k, v, bias, gate, dva, dq, dk, dv, dbias, dgate,
+                           drop, batch, n, d, h, strides, s);
   }
   if (dtype == 1) {
-    return launch_gated<__nv_bfloat16>(q, k, v, bias, gate, dva, dq, dk, dv,
-                                       dbias, dgate, batch, n, d, h, strides, s);
+    return dispatch<__nv_bfloat16>(q, k, v, bias, gate, dva, dq, dk, dv, dbias,
+                                   dgate, drop, batch, n, d, h, strides, s);
   }
   return (int)cudaErrorInvalidValue;
 }

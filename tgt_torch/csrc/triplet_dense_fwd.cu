@@ -1,12 +1,19 @@
 // Forward dense triplet attention for Hopper (sm_90a).
 //
 // Replaces the TPU kernel tgt_tpu/ops/pallas/triplet_dense.py:_fwd_kernel
-// (with _attn_tile) at dropout rate 0. For every batch row b, pair column j
-// and triplet head h it computes, for each row i,
+// (with _attn_tile), at dropout rate 0 and at rate > 0 (with _keep_tile and
+// _hash_keepf). For every batch row b, pair column j and triplet head h it
+// computes, for each row i,
 //
 //   s[k]       = sum_d Q[b,i,j,d,h] K[b,j,k,d,h] + bias[b,i,k,h]   (Q pre-scaled)
 //   a[k]       = softmax_k(s)[k] * sigmoid(gate[b,i,k,h])          (gate optional)
+//                * keep(seed[b], (j*n + i)*(n*H) + k*H + h)        (rate > 0)
 //   va[b,j,i,:,h] = sum_k a[k] V[b,j,k,:,h]
+//
+// keep is the stateless hash of dropout_hash.cuh: the dropout runs in the
+// kernel, on the gated weights (softmax, gate, dropout, as the TPU kernel
+// orders them), and the mask never reaches device memory. The rate > 0
+// branch is a template flag: the rate-0 instantiations carry none of it.
 //
 // in f32, whatever the storage type (f32 or bf16). No (b, N, N, N, h)
 // tensor reaches device memory: the N x N logits of one (b, j, h) live in
@@ -29,48 +36,37 @@
 // clamped at 1e-30 as in the TPU kernel. Heads are the fastest axis in
 // memory, so a block reads its operands with stride H; the H blocks of one
 // (b, j) are adjacent in the grid and share those cache lines through L2.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include <stdint.h>
+
+#include "dropout_hash.cuh"
+#include "triplet_common.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kMaxN = 128;
 constexpr int kPerLane = kMaxN / 32;
-constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kFull = kFullMask;
 
 struct Strides3 {
   long long b, x, y;  // element strides of the three outer axes
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
 // q: (b, i, j, d, h); k, v: (b, j, k, d, h); bias, gate: (b, i, k, h);
 // out: (b, j, i, d, h) contiguous. The (d, h) axes of q/k/v and the h axis
-// of bias/gate are contiguous; the outer axes take any strides.
-template <typename T, bool kGated>
+// of bias/gate are contiguous; the outer axes take any strides. seeds: (b)
+// int32, read only when kDropout.
+template <typename T, bool kGated, bool kDropout>
 __global__ void __launch_bounds__(kWarps * 32)
 triplet_dense_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ bias,
                          const T* __restrict__ gate, T* __restrict__ out,
-                         int n, int d, int h, Strides3 sq, Strides3 sk,
-                         Strides3 sv, Strides3 sb, Strides3 sg) {
+                         const int* __restrict__ seeds, uint32_t thresh,
+                         float keep_scale, int n, int d, int h, Strides3 sq,
+                         Strides3 sk, Strides3 sv, Strides3 sb, Strides3 sg) {
   const int hh = blockIdx.x, j = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t seed = kDropout ? (uint32_t)seeds[b] : 0u;
 
   extern __shared__ float smem[];
   float* ks = smem;                 // [n][d + 1], padded against bank conflicts
@@ -126,6 +122,10 @@ triplet_dense_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const float g = to_f32(gate[b * sg.b + i * sg.x + kk * sg.y + hh]);
           p *= 1.f / (1.f + expf(-g));
         }
+        if (kDropout) {
+          const uint32_t lin = ((uint32_t)(j * n + i) * n + kk) * h + hh;
+          p *= dropout_keep(lin, seed, thresh, keep_scale);
+        }
         aw[kk] = p;
       }
     }
@@ -143,9 +143,10 @@ triplet_dense_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename T, bool kGated, bool kDropout>
 void launch(const void* q, const void* k, const void* v, const void* bias,
-            const void* gate, void* out, int batch, int n, int d, int h,
+            const void* gate, void* out, const int* seeds, uint32_t thresh,
+            float keep_scale, int batch, int n, int d, int h,
             const long long* st, cudaStream_t stream) {
   const Strides3 sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
       sv{st[6], st[7], st[8]}, sb{st[9], st[10], st[11]},
@@ -153,14 +154,28 @@ void launch(const void* q, const void* k, const void* v, const void* bias,
   const dim3 grid(h, n, batch);
   const dim3 block(kWarps * 32);
   const size_t smem = sizeof(float) * (n * (d + 1) + n * d + kWarps * d + kWarps * n);
-  if (gate != nullptr) {
-    triplet_dense_fwd_kernel<T, true><<<grid, block, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)bias, (const T*)gate,
-        (T*)out, n, d, h, sq, sk, sv, sb, sg);
+  triplet_dense_fwd_kernel<T, kGated, kDropout><<<grid, block, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)bias, (const T*)gate,
+      (T*)out, seeds, thresh, keep_scale, n, d, h, sq, sk, sv, sb, sg);
+}
+
+template <typename T>
+void dispatch(const void* q, const void* k, const void* v, const void* bias,
+              const void* gate, void* out, const int* seeds, uint32_t thresh,
+              float keep_scale, int batch, int n, int d, int h,
+              const long long* st, cudaStream_t stream) {
+  if (gate != nullptr && seeds != nullptr) {
+    launch<T, true, true>(q, k, v, bias, gate, out, seeds, thresh, keep_scale,
+                          batch, n, d, h, st, stream);
+  } else if (gate != nullptr) {
+    launch<T, true, false>(q, k, v, bias, gate, out, seeds, thresh, keep_scale,
+                           batch, n, d, h, st, stream);
+  } else if (seeds != nullptr) {
+    launch<T, false, true>(q, k, v, bias, gate, out, seeds, thresh, keep_scale,
+                           batch, n, d, h, st, stream);
   } else {
-    triplet_dense_fwd_kernel<T, false><<<grid, block, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)bias, nullptr,
-        (T*)out, n, d, h, sq, sk, sv, sb, sg);
+    launch<T, false, false>(q, k, v, bias, gate, out, seeds, thresh, keep_scale,
+                            batch, n, d, h, st, stream);
   }
 }
 
@@ -168,20 +183,27 @@ void launch(const void* q, const void* k, const void* v, const void* bias,
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 15 element strides, the three
 // outer axes of q, k, v, bias and gate in that order. gate may be null
-// (ungated). Returns cudaGetLastError() after the launch.
+// (ungated). seeds: null at rate 0, else (batch) int32 on the device, with
+// the threshold and the kept value of dropout_hash.cuh. Returns
+// cudaGetLastError() after the launch.
 extern "C" int triplet_dense_fwd(const void* q, const void* k, const void* v,
                                  const void* bias, const void* gate, void* out,
-                                 int dtype, int batch, int n, int d, int h,
-                                 const long long* strides, void* stream) {
+                                 const void* seeds, unsigned thresh,
+                                 float keep_scale, int dtype, int batch, int n,
+                                 int d, int h, const long long* strides,
+                                 void* stream) {
   if (n < 1 || n > kMaxN || d < 1 || d > 32 || (d & (d - 1)) != 0 || h < 1 ||
       batch < 1 || batch > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;
+  const int* sd = (const int*)seeds;
   if (dtype == 0) {
-    launch<float>(q, k, v, bias, gate, out, batch, n, d, h, strides, s);
+    dispatch<float>(q, k, v, bias, gate, out, sd, thresh, keep_scale, batch, n,
+                    d, h, strides, s);
   } else if (dtype == 1) {
-    launch<__nv_bfloat16>(q, k, v, bias, gate, out, batch, n, d, h, strides, s);
+    dispatch<__nv_bfloat16>(q, k, v, bias, gate, out, sd, thresh, keep_scale,
+                            batch, n, d, h, strides, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

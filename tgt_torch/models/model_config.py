@@ -59,11 +59,13 @@ class TGTConfig:
     remat_policy: str = "none"
     use_scan: bool = True
     # Triplet core: 'dense' = the hand-written CUDA kernels on every bucket
-    # (ops/kernels/triplet_dense.py for the attention variants,
-    # ops/kernels/triplet_aggregate.py for the aggregate ones); False = the
-    # plain PyTorch einsum path. True (tgt_tpu's legacy fused kernel) is not
-    # ported for the attention variants yet; the aggregate variants take
-    # their plain path for it, as tgt_tpu does.
+    # (ops/kernels/triplet_dense.py for the attention variants, with
+    # triplet_dropout in the kernels; ops/kernels/triplet_aggregate.py for
+    # the aggregate ones); False = the plain PyTorch einsum path; True =
+    # tgt_tpu's legacy fused pair (ops/kernels/triplet_attention.py) for the
+    # attention variants, which takes the plain path, with a warning, when
+    # triplet dropout is on in training; the aggregate variants take their
+    # plain path for it, as tgt_tpu does.
     use_pallas: object = False
     # tgt_tpu's measured TPU crossover for its dense kernel. Parsed so
     # configs load; the port does not read them (no TPU crossover applies).

@@ -1,16 +1,19 @@
 """Hand-written CUDA kernels for Hopper, each with its plain PyTorch version.
 
-| TPU kernel (tgt_tpu)                               | here                      |
-|----------------------------------------------------|---------------------------|
-| ops/pallas/triplet_dense.py:_fwd_kernel, rate 0    | triplet_dense.triplet_dense_fwd |
-| ops/pallas/triplet_dense.py:_bwd_kernel, rate 0    | triplet_dense.triplet_dense_bwd |
-| ops/pallas/triplet_dense.py:_agg_fwd_kernel        | triplet_aggregate.triplet_aggregate_fwd |
-| ops/pallas/triplet_dense.py:_agg_bwd_kernel        | triplet_aggregate.triplet_aggregate_bwd |
+| TPU kernel (tgt_tpu)                                | here                      |
+|-----------------------------------------------------|---------------------------|
+| ops/pallas/triplet_dense.py:_fwd_kernel, rate 0, > 0 | triplet_dense.triplet_dense_fwd |
+| ops/pallas/triplet_dense.py:_bwd_kernel, rate 0, > 0 | triplet_dense.triplet_dense_bwd |
+| ops/pallas/triplet_dense.py:_agg_fwd_kernel         | triplet_aggregate.triplet_aggregate_fwd |
+| ops/pallas/triplet_dense.py:_agg_bwd_kernel         | triplet_aggregate.triplet_aggregate_bwd |
+| ops/pallas/triplet_attention.py:_fwd_kernel         | triplet_attention.triplet_attention_fwd |
+| ops/pallas/triplet_attention.py:_bwd_kernel         | triplet_attention.triplet_attention_bwd |
 
 ``triplet_dense.TripletDenseCore`` joins the first two as the custom VJP
-``_dense_core`` does, ``triplet_aggregate.TripletAggregateCore`` the other
-two as ``_agg_core`` does.
-
-The other Pallas kernels (the dropout branch of the dense pair, the legacy
-``triplet_attention.py`` pair) are queued in ROADMAP.md.
+``_dense_core`` does (its dropout hash ``_hash_keepf`` is
+``triplet_dense.hash_keep`` and ``csrc/dropout_hash.cuh``),
+``triplet_aggregate.TripletAggregateCore`` the next two as ``_agg_core``
+does, and ``triplet_attention.TripletCore`` the legacy pair as
+``_triplet_core`` does. Every Pallas kernel of tgt_tpu has its counterpart
+here.
 """

@@ -1,20 +1,28 @@
 """Dense triplet attention: the CUDA kernels' wrappers, their plain
 versions, and the autograd function that joins forward and backward.
 
-Counterpart of ``tgt_tpu/ops/pallas/triplet_dense.py`` at dropout rate 0:
-its ``_fwd_kernel`` is ``tgt_torch/csrc/triplet_dense_fwd.cu`` and its
-``_bwd_kernel`` is ``tgt_torch/csrc/triplet_dense_bwd.cu``; the custom VJP
-``_dense_core`` is :class:`TripletDenseCore`. Each source note gives its
-kernel's bound on the H100 and its design. The TPU machinery (lane packing,
-``JBLK`` j-padding, ``_pick_jblk`` VMEM budgets, the shard_map data mesh)
-has no counterpart: the kernels read the natural ``(..., d, h)`` layouts and
-need no padding.
+Counterpart of ``tgt_tpu/ops/pallas/triplet_dense.py``: its ``_fwd_kernel``
+is ``tgt_torch/csrc/triplet_dense_fwd.cu`` and its ``_bwd_kernel`` is
+``tgt_torch/csrc/triplet_dense_bwd.cu``, each at dropout rate 0 and at rate
+> 0; the custom VJP ``_dense_core`` is :class:`TripletDenseCore`. Each
+source note gives its kernel's bound on the H100 and its design. The TPU
+machinery (lane packing, ``JBLK`` j-padding, ``_pick_jblk`` VMEM budgets,
+the shard_map data mesh) has no counterpart: the kernels read the natural
+``(..., d, h)`` layouts and need no padding.
 
 Contract of :func:`triplet_dense` (and of :func:`triplet_dense_fwd`):
   q     (b, i, j, d, h), already scaled by d**-0.5
   k, v  (b, j, k, d, h)
   bias  (b, i, k, h) and gate (b, i, k, h) or None, in the compute dtype
+  seed  (b, 1) int32, one dropout seed per batch row; read only at rate > 0
+  rate  the dropout rate, in [0, 1)
   ->    va (b, j, i, d, h), float32 or bfloat16 like the inputs
+
+At rate > 0 the gated weights (softmax, then gate) are multiplied by the
+keep mask of :func:`hash_keep`, a stateless hash of the element's index
+``(j*n + i)*(n*h) + k*h + h`` in the core's own (j, i, k, h) frame under its
+batch row's seed, as ``_keep_tile`` draws it: the backward rebuilds the
+forward's mask and no mask reaches device memory.
 
 :func:`triplet_dense_bwd` takes the same inputs and the cotangent ``dva``
 (b, j, i, d, h) and returns ``dq``, ``dk``, ``dv`` (contiguous, in the
@@ -38,10 +46,70 @@ KERNEL_SOURCE = "tgt_torch/csrc/triplet_dense_fwd.cu"
 REPLACES = "tgt_tpu/ops/pallas/triplet_dense.py:222"
 BWD_KERNEL_SOURCE = "tgt_torch/csrc/triplet_dense_bwd.cu"
 BWD_REPLACES = "tgt_tpu/ops/pallas/triplet_dense.py:258"
+DROPOUT_REPLACES = "tgt_tpu/ops/pallas/triplet_dense.py:141"
 
 MAX_NODES = 128
 HEAD_DIMS = (1, 2, 4, 8, 16, 32)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for int64 ``x`` in [0, 2**32) and a 32-bit
+    constant ``c``, split in 16-bit halves so no int64 product overflows."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _MASK32
+
+
+def dropout_constants(rate: float) -> Tuple[int, float]:
+    """(threshold, kept value) of the keep mask, as ``_hash_keepf`` computes
+    them in Python doubles: a 31-bit hash below the threshold keeps its
+    element, which is then scaled by float32(1 / (1 - rate))."""
+    keep = 1.0 - rate
+    return min(int(keep * 2.0 ** 31), 0x7FFFFFFF), 1.0 / keep
+
+
+def hash_keep(lin: torch.Tensor, seed, rate: float) -> torch.Tensor:
+    """Inverted-dropout keep mask from a stateless integer hash, bit for bit
+    ``_hash_keepf`` (``tgt_tpu/ops/pallas/triplet_dense.py:141``): murmur3's
+    32-bit finalizer over ``lin * 0x9E3779B9 + seed`` with wrapping 32-bit
+    multiplies and logical shifts, done here in int64 masked to 32 bits.
+
+    ``lin`` holds non-negative element indices (any integer dtype and
+    shape), ``seed`` an int or an integer tensor that broadcasts against
+    it. Returns float32 of {0, 1/(1-rate)}."""
+    h = _mul32(lin.to(torch.int64) & _MASK32, 0x9E3779B9)
+    seed = torch.as_tensor(seed, device=lin.device).to(torch.int64)
+    h = (h + (seed & _MASK32)) & _MASK32
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    thresh, scale = dropout_constants(rate)
+    kept = torch.tensor(scale, dtype=torch.float32, device=lin.device)
+    return torch.where((h & 0x7FFFFFFF) < thresh, kept, torch.zeros_like(kept))
+
+
+def keep_tile(seed, j: int, n: int, kh: int, rate: float,
+              device=None) -> torch.Tensor:
+    """(n, kh) keep mask of row ``j``: element (i, k*H + h) hashes index
+    ``(j*n + i)*kh + k*H + h`` under ``seed`` (``_keep_tile``,
+    ``triplet_dense.py:167``)."""
+    i = torch.arange(n, device=device)[:, None]
+    c = torch.arange(kh, device=device)[None, :]
+    return hash_keep((j * n + i) * kh + c, seed, rate)
+
+
+def dropout_mask(seed: torch.Tensor, n: int, h: int,
+                 rate: float) -> torch.Tensor:
+    """(b, j, h, i, k) float32 keep mask of the whole core for the (b, 1)
+    seeds: the kernel frame's index ``(j*n + i)*(n*h) + k*h + h``."""
+    ar = torch.arange(n, device=seed.device)
+    jj, hh = ar[:, None, None, None], torch.arange(h, device=seed.device)[
+        None, :, None, None]
+    ii, kk = ar[None, None, :, None], ar[None, None, None, :]
+    lin = (jj * n + ii) * (n * h) + kk * h + hh
+    return hash_keep(lin[None], seed.reshape(-1, 1, 1, 1, 1), rate)
 
 
 def _logits(q, k, bias):
@@ -55,39 +123,57 @@ def _gate(gate):
     return torch.sigmoid(gate.float().permute(0, 3, 1, 2))[:, None]
 
 
+def dense_weights(q: torch.Tensor, k: torch.Tensor, bias: torch.Tensor,
+                  gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(b, j, h, i, k) float32 weights: the softmax over k of q.K + bias,
+    times sigmoid(gate) when gated."""
+    a = torch.softmax(_logits(q, k, bias), dim=-1)
+    return a if gate is None else a * _gate(gate)
+
+
 def triplet_dense_fwd_reference(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, bias: torch.Tensor,
-                                gate: Optional[torch.Tensor] = None
-                                ) -> torch.Tensor:
+                                gate: Optional[torch.Tensor] = None,
+                                seed: Optional[torch.Tensor] = None,
+                                rate: float = 0.0) -> torch.Tensor:
     """Plain version: the einsum form of ``tgt_tpu/ops/triplet.py:353-364``
     without ``lin_O``, computed in float32 like the kernel and returned in
-    the input dtype. It materialises the (b, j, h, i, k) logits."""
-    a = torch.softmax(_logits(q, k, bias), dim=-1)
-    if gate is not None:
-        a = a * _gate(gate)
+    the input dtype; at rate > 0 the gated weights are multiplied by
+    :func:`dropout_mask` (softmax, gate, dropout, as ``_fwd_kernel:245-248``).
+    It materialises the (b, j, h, i, k) logits."""
+    a = dense_weights(q, k, bias, gate)
+    if rate > 0.0:
+        a = a * dropout_mask(seed, q.shape[1], q.shape[-1], rate)
     return torch.einsum("bjhik,bjkdh->bjidh", a, v.float()).to(q.dtype)
 
 
 def triplet_dense_bwd_reference(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, bias: torch.Tensor,
                                 gate: Optional[torch.Tensor],
-                                dva: torch.Tensor):
+                                dva: torch.Tensor,
+                                seed: Optional[torch.Tensor] = None,
+                                rate: float = 0.0):
     """Plain backward: the formulas of ``_bwd_kernel``
     (``tgt_tpu/ops/pallas/triplet_dense.py:288-324``) with the per-(i, h)
-    softmax max, in f32 math over materialised (b, j, h, i, k) tensors.
-    Returns ``(dq, dk, dv, dbias, dgate)`` in the inputs' dtype; ``dgate``
-    is None when ungated."""
+    softmax max, in f32 math over materialised (b, j, h, i, k) tensors; at
+    rate > 0 the keep mask multiplies both the dV operand ``a`` and ``dA``
+    before dgate, dp and ds (``:299-305``). Returns ``(dq, dk, dv, dbias,
+    dgate)`` in the inputs' dtype; ``dgate`` is None when ungated."""
     pn = torch.softmax(_logits(q, k, bias), dim=-1)
     dva32 = dva.float()
     da = torch.einsum("bjidh,bjkdh->bjhik", dva32, v.float())
+    keep = 1.0
+    if rate > 0.0:
+        keep = dropout_mask(seed, q.shape[1], q.shape[-1], rate)
+        da = da * keep
     dgate = None
     if gate is not None:
         g = _gate(gate)
-        a = pn * g
+        a = pn * g * keep
         dgate = (da * pn * g * (1.0 - g)).sum(1).permute(0, 2, 3, 1)
         dp = da * g
     else:
-        a = pn
+        a = pn * keep
         dp = da
     ds = pn * (dp - (dp * pn).sum(-1, keepdim=True))
     dbias = ds.sum(1).permute(0, 2, 3, 1)
@@ -99,7 +185,8 @@ def triplet_dense_bwd_reference(q: torch.Tensor, k: torch.Tensor,
             None if dgate is None else dgate.to(dt))
 
 
-def _check_shapes(q, k, v, bias, gate, dva=None) -> None:
+def _check_shapes(q, k, v, bias, gate, dva=None, seed=None,
+                  rate=0.0) -> None:
     if q.dim() != 5:
         raise ValueError(f"q must be (b, i, j, d, h), got shape {tuple(q.shape)}")
     b, n, nj, d, h = q.shape
@@ -118,6 +205,15 @@ def _check_shapes(q, k, v, bias, gate, dva=None) -> None:
             raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q is on {q.device}")
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"the dropout rate must be in [0, 1), got {rate}")
+    if rate > 0.0:
+        if seed is None or tuple(seed.shape) != (b, 1):
+            raise ValueError(f"rate > 0 needs a (b, 1) = ({b}, 1) seed, got "
+                             f"{None if seed is None else tuple(seed.shape)}")
+        if seed.dtype != torch.int32 or seed.device != q.device:
+            raise TypeError(f"the seed must be int32 on {q.device}, got "
+                            f"{seed.dtype} on {seed.device}")
 
 
 def _check_kernel_limits(q, k, v, bias, gate, dva=None) -> None:
@@ -145,10 +241,24 @@ def _check_kernel_limits(q, k, v, bias, gate, dva=None) -> None:
                              f"{t.stride()}")
 
 
+def _dropout_args(seed, rate):
+    """The kernels' dropout arguments: the seeds' pointer (None at rate 0,
+    which selects the kernels without dropout), the threshold and the kept
+    value. The kernels read the seed of row b at element b."""
+    if rate == 0.0:
+        return None, 0, 0.0
+    if not seed.is_contiguous():
+        raise ValueError(f"the seed must be contiguous, strides "
+                         f"{seed.stride()}")
+    thresh, scale = dropout_constants(rate)
+    return seed.data_ptr(), thresh, scale
+
+
 @functools.cache
 def _fwd_kernel():
     fn = load_library("triplet_dense_fwd").triplet_dense_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_uint, ctypes.c_float]
+                   + [ctypes.c_int] * 5
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -157,21 +267,33 @@ def _fwd_kernel():
 @functools.cache
 def _bwd_kernel():
     fn = load_library("triplet_dense_bwd").triplet_dense_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_uint, ctypes.c_float]
+                   + [ctypes.c_int] * 5
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
+def _count(wrapper, rate: float) -> None:
+    """One more launch on the card, counted apart at rate > 0."""
+    if rate > 0.0:
+        wrapper.dropout_launches += 1
+    else:
+        wrapper.launches += 1
+
+
 def triplet_dense_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       bias: torch.Tensor,
-                      gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      gate: Optional[torch.Tensor] = None,
+                      seed: Optional[torch.Tensor] = None,
+                      rate: float = 0.0) -> torch.Tensor:
     """Gated (or, with ``gate=None``, ungated) dense triplet attention
-    forward, with no gradient on the card: a caller that needs one takes
+    forward, with dropout at ``rate`` > 0 under the (b, 1) ``seed``, and no
+    gradient on the card: a caller that needs one takes
     :func:`triplet_dense`. See the module docstring for the contract."""
-    _check_shapes(q, k, v, bias, gate)
+    _check_shapes(q, k, v, bias, gate, seed=seed, rate=rate)
     if q.device.type == "cpu":
-        return triplet_dense_fwd_reference(q, k, v, bias, gate)
+        return triplet_dense_fwd_reference(q, k, v, bias, gate, seed, rate)
     _check_kernel_limits(q, k, v, bias, gate)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (q, k, v, bias, gate)):
@@ -184,31 +306,37 @@ def triplet_dense_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = (ctypes.c_longlong * 15)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *bias.stride()[:3], *gate_or_bias.stride()[:3])
+    seeds, thresh, scale = _dropout_args(seed, rate)
     with torch.cuda.device(q.device):
         rc = _fwd_kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             None if gate is None else gate.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[q.dtype], b, n, d, h, strides,
+            seeds, thresh, scale, _DTYPE_CODES[q.dtype], b, n, d, h, strides,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"triplet_dense_fwd kernel launch failed with "
                            f"CUDA error {rc}")
-    triplet_dense_fwd.launches += 1
+    _count(triplet_dense_fwd, rate)
     return out
 
 
-triplet_dense_fwd.launches = 0  # kernel launches, read by chip_smoke.py
+# kernel launches on the card, read by chip_smoke.py: at rate 0, and at > 0
+triplet_dense_fwd.launches = 0
+triplet_dense_fwd.dropout_launches = 0
 
 
 def triplet_dense_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       bias: torch.Tensor, gate: Optional[torch.Tensor],
-                      dva: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+                      dva: torch.Tensor, seed: Optional[torch.Tensor] = None,
+                      rate: float = 0.0) -> Tuple[torch.Tensor, ...]:
     """Gradients ``(dq, dk, dv, dbias, dgate)`` of the forward with respect
-    to its inputs, given the cotangent ``dva``; ``dgate`` is None when
-    ungated. One call launches the backward's two kernels and counts once."""
-    _check_shapes(q, k, v, bias, gate, dva)
+    to its inputs, given the cotangent ``dva`` and the forward's ``seed``
+    and ``rate``; ``dgate`` is None when ungated. One call launches the
+    backward's two kernels and counts once."""
+    _check_shapes(q, k, v, bias, gate, dva, seed, rate)
     if q.device.type == "cpu":
-        return triplet_dense_bwd_reference(q, k, v, bias, gate, dva)
+        return triplet_dense_bwd_reference(q, k, v, bias, gate, dva, seed,
+                                           rate)
     _check_kernel_limits(q, k, v, bias, gate, dva)
     b, n, _, d, h = q.shape
     dq = torch.empty((b, n, n, d, h), dtype=q.dtype, device=q.device)
@@ -219,44 +347,52 @@ def triplet_dense_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = (ctypes.c_longlong * 18)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *bias.stride()[:3], *gate_or_bias.stride()[:3], *dva.stride()[:3])
+    seeds, thresh, scale = _dropout_args(seed, rate)
     with torch.cuda.device(q.device):
         rc = _bwd_kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             None if gate is None else gate.data_ptr(), dva.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
             None if dgate is None else dgate.data_ptr(),
-            _DTYPE_CODES[q.dtype], b, n, d, h, strides,
+            seeds, thresh, scale, _DTYPE_CODES[q.dtype], b, n, d, h, strides,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"triplet_dense_bwd kernel launch failed with "
                            f"CUDA error {rc}")
-    triplet_dense_bwd.launches += 1
+    _count(triplet_dense_bwd, rate)
     return dq, dk, dv, dbias, dgate
 
 
-triplet_dense_bwd.launches = 0  # one per call on the card, read by chip_smoke.py
+# one per call on the card, read by chip_smoke.py: at rate 0, and at > 0
+triplet_dense_bwd.launches = 0
+triplet_dense_bwd.dropout_launches = 0
 
 
 class TripletDenseCore(torch.autograd.Function):
     """The dense core with its gradient: forward :func:`triplet_dense_fwd`,
     backward :func:`triplet_dense_bwd`, as ``_dense_core`` with its
     ``defvjp`` (``tgt_tpu/ops/pallas/triplet_dense.py:363-445``). Only the
-    inputs are kept for the backward, which recomputes the logits."""
+    inputs and the seed are kept for the backward, which recomputes the
+    logits and the keep mask; ``seed`` and ``rate`` get no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, gate):
-        ctx.save_for_backward(q, k, v, bias, gate)
-        return triplet_dense_fwd(q, k, v, bias, gate)
+    def forward(ctx, q, k, v, bias, gate, seed, rate):
+        ctx.save_for_backward(q, k, v, bias, gate, seed)
+        ctx.rate = rate
+        return triplet_dense_fwd(q, k, v, bias, gate, seed, rate)
 
     @staticmethod
     def backward(ctx, dva):
-        q, k, v, bias, gate = ctx.saved_tensors
-        return triplet_dense_bwd(q, k, v, bias, gate, dva.contiguous())
+        q, k, v, bias, gate, seed = ctx.saved_tensors
+        return (*triplet_dense_bwd(q, k, v, bias, gate, dva.contiguous(),
+                                   seed, ctx.rate), None, None)
 
 
 def triplet_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   bias: torch.Tensor,
-                  gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  gate: Optional[torch.Tensor] = None,
+                  seed: Optional[torch.Tensor] = None,
+                  rate: float = 0.0) -> torch.Tensor:
     """Differentiable dense triplet attention core (see the module
     docstring for the contract)."""
-    return TripletDenseCore.apply(q, k, v, bias, gate)
+    return TripletDenseCore.apply(q, k, v, bias, gate, seed, rate)

@@ -5,12 +5,17 @@ works through the edges (j, k), weighted by (i, k); the "out" direction is
 the same computation on pair-transposed tensors.
 
 - ``attention``, ``attention_ungated`` (:class:`TripletAttention`): the
-  N^3 core (QK + bias, softmax over k, sigmoid gate, sum over k of a*V) is
-  ``ops/kernels/triplet_dense.triplet_dense`` with ``use_pallas='dense'``
-  (every published TGT-At config): on the card the CUDA forward and
-  backward kernels joined by ``TripletDenseCore``, on the CPU their plain
-  versions. ``use_pallas=False`` takes the plain forward, differentiated
-  by autograd.
+  N^3 core (QK + bias, softmax over k, sigmoid gate, triplet dropout, sum
+  over k of a*V) is ``ops/kernels/triplet_dense.triplet_dense`` with
+  ``use_pallas='dense'`` (every published TGT-At config): on the card the
+  CUDA forward and backward kernels joined by ``TripletDenseCore``, with
+  the dropout mask drawn in the kernels from per-row seeds; on the CPU
+  their plain versions. ``use_pallas=True`` runs tgt_tpu's legacy fused
+  pair, ``ops/kernels/triplet_attention.triplet_attention_fused`` (one
+  launch for both directions), which has no dropout: with dropout in
+  training it warns and takes the plain path, as tgt_tpu does.
+  ``use_pallas=False`` takes the plain forward, differentiated by
+  autograd, with PyTorch's dropout on the weights.
 - ``aggregate``, ``aggregate_ungated`` (:class:`TripletAggregate`, the
   TGT-Agx2 family): the N^2 weights (softmax over k, sigmoid gate, dropout)
   are plain PyTorch; the O(N^3) k-aggregation is
@@ -34,7 +39,8 @@ The registry accepts the reference's ``tiangular_update`` typo.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Optional
+import warnings
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
@@ -42,8 +48,20 @@ from torch import nn
 from tgt_torch.ops.common import dropout, layernorm, linear, siglin
 from tgt_torch.ops.kernels.triplet_aggregate import (
     triplet_aggregate_core, triplet_aggregate_fwd_reference)
-from tgt_torch.ops.kernels.triplet_dense import (triplet_dense,
+from tgt_torch.ops.kernels.triplet_attention import triplet_attention_fused
+from tgt_torch.ops.kernels.triplet_dense import (dense_weights, triplet_dense,
                                                  triplet_dense_fwd_reference)
+
+
+def dropout_seeds(b: int, generator: Optional[torch.Generator],
+                  device) -> Dict[str, torch.Tensor]:
+    """One (b, 1) int32 seed tensor per direction, "in" then "out", in
+    [0, 2**31 - 1), from the layer's generator: the counterpart of the rng
+    split of ``triplet_attention_dense`` (``triplet_dense.py:700-705``).
+    Drawn inside the layer, so a remat replay draws the same seeds."""
+    return {which: torch.randint(0, 2 ** 31 - 1, (b, 1), generator=generator,
+                                 device=device, dtype=torch.int32)
+            for which in ("in", "out")}
 
 
 class TripletAttention(nn.Module):
@@ -68,18 +86,25 @@ class TripletAttention(nn.Module):
                 attention_dropout: float = 0.0, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None,
                 use_pallas=False) -> torch.Tensor:
-        if attention_dropout > 0.0 and not deterministic:
-            raise NotImplementedError(
-                "triplet attention dropout is not ported yet (ROADMAP.md "
-                "item 2c, the rate > 0 branch of the dense kernel)")
+        # the routing of tgt_tpu/ops/triplet.py:274-371
+        rate = 0.0 if deterministic else float(attention_dropout)
+        seeds = {"in": None, "out": None}
         if use_pallas == "dense":
             core = triplet_dense
-        elif use_pallas is False or use_pallas is None:
-            core = triplet_dense_fwd_reference
+            if rate > 0.0:
+                seeds = dropout_seeds(e.shape[0], generator, e.device)
+        elif use_pallas and rate == 0.0:
+            return triplet_attention_fused(self, e, mask, self.gated)
         else:
-            raise NotImplementedError(
-                f"use_pallas={use_pallas!r}: tgt_tpu's legacy fused kernel "
-                f"is not ported yet (ROADMAP.md item 2f)")
+            if use_pallas:
+                warnings.warn(
+                    f"use_pallas requested but the triplet kernel fell back "
+                    f"to the plain path: triplet attention_dropout="
+                    f"{attention_dropout} > 0 in training mode (the legacy "
+                    f"fused kernel runs without in-kernel dropout; set "
+                    f"triplet_dropout: 0 or use_pallas: dense to keep a "
+                    f"kernel)", RuntimeWarning, stacklevel=2)
+            core = functools.partial(_plain_core, generator=generator)
 
         b, n, _, w = e.shape
         h = self.num_heads
@@ -105,12 +130,24 @@ class TripletAttention(nn.Module):
                 m = mask.transpose(1, 2)
             bias = e_b + m
             gate = None if g_b is None else g_b + m
-            va = core(q, k, v, bias, gate)                  # (b, j, i, d, h)
+            va = core(q, k, v, bias, gate, seed=seeds[which],
+                      rate=rate)                        # (b, j, i, d, h)
             return torch.einsum("bjidh,dhw->bjiw", va, w_dir)
 
         out_t = (direction("in", w_o[:, :h], False)
                  + direction("out", w_o[:, h:], True))
         return out_t.transpose(1, 2) + self.lin_O.bias.to(e.dtype)
+
+
+def _plain_core(q, k, v, bias, gate, seed=None, rate=0.0, generator=None):
+    """The plain path's core: at rate 0 the dense kernel's plain version; at
+    rate > 0 the same with PyTorch's dropout on the gated (b, j, h, i, k)
+    weights, drawn from ``generator`` (``seed`` is unused: the masks match
+    tgt_tpu's jnp path in distribution only)."""
+    if rate == 0.0:
+        return triplet_dense_fwd_reference(q, k, v, bias, gate)
+    a = dropout(dense_weights(q, k, bias, gate), rate, False, generator)
+    return torch.einsum("bjhik,bjkdh->bjidh", a, v.float()).to(q.dtype)
 
 
 class TripletAggregate(nn.Module):

@@ -2,14 +2,15 @@
 
     python -m tgt_torch.profiling [--path serve] [--n 48] [--batch 16]
                                   [--steps 3] [--config YAML]
-                                  [--use-pallas dense]
+                                  [--use-pallas dense|true|false]
     python -m tgt_torch.profiling --path train [--steps 2] [--config YAML]
 
 Builds the distance model of ``--config`` (by default the flagship TGT-At,
 configs/pcqm/tgt_at_200m/dist_pred/tgt_at_dp_rdkit.yaml; for TGT-Agx2 pass
 configs/pcqm/tgt_agx2_100m/dist_pred/tgt_agx2_dp_rdkit.yaml with
-``--use-pallas dense``, which that config leaves unset) with weights from a
-seed and traces, with ``torch.profiler`` after a warm-up:
+``--use-pallas dense``, which that config leaves unset; ``--use-pallas true``
+profiles the legacy fused triplet kernels) with weights from a seed and
+traces, with ``torch.profiler`` after a warm-up:
 - ``serve``: ``--steps`` MC-dropout forwards (the serving forward) of one
   device batch of ``--batch`` random molecules at bucket ``--n``; the
   Chrome trace is written as ``profile_serving_<config>_n<N>.json`` into
@@ -64,6 +65,12 @@ def _batch(rs, n_bucket: int, b: int, device):
     feed["dist_input"] = coords2dist(torch.from_numpy(batch["coords"])
                                      .to(device).float())
     return feed
+
+
+def parse_use_pallas(value: str):
+    """``--use-pallas``: "true" and "false" are the booleans a yaml would
+    give (True selects the legacy fused kernels), anything else a string."""
+    return {"true": True, "false": False}.get(value.lower(), value)
 
 
 def _raw_config(args, **extra):
@@ -128,8 +135,9 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--config", default=FLAGSHIP_YAML,
                     help="a dist_pred config (default: the flagship TGT-At)")
-    ap.add_argument("--use-pallas", default=None,
-                    help="override the config's use_pallas, e.g. dense")
+    ap.add_argument("--use-pallas", default=None, type=parse_use_pallas,
+                    help="override the config's use_pallas: dense, true "
+                         "(the legacy fused kernels) or false")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling: no CUDA device is available")
