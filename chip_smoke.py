@@ -8,7 +8,9 @@ Phases, each of which fails the run (non-zero exit) on error:
 1. Environment and build: versions, the card's name and power limit, and
    the build of the six CUDA kernel sources of the package from this
    checkout (``nvcc`` for sm_90a, one process per source, started
-   together), with each kernel's ptxas report.
+   together), with each kernel's ptxas report (registers and spill bytes
+   per function); a spill in the tensor-core backward body
+   (``triplet_bwd_mma.cuh``) fails the run.
 2. Kernel against plain: ``triplet_dense_fwd`` against its plain PyTorch
    version on the card at b=16, N in {24, 40, 48, 56}, edge width 256,
    16 triplet heads; gated and ungated; bf16 and f32; plus the training
@@ -22,13 +24,15 @@ Phases, each of which fails the run (non-zero exit) on error:
    ``scaled_dot_product_attention`` with the bias as an additive mask on
    head-major copies, and the backend that ran.
 2b. The backward kernel against plain: ``triplet_dense_bwd`` against
-   ``triplet_dense_bwd_reference`` on the same grid with a random cotangent;
-   dq, dk, dv, dbias and dgate each within the tolerances above; the out
+   ``triplet_dense_bwd_reference`` on the same grid plus the training
+   micro-batch ungated (b=32, N=48, bf16), with a random cotangent; dq,
+   dk, dv, dbias and dgate each within the tolerances above; the out
    direction's pair-transposed K/V views at b=32, N=48 in bf16 and f32;
-   two launches on the same inputs bitwise equal; the library time is
-   SDPA's backward.
+   two launches on the same inputs bitwise equal at N=48 in bf16 (b=16
+   and b=32, gated and ungated); the library time is SDPA's backward; at
+   N=48 in bf16 also the time of the wrapper's head-major copies alone.
 2c. The dense pair at dropout rate 0.3 against its plain versions with the
-   same per-row seeds, on phase 2's grid and the transposed K/V views at
+   same per-row seeds, on phase 2b's grid and the transposed K/V views at
    b=32: the forward and the five gradients within the tolerances above,
    the backward bitwise equal on repeat, and other seeds change the
    output.
@@ -44,9 +48,9 @@ Phases, each of which fails the run (non-zero exit) on error:
    a random cotangent, the transposed V included; two launches bitwise
    equal; the library time is that of the two einsums of dA and dV.
 2f, 2g. The legacy pair (``use_pallas: true``) against its plain versions
-   on phase 2's grid, both directions stacked on the head axis (2 x 16
-   heads, head-major), ungated with the constant gate 30.0; tolerances,
-   determinism and library times as in 2 and 2b.
+   on phase 2's grid (2g on phase 2b's), both directions stacked on the
+   head axis (2 x 16 heads, head-major), ungated with the constant gate
+   30.0; tolerances, determinism and library times as in 2 and 2b.
 3. Serving at full width: the flagship TGT-At distance model of
    configs/pcqm/tgt_at_200m/dist_pred/tgt_at_dp_rdkit.yaml (24 layers,
    node 768, edge 256, 64 heads, 16 triplet heads, 256 bins, bf16) with
@@ -109,6 +113,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -145,6 +150,29 @@ def emit(row: dict) -> None:
     print(line, flush=True)
     with open(ROWS_PATH, "a") as f:
         f.write(line + "\n")
+
+
+# mangled-name prefix of the tensor-core backward body's kernels
+# (tgt_torch/csrc/triplet_bwd_mma.cuh, namespace tbwd), which must not spill
+BWD_BODY_PREFIX = "_ZN4tbwd"
+
+
+def ptxas_report(log: str) -> list:
+    """[function, registers, spill store bytes, spill load bytes] for each
+    function of one library's ``-Xptxas -v`` log."""
+    fns = []
+    for ln in log.splitlines():
+        props = re.search(r"Function properties for (\S+)", ln)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                           ln)
+        used = re.search(r"Used (\d+) registers", ln)
+        if props:
+            fns.append([props.group(1), None, None, None])
+        elif spills and fns:
+            fns[-1][2:] = [int(spills.group(1)), int(spills.group(2))]
+        elif used and fns:
+            fns[-1][1] = int(used.group(1))
+    return fns
 
 
 def card_line() -> str:
@@ -284,12 +312,17 @@ def sdpa_time(scale, q, k, v, mask, dout=None):
 KERNEL_CASES = [(16, n, dtype, gated) for n in (24, 40, 48, 56)
                 for dtype in (torch.bfloat16, torch.float32)
                 for gated in (True, False)] + [(32, 48, torch.bfloat16, True)]
+# the backward phases add the training micro-batch ungated, so that SDPA's
+# backward is timed at the shape the backward runs at in training
+BWD_CASES = KERNEL_CASES + [(32, 48, torch.bfloat16, False)]
 
 
 # the cases the kernels line reports: b=16, N=48, bf16, gated (and ungated,
-# whose library time SDPA gives)
+# whose library time SDPA gives), and for the backward the ungated training
+# micro-batch
 FLAGSHIP = (16, 48, torch.bfloat16, True)
 UNGATED = (16, 48, torch.bfloat16, False)
+UNGATED_TRAIN = (32, 48, torch.bfloat16, False)
 
 
 def kernel_phase(card):
@@ -378,13 +411,33 @@ def compare_bwd(got, ref, dtype):
     return errs, ok
 
 
+def relayout_ms(q, k, v, dva):
+    """Time of the bf16 dense backward's copies alone: q, k, v and dva to
+    head-major, then three tensors of their size back, as the wrapper
+    makes them around the kernel."""
+    from tgt_torch.ops.kernels.triplet_bwd_panel import padded_head_dim
+    from tgt_torch.ops.kernels.triplet_dense import (
+        KV_ORDER, Q_ORDER, from_head_major, to_head_major)
+
+    d = q.shape[3]
+    dp = padded_head_dim(d)
+
+    def copies():
+        q_t = to_head_major(q, Q_ORDER, dp)
+        k_t, v_t, _ = (to_head_major(x, KV_ORDER, dp) for x in (k, v, dva))
+        return (from_head_major(q_t, Q_ORDER, d),
+                from_head_major(k_t, KV_ORDER, d),
+                from_head_major(v_t, KV_ORDER, d))
+    return time_ms(copies)
+
+
 def backward_kernel_phase(card):
     from tgt_torch.ops.kernels.triplet_dense import (
         triplet_dense_bwd, triplet_dense_bwd_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
-    for b, n, dtype, gated in KERNEL_CASES:
+    for b, n, dtype, gated in BWD_CASES:
         inputs = core_inputs(b, n, 256, 16, dtype, gated, gen)
         dva = torch.randn(inputs[0].shape, device="cuda",
                           generator=gen).to(dtype)
@@ -406,16 +459,19 @@ def backward_kernel_phase(card):
                "ok": ok, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": library_ms, "library": backend, "card": card}
+        if n == 48 and dtype == torch.bfloat16:
+            row["relayout_ms"] = relayout_ms(*inputs[:3], dva)
         emit(row)
         if not ok:
             fail(f"backward kernel disagrees with its plain version: "
                  f"{row}")
         rows[(b, n, dtype, gated)] = row
-        if n == 48 and dtype == torch.bfloat16 and gated:
+        if n == 48 and dtype == torch.bfloat16:
             again = triplet_dense_bwd(*inputs, dva)
-            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            same = all(x is None and y is None or torch.equal(x, y)
+                       for x, y in zip(got, again))
             emit({"case": "triplet_dense_bwd determinism",
-                              "b": b, "bitwise_equal": same})
+                              "b": b, "gated": gated, "bitwise_equal": same})
             if not same:
                 fail("two backward launches on the same inputs differ")
         del inputs, dva, got, ref
@@ -441,9 +497,9 @@ def backward_kernel_phase(card):
 
 # -- phase 2c: the dense pair at rate > 0 against plain ----------------------
 
-# phase 2's cases, then the out direction's pair-transposed K/V views at the
-# training micro-batch: (b, N, dtype, gated, transposed K/V)
-DROPOUT_CASES = [case + (False,) for case in KERNEL_CASES] + [
+# phase 2b's cases, then the out direction's pair-transposed K/V views at
+# the training micro-batch: (b, N, dtype, gated, transposed K/V)
+DROPOUT_CASES = [case + (False,) for case in BWD_CASES] + [
     (32, 48, dtype, True, True) for dtype in (torch.bfloat16, torch.float32)]
 
 
@@ -726,7 +782,7 @@ def legacy_backward_phase(card):
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     rows = {}
-    for b, n, dtype, gated in KERNEL_CASES:
+    for b, n, dtype, gated in BWD_CASES:
         inputs = legacy_inputs(b, n, 256, 16, dtype, gated, gen)
         scale = 16 ** -0.5
         dout = torch.randn(inputs[0].shape, device="cuda",
@@ -1212,10 +1268,13 @@ def main() -> int:
 
     libs = _build.LIBRARIES
     phase("1 build", _build.build_libraries, libs)
-    regs = {name: [ln.strip() for ln in
-                   (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
-                   if "registers" in ln or "spill" in ln] for name in libs}
-    emit({"ptxas": regs})
+    report = {name: ptxas_report(
+        (_build.BUILD_DIR / f"{name}.log").read_text()) for name in libs}
+    emit({"ptxas": report})
+    spilled = [f for fns in report.values() for f in fns
+               if f[0].startswith(BWD_BODY_PREFIX) and (f[2] or f[3])]
+    if spilled:
+        fail(f"the backward body spills registers: {spilled}")
 
     at = ModelSpec("TGT-At", FLAGSHIP_YAML, {}, td.triplet_dense_fwd,
                    td.triplet_dense_bwd)
@@ -1255,7 +1314,8 @@ def main() -> int:
     if not all(served.values()):
         fail(f"a served path never launched its triplet kernel: {served}")
 
-    def entry(name, source, replaces, by_path, row, ungated=None):
+    def entry(name, source, replaces, by_path, row, ungated=None,
+              ungated_train=None):
         out = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": sum(by_path.values()),
                "launches_by_path": by_path,
@@ -1265,6 +1325,9 @@ def main() -> int:
         if ungated is not None:
             out.update(library_ms_ungated=ungated["library_ms"],
                        library=ungated["library"], ms_ungated=ungated["ms"])
+        if ungated_train is not None:
+            out.update(library_ms_ungated_b32=ungated_train["library_ms"],
+                       ms_ungated_b32=ungated_train["ms"])
         return out
 
     def with_dropout(out, row, by_path):
@@ -1288,7 +1351,8 @@ def main() -> int:
             "triplet_dense_bwd", td.BWD_KERNEL_SOURCE, td.BWD_REPLACES,
             {"training": trained[at.name]["bwd"],
              "training_dropout": d_train["bwd"]},
-            dense_bwd[FLAGSHIP], dense_bwd[UNGATED]),
+            dense_bwd[FLAGSHIP], dense_bwd[UNGATED],
+            dense_bwd[UNGATED_TRAIN]),
             drop["bwd"], {"training": d_train["bwd"]}),
         entry("triplet_aggregate_fwd", ta.KERNEL_SOURCE, ta.REPLACES,
               {"serving": served[agx2.name],
@@ -1301,7 +1365,8 @@ def main() -> int:
               legacy[FLAGSHIP], legacy[UNGATED]),
         entry("triplet_attention_bwd", tl.BWD_KERNEL_SOURCE, tl.BWD_REPLACES,
               {"training": trained[at_l.name]["bwd"]},
-              legacy_bwd[FLAGSHIP], legacy_bwd[UNGATED]),
+              legacy_bwd[FLAGSHIP], legacy_bwd[UNGATED],
+              legacy_bwd[UNGATED_TRAIN]),
     ]})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,11 +13,11 @@
 //
 //   dq[b,h,j,i,:] = scale sum_k ds' k_t[b,h,j,k,:]
 //   dk[b,h,j,k,:] = scale sum_i ds' q_t[b,h,j,i,:]
-//   dv[b,h,j,k,:] = sum_i p g do[b,h,j,i,:]          (f32 weights)
+//   dv[b,h,j,k,:] = sum_i p g do[b,h,j,i,:]  (f32 weights; bf16: see below)
 //   dbias[b,h,i,k] = sum_j ds,  dgate[b,h,i,k] = sum_j dA p g (1 - g)
 //
-// in f32, whatever the storage type; dbias and dgate are summed in f32 and
-// cast once. Nothing N^3 is kept from the forward.
+// summed in f32 whatever the storage type; dbias and dgate are summed in f32
+// and cast once. Nothing N^3 is kept from the forward.
 //
 // Bound on the H100: at b=16, N=48, edge width 256, 2 x 16 stacked heads,
 // d=16, bf16 it reads q, k, v, do (4 x 37.7 MB), bias and gate (2 x 2.36 MB)
@@ -26,21 +26,30 @@
 // (b, h, j, i, k), 9 GFLOP, 9 us at the bf16 tensor-core peak. So it is
 // bound by device memory.
 //
-// Design, as the dense backward's (simple and right first). The TPU kernel
-// sums dbias and dgate over j inside one (b, h) grid cell; Hopper's blocks
-// run in no order and float atomics would make the sums order-dependent. So
-// the work is two kernels, each of whose outputs is written by one thread,
-// every sum taken in a fixed order (two launches give bitwise equal outputs):
-//  1. bwd_qkv: one block per (b, h, j). It stages K, V, Q and do of the panel
-//     (N x d each, contiguous) in shared memory as f32; each warp takes rows
-//     i in turn, lanes over k, recomputes p and ds, writes the row of dq, and
-//     leaves ds' and p g in shared memory (N x N each); then the block sums
-//     dk and dv over i, threads over (k, d).
-//  2. bwd_bias: one block per (b, h, tile of 16 rows i) that loops over j in
-//     order, staging K and V of each j, and adds ds and dA p into registers;
-//     dbias and dgate are written once at the end.
-// Shared memory of the first grows as N^2 and reaches 199 KB at N=128, d=32.
+// Two paths, by storage type:
+//  - bf16, the training path: triplet_attention_bwd_mma runs the body shared
+//    with the dense backward (triplet_bwd_mma.cuh) on the head-major panels
+//    in place: one block per (b, h, chunk of j) walks j in order, as the TPU
+//    kernel walks j inside one (b, h) grid cell; the five products on the
+//    tensor cores, one recompute, dbias and dgate summed in registers and
+//    reduced over the chunks in a fixed order. It rounds the weights p g to
+//    bf16 before dv, where the TPU kernel takes f32 weights (:81-83): a
+//    departure within the bf16 tolerance of the checks.
+//  - f32, the 1e-4 checks and the f32 gradients: two kernels on the CUDA
+//    cores, dv from f32 weights. Both take every sum in a fixed order (two
+//    launches give bitwise equal outputs):
+//     1. bwd_qkv: one block per (b, h, j). It stages K, V, Q and do of the
+//        panel (N x d each, contiguous) in shared memory; each warp takes
+//        rows i in turn, lanes over k, recomputes p and ds, writes the row of
+//        dq, and leaves ds' and p g in shared memory (N x N each); then the
+//        block sums dk and dv over i, threads over (k, d).
+//     2. bwd_bias: one block per (b, h, tile of 16 rows i) that loops over j
+//        in order, staging K and V of each j, and adds ds and dA p into
+//        registers; dbias and dgate are written once at the end.
+//    Shared memory of the first grows as N^2 and reaches 199 KB at N=128,
+//    d=32.
 #include "triplet_attention_row.cuh"
+#include "triplet_bwd_mma.cuh"
 
 namespace {
 
@@ -241,28 +250,58 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. All tensors contiguous: q, k, v, dout,
-// dq, dk, dv (batch, h, nj, n, d); bias, gate, dbias, dgate (batch, h, n, n).
-// Launches both kernels on `stream`; returns the first CUDA error (0 when
-// both launched).
+// f32 only (dtype 0; bf16 takes triplet_attention_bwd_mma). All tensors
+// contiguous: q, k, v, dout, dq, dk, dv (batch, h, nj, n, d); bias, gate,
+// dbias, dgate (batch, h, n, n). Launches both kernels on `stream`; returns
+// the first CUDA error (0 when both launched).
 extern "C" int triplet_attention_bwd(const void* q, const void* k, const void* v,
                                      const void* bias, const void* gate,
                                      const void* dout, void* dq, void* dk, void* dv,
                                      void* dbias, void* dgate, float scale, int dtype,
                                      int batch, int h, int nj, int n, int d,
                                      void* stream) {
-  if (n < 1 || n > kMaxN || d < 1 || d > 32 || (d & (d - 1)) != 0 || h < 1 ||
-      batch < 1 || nj < 1 || (long long)batch * h > 65535) {
+  if (dtype != 0 || n < 1 || n > kMaxN || d < 1 || d > 32 || (d & (d - 1)) != 0 ||
+      h < 1 || batch < 1 || nj < 1 || (long long)batch * h > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    return launch<float>(q, k, v, bias, gate, dout, dq, dk, dv, dbias, dgate, scale,
-                         batch * h, nj, n, d, s);
-  }
-  if (dtype == 1) {
-    return launch<__nv_bfloat16>(q, k, v, bias, gate, dout, dq, dk, dv, dbias, dgate,
-                                 scale, batch * h, nj, n, d, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return launch<float>(q, k, v, bias, gate, dout, dq, dk, dv, dbias, dgate, scale,
+                       batch * h, nj, n, d, (cudaStream_t)stream);
+}
+
+// bf16. q, k, v, dout, dq, dk, dv: (batch, h, nj, n, dp) contiguous, dp 16
+// or 32; bias, gate, dbias, dgate: (batch, h, n, n) contiguous. partial:
+// 2 x chunks x batch x h x n x n floats of scratch; rows j go in chunks of
+// jc. Returns the first CUDA error (0 when both launches went out).
+extern "C" int triplet_attention_bwd_mma(const void* q, const void* k, const void* v,
+                                         const void* bias, const void* gate,
+                                         const void* dout, void* dq, void* dk, void* dv,
+                                         void* dbias, void* dgate, void* partial,
+                                         float scale, int batch, int h, int nj, int n,
+                                         int dp, int jc, int chunks, void* stream) {
+  using tbwd::bf16;
+  const long long nn = (long long)n * n;
+  tbwd::Args a{};
+  a.q = (const bf16*)q;
+  a.k = (const bf16*)k;
+  a.v = (const bf16*)v;
+  a.dout = (const bf16*)dout;
+  a.bias = (const bf16*)bias;
+  a.gate = (const bf16*)gate;
+  a.dq = (bf16*)dq;
+  a.dk = (bf16*)dk;
+  a.dv = (bf16*)dv;
+  a.partial = (float*)partial;
+  const long long st[4] = {h * nn, nn, n, 1};
+  tbwd::Out o{(bf16*)dbias, (bf16*)dgate, {st[0], st[1], st[2], st[3]}};
+  for (int x = 0; x < 4; ++x) a.sb[x] = a.sg[x] = st[x];
+  a.scale = scale;
+  a.batch = batch;
+  a.h = h;
+  a.nj = nj;
+  a.n = n;
+  a.dp = dp;
+  a.jc = jc;
+  a.chunks = chunks;
+  if (!tbwd::valid(a)) return (int)cudaErrorInvalidValue;
+  return tbwd::launch<true, false>(a, o, (cudaStream_t)stream);
 }

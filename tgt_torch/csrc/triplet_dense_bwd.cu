@@ -17,13 +17,14 @@
 // and the dA chain, as the TPU kernel does. The rate > 0 branch is a
 // template flag: the rate-0 instantiations carry none of it.
 //
-// and returns
+// and returns, with ds' and a' rounded to the storage type as the TPU
+// kernel's _dot/_dot_t round their operands (the identity in f32),
 //
-//   dQ[b,i,j,:,h] = sum_k ds K[b,j,k,:,h]      dbias[b,i,k,h] = sum_j ds
-//   dK[b,j,k,:,h] = sum_i ds Q[b,i,j,:,h]      dgate[b,i,k,h] = sum_j dA pn g(1-g)
-//   dV[b,j,k,:,h] = sum_i a dva[b,j,i,:,h]
+//   dQ[b,i,j,:,h] = sum_k ds' K[b,j,k,:,h]     dbias[b,i,k,h] = sum_j ds
+//   dK[b,j,k,:,h] = sum_i ds' Q[b,i,j,:,h]     dgate[b,i,k,h] = sum_j dA pn g(1-g)
+//   dV[b,j,k,:,h] = sum_i a' dva[b,j,i,:,h]
 //
-// in f32, whatever the storage type (f32 or bf16). No (b, N, N, N, h) tensor
+// summed in f32 whatever the storage type (f32 or bf16). No (b, N, N, N, h) tensor
 // reaches device memory and nothing N^3 is kept from the forward: the
 // logits are recomputed.
 //
@@ -34,27 +35,36 @@
 // (b, j, i, k, h), 4.5 GFLOP, 4.6 us at the bf16 tensor-core peak. So it is
 // bound by device memory.
 //
-// Design (simple and right first; wgmma/TMA are later work). The TPU kernel
-// sums dbias and dgate over j on a sequential ("arbitrary") grid axis;
-// Hopper's blocks run in no order, and float atomics would make the sums
-// depend on that order. So the work is split in two kernels, each of whose
-// outputs is written by one thread, with every sum taken in a fixed order
-// (two launches on the same inputs give bitwise equal outputs):
-//  1. bwd_qkv: one block per (b, j, h), the forward's grid. It stages
-//     K[b,j], V[b,j], the column Q[b,:,j] and dva[b,j] (N x d each) in
-//     shared memory as f32. Each warp takes rows i in turn, lanes over k,
-//     recomputes pn and ds, writes the row of dQ, and leaves ds and a in
-//     shared memory (N x N each); then the block sums dK and dV over i,
-//     threads over (k, d).
-//  2. bwd_bias: one block per (b, h, tile of 16 rows i) that loops over j
-//     in order. Per j it stages K[b,j] and V[b,j]; each warp recomputes its
-//     two rows and adds ds and dA pn into registers. dbias and dgate are
-//     written once at the end.
-// The second kernel repeats the recompute (QK and dA) once more. Shared
-// memory of the first grows as N^2 and reaches 199 KB at N=128, d=32.
+// Two paths, by storage type:
+//  - bf16, the training path: triplet_dense_bwd_mma runs the body shared
+//    with the legacy backward (triplet_bwd_mma.cuh: one block per (b, h,
+//    chunk of j) walks j in order, the five products on the tensor cores,
+//    one recompute, dbias and dgate summed in registers and reduced over the
+//    chunks in a fixed order). It reads head-major copies (b, h, j, i|k, d)
+//    that the wrapper makes of q, k, v and dva, as tgt_tpu's _pack relayouts
+//    around its kernel, and writes head-major dq, dk, dv that the wrapper
+//    moves back; the (b, i, k, h) bias, gate, dbias and dgate are read and
+//    written in place. The keep mask is the forward's, rebuilt in the body.
+//  - f32, the 1e-4 checks of the kernels and the f32 gradients: two kernels
+//    on the CUDA cores that read the natural layouts in place (below). Both
+//    take every sum in a fixed order (two launches on the same inputs give
+//    bitwise equal outputs):
+//     1. bwd_qkv: one block per (b, j, h), the forward's grid. It stages
+//        K[b,j], V[b,j], the column Q[b,:,j] and dva[b,j] (N x d each) in
+//        shared memory. Each warp takes rows i in turn, lanes over k,
+//        recomputes pn and ds, writes the row of dQ, and leaves ds and a in
+//        shared memory (N x N each); then the block sums dK and dV over i,
+//        threads over (k, d).
+//     2. bwd_bias: one block per (b, h, tile of 16 rows i) that loops over j
+//        in order. Per j it stages K[b,j] and V[b,j]; each warp recomputes
+//        its two rows and adds ds and dA pn into registers. dbias and dgate
+//        are written once at the end.
+//    Shared memory of the first grows as N^2 and reaches 199 KB at N=128,
+//    d=32.
 #include <stdint.h>
 
 #include "dropout_hash.cuh"
+#include "triplet_bwd_mma.cuh"
 #include "triplet_common.cuh"
 
 namespace {
@@ -159,8 +169,10 @@ __device__ __forceinline__ void row_grads(
 // dva: (b, j, i, d, h); the (d, h) axes of q/k/v/dva and the h axis of
 // bias/gate are contiguous, the outer axes take any strides. dq (b, i, j,
 // d, h) and dk, dv (b, j, k, d, h) are contiguous outputs.
+// The second launch bound (a cap of 128 registers) keeps ptxas from capping
+// these at 64 registers and spilling, as it did with the first alone.
 template <typename T, bool kGated, bool kDropout>
-__global__ void __launch_bounds__(kQkvWarps * 32)
+__global__ void __launch_bounds__(kQkvWarps * 32, 4)
 bwd_qkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ bias,
                const T* __restrict__ gate, const T* __restrict__ dva,
@@ -227,7 +239,7 @@ bwd_qkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // dbias, dgate: (b, i, k, h) contiguous outputs; dgate unused when ungated.
 template <typename T, bool kGated, bool kDropout>
-__global__ void __launch_bounds__(kBiasWarps * 32)
+__global__ void __launch_bounds__(kBiasWarps * 32, 2)
 bwd_bias_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ bias,
                 const T* __restrict__ gate, const T* __restrict__ dva,
@@ -352,12 +364,12 @@ int dispatch(const void* q, const void* k, const void* v, const void* bias,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. strides: 18 element strides, the three
-// outer axes of q, k, v, bias, gate and dva in that order. gate and dgate
-// are null when ungated. seeds: null at rate 0, else the forward's (batch)
-// int32 seeds on the device, with its threshold and kept value. Launches
-// both kernels on `stream`; returns the first CUDA error (0 when both
-// launched).
+// f32 only (dtype 0; bf16 takes triplet_dense_bwd_mma). strides: 18
+// element strides, the three outer axes of q, k, v, bias, gate and dva in
+// that order. gate and dgate are null when ungated. seeds: null at rate 0,
+// else the forward's (batch) int32 seeds on the device, with its threshold
+// and kept value. Launches both kernels on `stream`; returns the first CUDA
+// error (0 when both launched).
 extern "C" int triplet_dense_bwd(const void* q, const void* k, const void* v,
                                  const void* bias, const void* gate,
                                  const void* dva, void* dq, void* dk, void* dv,
@@ -365,19 +377,62 @@ extern "C" int triplet_dense_bwd(const void* q, const void* k, const void* v,
                                  unsigned thresh, float keep_scale, int dtype,
                                  int batch, int n, int d, int h,
                                  const long long* strides, void* stream) {
-  if (n < 1 || n > kMaxN || d < 1 || d > 32 || (d & (d - 1)) != 0 || h < 1 ||
-      batch < 1 || batch > 65535 || ((gate == nullptr) != (dgate == nullptr))) {
+  if (dtype != 0 || n < 1 || n > kMaxN || d < 1 || d > 32 || (d & (d - 1)) != 0 ||
+      h < 1 || batch < 1 || batch > 65535 || ((gate == nullptr) != (dgate == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Dropout drop{(const int*)seeds, thresh, keep_scale};
+  return dispatch<float>(q, k, v, bias, gate, dva, dq, dk, dv, dbias, dgate, drop,
+                         batch, n, d, h, strides, (cudaStream_t)stream);
+}
+
+// bf16. q_t, k_t, v_t, do_t: head-major (batch, h, n, n, dp) contiguous
+// copies of q (its (b, h, j, i, d) view), k, v and dva (their (b, h, j, k, d)
+// views), dp 16 or 32; dq_t, dk_t, dv_t the same. bias, gate (and dbias,
+// dgate): (b, i, k, h) with the element strides of their (b, h, i, k) axes in
+// sb and sg (and so); gate and dgate null when ungated. partial: 2 x chunks x
+// batch x h x n x n floats of scratch; rows j go in chunks of jc. seeds as
+// above. Returns the first CUDA error (0 when both launches went out).
+extern "C" int triplet_dense_bwd_mma(
+    const void* q_t, const void* k_t, const void* v_t, const void* do_t,
+    const void* bias, const void* gate, const long long* sb, const long long* sg,
+    void* dq_t, void* dk_t, void* dv_t, void* partial, void* dbias, void* dgate,
+    const long long* so, const void* seeds, unsigned thresh, float keep_scale,
+    int batch, int n, int dp, int h, int jc, int chunks, void* stream) {
+  using tbwd::bf16;
+  tbwd::Args a{};
+  a.q = (const bf16*)q_t;
+  a.k = (const bf16*)k_t;
+  a.v = (const bf16*)v_t;
+  a.dout = (const bf16*)do_t;
+  a.bias = (const bf16*)bias;
+  a.gate = (const bf16*)(gate != nullptr ? gate : bias);
+  a.dq = (bf16*)dq_t;
+  a.dk = (bf16*)dk_t;
+  a.dv = (bf16*)dv_t;
+  a.partial = (float*)partial;
+  tbwd::Out o{(bf16*)dbias, (bf16*)dgate, {so[0], so[1], so[2], so[3]}};
+  for (int x = 0; x < 4; ++x) {
+    a.sb[x] = sb[x];
+    a.sg[x] = gate != nullptr ? sg[x] : sb[x];
+  }
+  a.seeds = (const int*)seeds;
+  a.thresh = thresh;
+  a.keep_scale = keep_scale;
+  a.scale = 1.f;                    // q comes pre-scaled
+  a.batch = batch;
+  a.h = h;
+  a.nj = n;
+  a.n = n;
+  a.dp = dp;
+  a.jc = jc;
+  a.chunks = chunks;
+  if (!tbwd::valid(a) || ((gate == nullptr) != (dgate == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;
-  const Dropout drop{(const int*)seeds, thresh, keep_scale};
-  if (dtype == 0) {
-    return dispatch<float>(q, k, v, bias, gate, dva, dq, dk, dv, dbias, dgate,
-                           drop, batch, n, d, h, strides, s);
-  }
-  if (dtype == 1) {
-    return dispatch<__nv_bfloat16>(q, k, v, bias, gate, dva, dq, dk, dv, dbias,
-                                   dgate, drop, batch, n, d, h, strides, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (gate != nullptr && seeds != nullptr) return tbwd::launch<true, true>(a, o, s);
+  if (gate != nullptr) return tbwd::launch<true, false>(a, o, s);
+  if (seeds != nullptr) return tbwd::launch<false, true>(a, o, s);
+  return tbwd::launch<false, false>(a, o, s);
 }

@@ -15,5 +15,7 @@
 ``triplet_aggregate.TripletAggregateCore`` the next two as ``_agg_core``
 does, and ``triplet_attention.TripletCore`` the legacy pair as
 ``_triplet_core`` does. Every Pallas kernel of tgt_tpu has its counterpart
-here.
+here. In bf16 the two triplet-attention backwards run one body on the tensor
+cores (``csrc/triplet_bwd_mma.cuh``, whose plain version and launch helpers
+are ``triplet_bwd_panel``); in f32 they keep their CUDA-core kernels.
 """

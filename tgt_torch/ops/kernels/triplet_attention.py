@@ -22,7 +22,11 @@ makes the sum at least 1) and no dropout; the ungated variant passes a
 constant gate of 30.0, whose sigmoid is exactly 1.0 in float32.
 :func:`triplet_attention_bwd` takes the same inputs and the cotangent
 ``do`` and returns ``dq``, ``dk``, ``dv`` (contiguous, in q's dtype) and
-``dbias``, ``dgate``, summed over j in float32 and cast to bias's dtype.
+``dbias``, ``dgate``, summed over j in float32 and cast to bias's dtype. In
+bf16 on the card it runs the tensor-core body shared with the dense pair
+(``tgt_torch/csrc/triplet_bwd_mma.cuh``), which rounds the weights to bf16
+before dv where ``_bwd_kernel`` keeps them in f32 (within the bf16
+tolerance of the checks); the plain version keeps tgt_tpu's f32 weights.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel,
 and what the kernel cannot take raises. There is no fallback.
@@ -37,6 +41,8 @@ import torch
 
 from tgt_torch.ops.common import layernorm, linear
 from tgt_torch.ops.kernels._build import load_library
+from tgt_torch.ops.kernels.triplet_bwd_panel import (j_chunks, pad_head_dim,
+                                                     padded_head_dim, sm_count)
 
 KERNEL_SOURCE = "tgt_torch/csrc/triplet_attention_fwd.cu"
 REPLACES = "tgt_tpu/ops/pallas/triplet_attention.py:35"
@@ -157,6 +163,42 @@ def _bwd_kernel():
     return fn
 
 
+@functools.cache
+def _bwd_mma_kernel():
+    fn = load_library("triplet_attention_bwd").triplet_attention_bwd_mma
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_float]
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_mma(q_t, k_t, v_t, bias, gate, do, scale):
+    """The bf16 backward: the tensor-core body shared with the dense pair
+    (``triplet_bwd_mma.cuh``: one panel launch and one ordered reduction)
+    on the head-major panels in place, a head narrower than 16 padded."""
+    b, h, nj, n, d = q_t.shape
+    dp = padded_head_dim(d)
+    q_p, k_p, v_p, do_p = (pad_head_dim(x, dp) for x in (q_t, k_t, v_t, do))
+    dq, dk, dv = (torch.empty_like(q_p) for _ in range(3))
+    dbias, dgate = torch.empty_like(bias), torch.empty_like(gate)
+    jc, chunks = j_chunks(b * h, nj, sm_count(q_t.device))
+    partial = torch.empty((2, chunks, b, h, n, n), dtype=torch.float32,
+                          device=q_t.device)
+    with torch.cuda.device(q_t.device):
+        rc = _bwd_mma_kernel()(
+            q_p.data_ptr(), k_p.data_ptr(), v_p.data_ptr(), bias.data_ptr(),
+            gate.data_ptr(), do_p.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dbias.data_ptr(), dgate.data_ptr(),
+            partial.data_ptr(), scale, b, h, nj, n, dp, jc, chunks,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"triplet_attention_bwd kernel launch failed with "
+                           f"CUDA error {rc}")
+    if dp != d:
+        dq, dk, dv = (x[..., :d].contiguous() for x in (dq, dk, dv))
+    return dq, dk, dv, dbias, dgate
+
+
 def triplet_attention_fwd(q_t: torch.Tensor, k_t: torch.Tensor,
                           v_t: torch.Tensor, bias: torch.Tensor,
                           gate: torch.Tensor, scale: float) -> torch.Tensor:
@@ -194,13 +236,18 @@ def triplet_attention_bwd(q_t: torch.Tensor, k_t: torch.Tensor,
                           gate: torch.Tensor, do: torch.Tensor,
                           scale: float) -> Tuple[torch.Tensor, ...]:
     """Gradients ``(dq, dk, dv, dbias, dgate)`` of the legacy core, given
-    the cotangent ``do``. One call launches the backward's two kernels and
+    the cotangent ``do``. On the card, bf16 runs the tensor-core body shared
+    with the dense backward, f32 the CUDA-core kernels; either way one call
     counts once."""
     _check(q_t, k_t, v_t, bias, gate, do)
     if q_t.device.type == "cpu":
         return triplet_core_bwd_reference(q_t, k_t, v_t, bias, gate, do,
                                           scale)
     _check_kernel_limits(q_t, k_t, v_t, bias, gate, do)
+    if q_t.dtype == torch.bfloat16:
+        grads = _bwd_mma(q_t, k_t, v_t, bias, gate, do, scale)
+        triplet_attention_bwd.launches += 1
+        return grads
     b, h, nj, n, d = q_t.shape
     dq, dk, dv = (torch.empty_like(q_t) for _ in range(3))
     dbias, dgate = torch.empty_like(bias), torch.empty_like(gate)

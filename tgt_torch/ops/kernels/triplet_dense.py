@@ -7,8 +7,11 @@ is ``tgt_torch/csrc/triplet_dense_fwd.cu`` and its ``_bwd_kernel`` is
 > 0; the custom VJP ``_dense_core`` is :class:`TripletDenseCore`. Each
 source note gives its kernel's bound on the H100 and its design. The TPU
 machinery (lane packing, ``JBLK`` j-padding, ``_pick_jblk`` VMEM budgets,
-the shard_map data mesh) has no counterpart: the kernels read the natural
-``(..., d, h)`` layouts and need no padding.
+the shard_map data mesh) has no counterpart: the forward and the f32
+backward read the natural ``(..., d, h)`` layouts in place; the bf16
+backward, the tensor-core body it shares with the legacy pair
+(``triplet_bwd_mma.cuh``), runs on head-major copies that
+:func:`to_head_major` makes, as ``_pack`` relayouts around the TPU kernel.
 
 Contract of :func:`triplet_dense` (and of :func:`triplet_dense_fwd`):
   q     (b, i, j, d, h), already scaled by d**-0.5
@@ -41,6 +44,8 @@ from typing import Optional, Tuple
 import torch
 
 from tgt_torch.ops.kernels._build import load_library
+from tgt_torch.ops.kernels.triplet_bwd_panel import (j_chunks, pad_head_dim,
+                                                     padded_head_dim, sm_count)
 
 KERNEL_SOURCE = "tgt_torch/csrc/triplet_dense_fwd.cu"
 REPLACES = "tgt_tpu/ops/pallas/triplet_dense.py:222"
@@ -157,8 +162,11 @@ def triplet_dense_bwd_reference(q: torch.Tensor, k: torch.Tensor,
     (``tgt_tpu/ops/pallas/triplet_dense.py:288-324``) with the per-(i, h)
     softmax max, in f32 math over materialised (b, j, h, i, k) tensors; at
     rate > 0 the keep mask multiplies both the dV operand ``a`` and ``dA``
-    before dgate, dp and ds (``:299-305``). Returns ``(dq, dk, dv, dbias,
-    dgate)`` in the inputs' dtype; ``dgate`` is None when ungated."""
+    before dgate, dp and ds (``:299-305``). ``ds`` and ``a`` are rounded to
+    the inputs' dtype before the dQ, dK and dV products, as ``_dot`` and
+    ``_dot_t`` cast their operands (``:179-189, 316-321``; the identity in
+    f32). Returns ``(dq, dk, dv, dbias, dgate)`` in the inputs' dtype;
+    ``dgate`` is None when ungated."""
     pn = torch.softmax(_logits(q, k, bias), dim=-1)
     dva32 = dva.float()
     da = torch.einsum("bjidh,bjkdh->bjhik", dva32, v.float())
@@ -177,12 +185,35 @@ def triplet_dense_bwd_reference(q: torch.Tensor, k: torch.Tensor,
         dp = da
     ds = pn * (dp - (dp * pn).sum(-1, keepdim=True))
     dbias = ds.sum(1).permute(0, 2, 3, 1)
-    dq = torch.einsum("bjhik,bjkdh->bijdh", ds, k.float())
-    dk = torch.einsum("bjhik,bijdh->bjkdh", ds, q.float())
-    dv = torch.einsum("bjhik,bjidh->bjkdh", a, dva32)
     dt = q.dtype
+    dsr, ar = ds.to(dt).float(), a.to(dt).float()
+    dq = torch.einsum("bjhik,bjkdh->bijdh", dsr, k.float())
+    dk = torch.einsum("bjhik,bijdh->bjkdh", dsr, q.float())
+    dv = torch.einsum("bjhik,bjidh->bjkdh", ar, dva32)
     return (dq.to(dt), dk.to(dt), dv.to(dt), dbias.to(dt),
             None if dgate is None else dgate.to(dt))
+
+
+# The bf16 backward runs on head-major copies, as tgt_tpu's ``_pack``
+# relayouts around its kernel (``triplet_dense.py:334-346, 406-408``): the
+# permutations to (b, h, j, i|k, d) and (b, h, i, k).
+Q_ORDER = (0, 4, 2, 1, 3)      # q (b, i, j, d, h) -> (b, h, j, i, d)
+KV_ORDER = (0, 4, 1, 2, 3)     # k, v, dva (b, j, k, d, h) -> (b, h, j, k, d)
+PAIR_ORDER = (0, 3, 1, 2)      # bias, gate (b, i, k, h) -> (b, h, i, k)
+
+
+def to_head_major(x: torch.Tensor, order, dp: int) -> torch.Tensor:
+    """A contiguous head-major copy of ``x`` (``order`` one of the
+    permutations above), its head width zero-padded to ``dp``."""
+    return pad_head_dim(x.permute(*order), dp)
+
+
+def from_head_major(x: torch.Tensor, order, d: int) -> torch.Tensor:
+    """The inverse of :func:`to_head_major`: the first ``d`` columns of the
+    head-major ``x``, back in the layout that ``order`` came from,
+    contiguous."""
+    inverse = [order.index(axis) for axis in range(len(order))]
+    return x[..., :d].permute(*inverse).contiguous()
 
 
 def _check_shapes(q, k, v, bias, gate, dva=None, seed=None,
@@ -274,6 +305,57 @@ def _bwd_kernel():
     return fn
 
 
+@functools.cache
+def _bwd_mma_kernel():
+    fn = load_library("triplet_dense_bwd").triplet_dense_bwd_mma
+    fn.argtypes = ([ctypes.c_void_p] * 6
+                   + [ctypes.POINTER(ctypes.c_longlong)] * 2
+                   + [ctypes.c_void_p] * 6
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
+                      ctypes.c_uint, ctypes.c_float]
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _pair_strides(t: torch.Tensor):
+    """The element strides of a (b, i, k, h) tensor's (b, h, i, k) axes."""
+    return (ctypes.c_longlong * 4)(*(t.stride(a) for a in PAIR_ORDER))
+
+
+def _bwd_mma(q, k, v, bias, gate, dva, seed, rate):
+    """The bf16 backward: head-major copies in, the shared body
+    (``triplet_bwd_mma.cuh``: one panel launch and one ordered reduction),
+    dq, dk, dv moved back; dbias and dgate written in place."""
+    b, n, _, d, h = q.shape
+    dp = padded_head_dim(d)
+    q_t = to_head_major(q, Q_ORDER, dp)
+    k_t, v_t, do_t = (to_head_major(x, KV_ORDER, dp) for x in (k, v, dva))
+    dq_t, dk_t, dv_t = (torch.empty_like(q_t) for _ in range(3))
+    jc, chunks = j_chunks(b * h, n, sm_count(q.device))
+    partial = torch.empty((1 + (gate is not None), chunks, b, h, n, n),
+                          dtype=torch.float32, device=q.device)
+    dbias = torch.empty((b, n, n, h), dtype=q.dtype, device=q.device)
+    dgate = None if gate is None else torch.empty_like(dbias)
+    seeds, thresh, scale = _dropout_args(seed, rate)
+    with torch.cuda.device(q.device):
+        rc = _bwd_mma_kernel()(
+            q_t.data_ptr(), k_t.data_ptr(), v_t.data_ptr(), do_t.data_ptr(),
+            bias.data_ptr(), None if gate is None else gate.data_ptr(),
+            _pair_strides(bias), _pair_strides(bias if gate is None else gate),
+            dq_t.data_ptr(), dk_t.data_ptr(), dv_t.data_ptr(),
+            partial.data_ptr(), dbias.data_ptr(),
+            None if dgate is None else dgate.data_ptr(), _pair_strides(dbias),
+            seeds, thresh, scale, b, n, dp, h, jc, chunks,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"triplet_dense_bwd kernel launch failed with "
+                           f"CUDA error {rc}")
+    return (from_head_major(dq_t, Q_ORDER, d),
+            from_head_major(dk_t, KV_ORDER, d),
+            from_head_major(dv_t, KV_ORDER, d), dbias, dgate)
+
+
 def _count(wrapper, rate: float) -> None:
     """One more launch on the card, counted apart at rate > 0."""
     if rate > 0.0:
@@ -331,13 +413,18 @@ def triplet_dense_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       rate: float = 0.0) -> Tuple[torch.Tensor, ...]:
     """Gradients ``(dq, dk, dv, dbias, dgate)`` of the forward with respect
     to its inputs, given the cotangent ``dva`` and the forward's ``seed``
-    and ``rate``; ``dgate`` is None when ungated. One call launches the
-    backward's two kernels and counts once."""
+    and ``rate``; ``dgate`` is None when ungated. On the card, bf16 runs the
+    tensor-core body shared with the legacy backward on head-major copies,
+    f32 the CUDA-core kernels; either way one call counts once."""
     _check_shapes(q, k, v, bias, gate, dva, seed, rate)
     if q.device.type == "cpu":
         return triplet_dense_bwd_reference(q, k, v, bias, gate, dva, seed,
                                            rate)
     _check_kernel_limits(q, k, v, bias, gate, dva)
+    if q.dtype == torch.bfloat16:
+        grads = _bwd_mma(q, k, v, bias, gate, dva, seed, rate)
+        _count(triplet_dense_bwd, rate)
+        return grads
     b, n, _, d, h = q.shape
     dq = torch.empty((b, n, n, d, h), dtype=q.dtype, device=q.device)
     dk, dv = torch.empty_like(dq), torch.empty_like(dq)
