@@ -9,48 +9,55 @@ Phases, each of which fails the run (non-zero exit) on error:
    the build of the six CUDA kernel sources of the package from this
    checkout (``nvcc`` for sm_90a, one process per source, started
    together), with each kernel's ptxas report (registers and spill bytes
-   per function); a spill in the tensor-core backward body
-   (``triplet_bwd_mma.cuh``) fails the run.
+   per function); a spill in either tensor-core body (the backward
+   ``triplet_bwd_mma.cuh``, the forward ``triplet_fwd_mma.cuh``) fails the
+   run.
 2. Kernel against plain: ``triplet_dense_fwd`` against its plain PyTorch
    version on the card at b=16, N in {24, 40, 48, 56}, edge width 256,
    16 triplet heads; gated and ungated; bf16 and f32; plus the training
-   micro-batch, b=32, N=48, bf16, gated, and its out direction's
-   pair-transposed K/V views in bf16 and f32; with a padded
-   sample, a fully masked sample and a head whose bias sits 300 below the
-   rest. Tolerance max|diff| <= 1e-4 max|ref| in f32, 1e-2 max|ref| in bf16
-   (bf16 output rounding is 2^-8). One JSON line per case with the kernel's
-   and the plain version's times (CUDA events, median of 20) and the bound;
-   for the ungated cases also the library time: one call of
-   ``scaled_dot_product_attention`` with the bias as an additive mask on
-   head-major copies, and the backend that ran.
+   micro-batch, b=32, N=48, bf16, gated and ungated; plus the F3 shapes that
+   no published bucket reaches (N=80 and N=128 at b=4; edge widths 128 and
+   512, d = 8 and 32, at b=16, N=48; gated, bf16 and f32); and the out
+   direction's pair-transposed K/V views at b=32 in bf16 and f32; with a
+   padded sample, a fully masked sample (zero when gated) and a head whose
+   bias sits 300 below the rest. Tolerance max|diff| <= 1e-4 max|ref| in
+   f32, 1e-2 max|ref| in bf16 (bf16 output rounding is 2^-8). Two launches
+   on the same inputs bitwise equal (bf16 at N=48 and the F3 shapes). One
+   JSON line per case with the kernel's and the plain version's times (CUDA
+   events, median of 20) and the bound; for the ungated cases also the
+   library time: one call of ``scaled_dot_product_attention`` with the bias
+   as an additive mask on head-major copies, and the backend that ran. At
+   N=48 in bf16 both layout routes of the bf16 forward are timed in turns,
+   the in-place loader and the head-major copies, and the copies alone.
 2b. The backward kernel against plain: ``triplet_dense_bwd`` against
-   ``triplet_dense_bwd_reference`` on the same grid plus the training
-   micro-batch ungated (b=32, N=48, bf16), with a random cotangent; dq,
-   dk, dv, dbias and dgate each within the tolerances above; the out
-   direction's pair-transposed K/V views at b=32, N=48 in bf16 and f32;
-   two launches on the same inputs bitwise equal at N=48 in bf16 (b=16
-   and b=32, gated and ungated); the library time is SDPA's backward; at
-   N=48 in bf16 also the time of the wrapper's head-major copies alone.
+   ``triplet_dense_bwd_reference`` on the same cases with a random
+   cotangent; dq, dk, dv, dbias and dgate each within the tolerances above;
+   the out direction's pair-transposed K/V views at b=32, N=48 in bf16 and
+   f32; two launches on the same inputs bitwise equal (bf16 at N=48 and the
+   F3 shapes); the library time is SDPA's backward; at N=48 in bf16 also
+   the time of the wrapper's head-major copies alone.
 2c. The dense pair at dropout rate 0.3 against its plain versions with the
-   same per-row seeds, on phase 2b's grid and the transposed K/V views at
+   same per-row seeds, on phase 2b's cases and the transposed K/V views at
    b=32: the forward and the five gradients within the tolerances above,
-   the backward bitwise equal on repeat, and other seeds change the
-   output.
+   both bitwise equal on repeat, and other seeds change the output; at
+   N=48 in bf16 the forward's two layout routes timed as in 2.
 2d. The aggregate forward kernel against plain: ``triplet_aggregate_fwd``
    against ``triplet_aggregate_fwd_reference`` at b=16, N in {24, 40, 48,
-   56}, edge width 256, 16 triplet heads, bf16 and f32, and the training
-   micro-batch (b=32, N=48, bf16), with a padded and a fully masked
-   sample; the out direction's pair-transposed V view at b=32 in bf16 and
-   f32. Tolerances as in 2. One JSON line per case with the kernel's, the
-   plain version's and the library call's times (``torch.einsum``) and the
-   bound.
-2e. The aggregate backward against plain: dA and dV on the same grid with
+   56}, edge width 256, 16 triplet heads, bf16 and f32, the training
+   micro-batch (b=32, N=48, bf16) and the F3 shapes, with a padded and a
+   fully masked sample; the out direction's pair-transposed V view at b=32
+   in bf16 and f32. Tolerances as in 2. One JSON line per case with the
+   kernel's, the plain version's and the library call's times
+   (``torch.einsum``) and the bound.
+2e. The aggregate backward against plain: dA and dV on the same cases with
    a random cotangent, the transposed V included; two launches bitwise
    equal; the library time is that of the two einsums of dA and dV.
 2f, 2g. The legacy pair (``use_pallas: true``) against its plain versions
-   on phase 2's grid (2g on phase 2b's), both directions stacked on the
-   head axis (2 x 16 heads, head-major), ungated with the constant gate
-   30.0; tolerances, determinism and library times as in 2 and 2b.
+   on phase 2's cases, both directions stacked on the head axis (2 x 16
+   heads, head-major), ungated with the constant gate 30.0; tolerances,
+   determinism and library times as in 2 and 2b. 2g reports the share of
+   dv's error in max|ref|, and at N=48 in bf16 times the backward with and
+   without the split of the weights for dv, in turns.
 3. Serving at full width: the flagship TGT-At distance model of
    configs/pcqm/tgt_at_200m/dist_pred/tgt_at_dp_rdkit.yaml (24 layers,
    node 768, edge 256, 64 heads, 16 triplet heads, 256 bins, bf16) with
@@ -97,7 +104,8 @@ Phases, each of which fails the run (non-zero exit) on error:
    replay of the 11 inner layers, twice each) and 48 backward, 736 and 384
    over the run.
 7. The kernels line (six kernels, launches by path, the dense pair's
-   dropout launches and rate > 0 times), then ``{"ok": true, "device":
+   dropout launches and rate > 0 times, the ungated times and SDPA's at
+   b=16 and b=32), then ``{"ok": true, "device":
    {...}}`` as the last line.
 
 Each phase prints its wall seconds. Every JSON row is also appended to
@@ -152,9 +160,10 @@ def emit(row: dict) -> None:
         f.write(line + "\n")
 
 
-# mangled-name prefix of the tensor-core backward body's kernels
-# (tgt_torch/csrc/triplet_bwd_mma.cuh, namespace tbwd), which must not spill
-BWD_BODY_PREFIX = "_ZN4tbwd"
+# mangled-name prefixes of the tensor-core bodies' kernels, which must not
+# spill: the backward (tgt_torch/csrc/triplet_bwd_mma.cuh, namespace tbwd)
+# and the forward (triplet_fwd_mma.cuh, namespace tfwd)
+BODY_PREFIXES = ("_ZN4tbwd", "_ZN4tfwd")
 
 
 def ptxas_report(log: str) -> list:
@@ -196,6 +205,34 @@ def time_ms(fn, reps: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call when calls run back to back: a spin kernel
+    holds the card while the host queues ``reps`` calls behind it, so the
+    events between the first and the last time the card's work and not the
+    host's launch overhead (which ``time_ms`` includes)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)       # ~25 ms at the card's clock
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_times(row, kernel, plain, library=None):
+    """Add the back-to-back device times of the kernel, its plain version
+    and (ungated) the library call to a row."""
+    row["device_ms"] = device_ms(kernel)
+    row["plain_device_ms"] = device_ms(plain)
+    if library is not None:
+        row["library_device_ms"] = device_ms(library)
 
 
 # -- phase 2: kernel against plain ------------------------------------------
@@ -273,9 +310,10 @@ def legacy_as_sdpa(q_t, k_t, v_t, bias, dout=None):
     return out if dout is None else out + (heads(dout),)
 
 
-def sdpa_time(scale, q, k, v, mask, dout=None):
-    """(ms, backend) of SDPA's forward on these inputs or, given the output
-    cotangent ``dout``, of its backward; (None, None) if no backend runs."""
+def sdpa_call(scale, q, k, v, mask, dout=None):
+    """(call, backend): SDPA's forward on these inputs or, given the output
+    cotangent ``dout``, its backward, under the first backend of
+    SDPA_BACKENDS that runs it; (None, None) if none does."""
     import warnings
 
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -289,50 +327,113 @@ def sdpa_time(scale, q, k, v, mask, dout=None):
             with sdpa_kernel([backend]), warnings.catch_warnings():
                 warnings.simplefilter("ignore")     # why a backend declined
                 if dout is None:
-                    def call():
+                    def fwd():
                         return sdpa(q, k, v, attn_mask=mask, scale=scale)
+                    fwd()
+                    torch.cuda.synchronize()
+                    call = fwd
                 else:
                     leaves = [x.detach().requires_grad_()
                               for x in (q, k, v, mask)]
                     out = sdpa(*leaves[:3], attn_mask=leaves[3], scale=scale)
 
-                    def call():
+                    def bwd():
                         return torch.autograd.grad(out, leaves, dout,
                                                    retain_graph=True)
-                call()
-                torch.cuda.synchronize()
-                return time_ms(call), name
+                    bwd()
+                    torch.cuda.synchronize()
+                    call = bwd
         except RuntimeError:
             continue
+
+        def under_backend(call=call, backend=backend):
+            with sdpa_kernel([backend]):
+                return call()
+        return under_backend, name
     return None, None
 
 
-# (b, N, dtype, gated): the serving grid at b=16, then the training
-# micro-batch of the flagship config (b=32 molecules of up to 48 atoms, bf16)
-KERNEL_CASES = [(16, n, dtype, gated) for n in (24, 40, 48, 56)
+def sdpa_time(scale, q, k, v, mask, dout=None):
+    """(ms, backend) of SDPA's forward on these inputs or, given the output
+    cotangent ``dout``, of its backward; (None, None) if no backend runs."""
+    call, name = sdpa_call(scale, q, k, v, mask, dout)
+    return (None, None) if call is None else (time_ms(call), name)
+
+
+# (b, N, edge width, dtype, gated): the serving grid at b=16, then the
+# training micro-batch of the flagship config (b=32 molecules of up to 48
+# atoms, bf16), gated and ungated, so that SDPA is timed at the shape the
+# kernels run at in training; 16 triplet heads throughout
+WIDTH = 256
+KERNEL_CASES = [(16, n, WIDTH, dtype, gated) for n in (24, 40, 48, 56)
                 for dtype in (torch.bfloat16, torch.float32)
-                for gated in (True, False)] + [(32, 48, torch.bfloat16, True)]
-# the backward phases add the training micro-batch ungated, so that SDPA's
-# backward is timed at the shape the backward runs at in training
-BWD_CASES = KERNEL_CASES + [(32, 48, torch.bfloat16, False)]
+                for gated in (True, False)] + [
+                    (32, 48, WIDTH, torch.bfloat16, gated)
+                    for gated in (True, False)]
+# branches no published bucket reaches: n = 80 and 128 (the backward body's
+# sums in device memory above n = 64) at b=4, which keeps the plain
+# versions' (b, j, h, i, k) tensors near 0.5 GB, and head widths 8 and 32
+# (edge widths 128 and 512 over 16 heads; d = 8 is padded to 16 in bf16)
+F3_CASES = [case for dtype in (torch.bfloat16, torch.float32) for case in (
+    (4, 80, WIDTH, dtype, True), (4, 128, WIDTH, dtype, True),
+    (16, 48, 128, dtype, True), (16, 48, 512, dtype, True))]
+CASES = KERNEL_CASES + F3_CASES
 
 
 # the cases the kernels line reports: b=16, N=48, bf16, gated (and ungated,
-# whose library time SDPA gives), and for the backward the ungated training
-# micro-batch
-FLAGSHIP = (16, 48, torch.bfloat16, True)
-UNGATED = (16, 48, torch.bfloat16, False)
-UNGATED_TRAIN = (32, 48, torch.bfloat16, False)
+# whose library time SDPA gives), and the ungated training micro-batch
+FLAGSHIP = (16, 48, WIDTH, torch.bfloat16, True)
+UNGATED = (16, 48, WIDTH, torch.bfloat16, False)
+UNGATED_TRAIN = (32, 48, WIDTH, torch.bfloat16, False)
+
+
+def repeats(case) -> bool:
+    """The cases whose kernels run twice on the same inputs, held bitwise
+    equal: every bf16 case at N=48 and every F3 case."""
+    b, n, w, dtype, gated = case
+    return (n == 48 and w == WIDTH and dtype == torch.bfloat16) or case in F3_CASES
+
+
+def timed(case) -> bool:
+    """The cases whose plain version is timed beside the kernel: all but the
+    F3 cases, which check branches and are not on a path."""
+    return case not in F3_CASES
+
+
+def same_outputs(got, again) -> bool:
+    return all(x is None and y is None or torch.equal(x, y)
+               for x, y in zip(got, again))
+
+
+def dense_routes(inputs, seed=None, rate=0.0):
+    """The two layout routes of the bf16 dense forward on the same inputs,
+    timed in turns (in place, copies, copies, in place): their ms, the
+    copies alone, and the largest difference between their outputs."""
+    from tgt_torch.ops.kernels import triplet_dense as td
+
+    def inplace():
+        return td._fwd_inplace(*inputs, seed, rate)
+
+    def copies():
+        return td._fwd_mma(*inputs, seed, rate)
+
+    a, c = inplace(), copies()
+    times = [time_ms(f) for f in (inplace, copies, copies, inplace)]
+    return {"ms_in_place": [times[0], times[3]],
+            "ms_head_major_copies": [times[1], times[2]],
+            "copies_alone_ms": relayout_ms(*inputs[:3], back=1),
+            "routes_max_abs_diff": float((a.float() - c.float()).abs().max())}
 
 
 def kernel_phase(card):
     from tgt_torch.ops.kernels.triplet_dense import (
-        triplet_dense_fwd, triplet_dense_fwd_reference)
+        reads_in_place, triplet_dense_fwd, triplet_dense_fwd_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
-    for b, n, dtype, gated in KERNEL_CASES:
-        inputs = core_inputs(b, n, 256, 16, dtype, gated, gen)
+    for case in CASES:
+        b, n, w, dtype, gated = case
+        inputs = core_inputs(b, n, w, 16, dtype, gated, gen)
         out = triplet_dense_fwd(*inputs)
         torch.cuda.synchronize()
         ref = triplet_dense_fwd_reference(*inputs)
@@ -340,39 +441,54 @@ def kernel_phase(card):
         err = float((out.float() - ref.float()).abs().max())
         scale = float(ref.float().abs().max())
         ok = (bool(torch.isfinite(out.float()).all())
-              and err <= KERNEL_TOL[dtype] * scale)
-        ms = time_ms(lambda: triplet_dense_fwd(*inputs))
-        plain_ms = time_ms(lambda: triplet_dense_fwd_reference(*inputs))
-        bound_ms, bound_by = bound(inputs, out, dtype)
-        library_ms, backend = (None, None) if gated else sdpa_time(
-            1.0, *dense_as_sdpa(*inputs[:4]))
+              and err <= KERNEL_TOL[dtype] * scale
+              and not (gated and bool(out[2].any())))   # fully masked sample
         row = {"case": "triplet_dense_fwd", "b": b, "n": n,
-               "edge_width": 256, "heads": 16,
-               "dtype": str(dtype).replace("torch.", ""),
+               "edge_width": w, "heads": 16, "dtype": dtype_name(dtype),
                "gated": gated, "max_abs_err": err, "max_abs_ref": scale,
-               "tol": KERNEL_TOL[dtype] * scale, "ok": ok, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": library_ms,
-               "library": backend, "card": card}
+               "tol": KERNEL_TOL[dtype] * scale, "ok": ok,
+               "route": ("in place" if dtype == torch.bfloat16
+                         and reads_in_place(*inputs) else
+                         "head-major copies" if dtype == torch.bfloat16
+                         else "f32 CUDA cores"), "card": card}
+        if repeats(case):
+            row["bitwise_equal"] = torch.equal(out, triplet_dense_fwd(*inputs))
+            ok &= row["bitwise_equal"]
+        row["ms"] = time_ms(lambda: triplet_dense_fwd(*inputs))
+        if timed(case):
+            row["plain_ms"] = time_ms(
+                lambda: triplet_dense_fwd_reference(*inputs))
+            row["bound_ms"], row["bound_by"] = bound(inputs, out, dtype)
+            row["library_ms"], row["library"] = (None, None) if gated else \
+                sdpa_time(1.0, *dense_as_sdpa(*inputs[:4]))
+        if n == 48 and w == WIDTH and dtype == torch.bfloat16:
+            row.update(dense_routes(inputs))
+            device_times(row, lambda: triplet_dense_fwd(*inputs),
+                         lambda: triplet_dense_fwd_reference(*inputs),
+                         None if gated else sdpa_call(
+                             1.0, *dense_as_sdpa(*inputs[:4]))[0])
         emit(row)
         if not ok:
             fail(f"kernel disagrees with its plain version: {row}")
-        rows[(b, n, dtype, gated)] = row
+        rows[case] = row
         del inputs, out, ref
 
     # the out direction's pair-transposed K and V views at the training
     # micro-batch
     for dtype in (torch.bfloat16, torch.float32):
-        q, k, v, bias, gate = core_inputs(32, 48, 256, 16, dtype, True, gen)
+        q, k, v, bias, gate = core_inputs(32, 48, WIDTH, 16, dtype, True, gen)
         k, v = k.transpose(1, 2), v.transpose(1, 2)
         out = triplet_dense_fwd(q, k, v, bias, gate)
         ref = triplet_dense_fwd_reference(q, k, v, bias, gate)
         err = float((out.float() - ref.float()).abs().max())
         tol = KERNEL_TOL[dtype] * float(ref.float().abs().max())
         ok = bool(torch.isfinite(out.float()).all()) and err <= tol
-        emit({"case": "triplet_dense_fwd transposed k/v", "b": 32,
-                          "n": 48, "dtype": str(dtype).replace("torch.", ""),
-                          "max_abs_err": err, "tol": tol, "ok": ok})
+        row = {"case": "triplet_dense_fwd transposed k/v", "b": 32, "n": 48,
+               "dtype": dtype_name(dtype), "max_abs_err": err, "tol": tol,
+               "ok": ok}
+        if dtype == torch.bfloat16:
+            row.update(dense_routes((q, k, v, bias, gate)))
+        emit(row)
         if not ok:
             fail(f"kernel disagrees on the transposed k/v views in {dtype}")
         del q, k, v, bias, gate, out, ref
@@ -411,10 +527,11 @@ def compare_bwd(got, ref, dtype):
     return errs, ok
 
 
-def relayout_ms(q, k, v, dva):
-    """Time of the bf16 dense backward's copies alone: q, k, v and dva to
-    head-major, then three tensors of their size back, as the wrapper
-    makes them around the kernel."""
+def relayout_ms(q, *kv, back):
+    """Time of the bf16 dense wrappers' copies alone: q and the (b, j, k,
+    d, h) tensors ``kv`` to head-major, then the first ``back`` of them
+    back, as the wrappers make them around a body (the forward's head-major
+    route: k, v and one back; the backward: k, v, dva and three back)."""
     from tgt_torch.ops.kernels.triplet_bwd_panel import padded_head_dim
     from tgt_torch.ops.kernels.triplet_dense import (
         KV_ORDER, Q_ORDER, from_head_major, to_head_major)
@@ -423,11 +540,9 @@ def relayout_ms(q, k, v, dva):
     dp = padded_head_dim(d)
 
     def copies():
-        q_t = to_head_major(q, Q_ORDER, dp)
-        k_t, v_t, _ = (to_head_major(x, KV_ORDER, dp) for x in (k, v, dva))
-        return (from_head_major(q_t, Q_ORDER, d),
-                from_head_major(k_t, KV_ORDER, d),
-                from_head_major(v_t, KV_ORDER, d))
+        moved = [(to_head_major(q, Q_ORDER, dp), Q_ORDER)] + [
+            (to_head_major(x, KV_ORDER, dp), KV_ORDER) for x in kv]
+        return [from_head_major(t, order, d) for t, order in moved[:back]]
     return time_ms(copies)
 
 
@@ -437,49 +552,46 @@ def backward_kernel_phase(card):
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
-    for b, n, dtype, gated in BWD_CASES:
-        inputs = core_inputs(b, n, 256, 16, dtype, gated, gen)
+    for case in CASES:
+        b, n, w, dtype, gated = case
+        inputs = core_inputs(b, n, w, 16, dtype, gated, gen)
         dva = torch.randn(inputs[0].shape, device="cuda",
                           generator=gen).to(dtype)
         got = triplet_dense_bwd(*inputs, dva)
         torch.cuda.synchronize()
         ref = triplet_dense_bwd_reference(*inputs, dva)
         errs, ok = compare_bwd(got, ref, dtype)
-        ms = time_ms(lambda: triplet_dense_bwd(*inputs, dva))
-        plain_ms = time_ms(
-            lambda: triplet_dense_bwd_reference(*inputs, dva))
-        bound_ms, bound_by = bwd_bound(inputs, dva, got, dtype)
-        library_ms, backend = (None, None) if gated else sdpa_time(
-            1.0, *dense_as_sdpa(*inputs[:4], dva))
         row = {"case": "triplet_dense_bwd", "b": b, "n": n,
-               "edge_width": 256, "heads": 16,
-               "dtype": str(dtype).replace("torch.", ""),
+               "edge_width": w, "heads": 16, "dtype": dtype_name(dtype),
                "gated": gated, "errs": errs,
-               "max_abs_err": max(e for e, _ in errs.values()),
-               "ok": ok, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": library_ms, "library": backend, "card": card}
-        if n == 48 and dtype == torch.bfloat16:
-            row["relayout_ms"] = relayout_ms(*inputs[:3], dva)
+               "max_abs_err": max(e for e, _ in errs.values()), "ok": ok,
+               "ms": time_ms(lambda: triplet_dense_bwd(*inputs, dva)),
+               "card": card}
+        if repeats(case):
+            row["bitwise_equal"] = same_outputs(
+                got, triplet_dense_bwd(*inputs, dva))
+        if timed(case):
+            row["plain_ms"] = time_ms(
+                lambda: triplet_dense_bwd_reference(*inputs, dva))
+            row["bound_ms"], row["bound_by"] = bwd_bound(inputs, dva, got,
+                                                         dtype)
+            row["library_ms"], row["library"] = (None, None) if gated else \
+                sdpa_time(1.0, *dense_as_sdpa(*inputs[:4], dva))
+        if n == 48 and w == WIDTH and dtype == torch.bfloat16:
+            row["relayout_ms"] = relayout_ms(*inputs[:3], dva, back=3)
         emit(row)
         if not ok:
             fail(f"backward kernel disagrees with its plain version: "
                  f"{row}")
-        rows[(b, n, dtype, gated)] = row
-        if n == 48 and dtype == torch.bfloat16:
-            again = triplet_dense_bwd(*inputs, dva)
-            same = all(x is None and y is None or torch.equal(x, y)
-                       for x, y in zip(got, again))
-            emit({"case": "triplet_dense_bwd determinism",
-                              "b": b, "gated": gated, "bitwise_equal": same})
-            if not same:
-                fail("two backward launches on the same inputs differ")
+        if row.get("bitwise_equal") is False:
+            fail(f"two backward launches on the same inputs differ: {row}")
+        rows[case] = row
         del inputs, dva, got, ref
 
     # the out direction's pair-transposed K and V views, read in place, at
     # the training micro-batch
     for dtype in (torch.bfloat16, torch.float32):
-        q, k, v, bias, gate = core_inputs(32, 48, 256, 16, dtype, True, gen)
+        q, k, v, bias, gate = core_inputs(32, 48, WIDTH, 16, dtype, True, gen)
         k, v = k.transpose(1, 2), v.transpose(1, 2)
         dva = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
         got = triplet_dense_bwd(q, k, v, bias, gate, dva)
@@ -498,9 +610,10 @@ def backward_kernel_phase(card):
 # -- phase 2c: the dense pair at rate > 0 against plain ----------------------
 
 # phase 2b's cases, then the out direction's pair-transposed K/V views at
-# the training micro-batch: (b, N, dtype, gated, transposed K/V)
-DROPOUT_CASES = [case + (False,) for case in BWD_CASES] + [
-    (32, 48, dtype, True, True) for dtype in (torch.bfloat16, torch.float32)]
+# the training micro-batch: (b, N, edge width, dtype, gated, transposed K/V)
+DROPOUT_CASES = [case + (False,) for case in CASES] + [
+    (32, 48, WIDTH, dtype, True, True)
+    for dtype in (torch.bfloat16, torch.float32)]
 
 
 def dropout_kernel_phase(card):
@@ -512,8 +625,9 @@ def dropout_kernel_phase(card):
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     flagship = {}
-    for b, n, dtype, gated, transposed in DROPOUT_CASES:
-        inputs = core_inputs(b, n, 256, 16, dtype, gated, gen)
+    for b, n, w, dtype, gated, transposed in DROPOUT_CASES:
+        case = (b, n, w, dtype, gated)
+        inputs = core_inputs(b, n, w, 16, dtype, gated, gen)
         if transposed:
             q, k, v, bias, gate = inputs
             inputs = (q, k.transpose(1, 2), v.transpose(1, 2), bias, gate)
@@ -527,6 +641,7 @@ def dropout_kernel_phase(card):
         tol = KERNEL_TOL[dtype] * float(ref.float().abs().max())
         other = triplet_dense_fwd(*inputs, seed + 1, RATE)
         reseeded = not torch.equal(out, other)
+        fwd_same = torch.equal(out, triplet_dense_fwd(*inputs, seed, RATE))
         got = triplet_dense_bwd(*inputs, dva, seed, RATE)
         ref_g = triplet_dense_bwd_reference(*inputs, dva, seed, RATE)
         errs, bwd_ok = compare_bwd(got, ref_g, dtype)
@@ -535,16 +650,18 @@ def dropout_kernel_phase(card):
                    for x, y in zip(got, again))
         torch.cuda.synchronize()
         fwd_ok = bool(torch.isfinite(out.float()).all()) and err <= tol
-        common = {"b": b, "n": n, "edge_width": 256, "heads": 16,
+        common = {"b": b, "n": n, "edge_width": w, "heads": 16,
                   "dtype": dtype_name(dtype), "gated": gated,
                   "transposed_kv": transposed, "rate": RATE, "card": card}
         rows = ({"case": "triplet_dense_fwd dropout", **common,
                  "max_abs_err": err, "tol": tol, "ok": fwd_ok,
-                 "reseeded_differs": reseeded},
+                 "reseeded_differs": reseeded, "bitwise_equal": fwd_same},
                 {"case": "triplet_dense_bwd dropout", **common, "errs": errs,
                  "max_abs_err": max(e for e, _ in errs.values()),
                  "ok": bwd_ok, "bitwise_equal": same})
-        if not transposed:
+        if n == 48 and w == WIDTH and dtype == torch.bfloat16:
+            rows[0].update(dense_routes(inputs, seed, RATE))
+        if not transposed and timed(case):
             seed_b = (seed,)
             rows[0].update(
                 ms=time_ms(lambda: triplet_dense_fwd(*inputs, seed, RATE)),
@@ -566,9 +683,9 @@ def dropout_kernel_phase(card):
                  f"{rows}")
         if not reseeded:
             fail("the dropout forward ignored its seeds")
-        if not same:
-            fail("two dropout backward launches on the same inputs differ")
-        if (b, n, dtype, gated) == FLAGSHIP and not transposed:
+        if not (same and fwd_same):
+            fail("two dropout launches on the same inputs differ")
+        if case == FLAGSHIP and not transposed:
             flagship = {"fwd": rows[0], "bwd": rows[1]}
         del inputs, out, ref, other, got, ref_g, again, dva
     return flagship
@@ -606,13 +723,15 @@ def agg_bound(tensors, flops_per_unit, dtype):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-# (b, N, dtype, transposed V): the serving grid at b=16, the training
-# micro-batch, and the out direction's pair-transposed V view at b=32
-AGG_CASES = [(16, n, dtype, False) for n in (24, 40, 48, 56)
+# (b, N, edge width, dtype, transposed V): the serving grid at b=16, the
+# training micro-batch, the out direction's pair-transposed V view at b=32,
+# and the F3 shapes
+AGG_CASES = [(16, n, WIDTH, dtype, False) for n in (24, 40, 48, 56)
              for dtype in (torch.bfloat16, torch.float32)] + [
-                 (32, 48, torch.bfloat16, False)] + [
-                 (32, 48, dtype, True)
-                 for dtype in (torch.bfloat16, torch.float32)]
+                 (32, 48, WIDTH, torch.bfloat16, False)] + [
+                 (32, 48, WIDTH, dtype, True)
+                 for dtype in (torch.bfloat16, torch.float32)] + [
+                 (b, n, w, dtype, False) for b, n, w, dtype, _ in F3_CASES]
 
 
 def dtype_name(dtype):
@@ -626,8 +745,8 @@ def aggregate_kernel_phase(card):
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = {}
-    for b, n, dtype, transposed in AGG_CASES:
-        a, v = agg_inputs(b, n, 256, 16, dtype, gen)
+    for b, n, w, dtype, transposed in AGG_CASES:
+        a, v = agg_inputs(b, n, w, 16, dtype, gen)
         if transposed:
             v = v.transpose(1, 2)   # the out direction's view, read in place
         out = triplet_aggregate_fwd(a, v)
@@ -643,7 +762,7 @@ def aggregate_kernel_phase(card):
         library_ms = time_ms(lambda: torch.einsum("bikh,bjkdh->bjidh", a, v))
         bound_ms, bound_by = agg_bound((a, v, out), 2.0, dtype)
         row = {"case": "triplet_aggregate_fwd", "b": b, "n": n,
-               "edge_width": 256, "heads": 16, "dtype": dtype_name(dtype),
+               "edge_width": w, "heads": 16, "dtype": dtype_name(dtype),
                "transposed_v": transposed, "max_abs_err": err,
                "max_abs_ref": scale, "tol": KERNEL_TOL[dtype] * scale,
                "ok": ok, "ms": ms, "plain_ms": plain_ms,
@@ -652,7 +771,8 @@ def aggregate_kernel_phase(card):
         emit(row)
         if not ok:
             fail(f"aggregate kernel disagrees with its plain version: {row}")
-        if n == 48 and dtype == torch.bfloat16 and not transposed:
+        if n == 48 and w == WIDTH and dtype == torch.bfloat16 and \
+                not transposed:
             rows[b] = row
         del a, v, out, ref
     return rows
@@ -665,8 +785,8 @@ def aggregate_backward_phase(card):
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = {}
-    for b, n, dtype, transposed in AGG_CASES:
-        a, v = agg_inputs(b, n, 256, 16, dtype, gen)
+    for b, n, w, dtype, transposed in AGG_CASES:
+        a, v = agg_inputs(b, n, w, 16, dtype, gen)
         if transposed:
             v = v.transpose(1, 2)
         dva = torch.randn(v.shape, device="cuda", generator=gen).to(dtype)
@@ -688,7 +808,7 @@ def aggregate_backward_phase(card):
             torch.einsum("bikh,bjidh->bjkdh", a, dva)))
         bound_ms, bound_by = agg_bound((a, v, dva, *got), 4.0, dtype)
         row = {"case": "triplet_aggregate_bwd", "b": b, "n": n,
-               "edge_width": 256, "heads": 16, "dtype": dtype_name(dtype),
+               "edge_width": w, "heads": 16, "dtype": dtype_name(dtype),
                "transposed_v": transposed, "errs": errs,
                "max_abs_err": max(e for e, _ in errs.values()), "ok": ok,
                "bitwise_equal": same, "ms": ms, "plain_ms": plain_ms,
@@ -700,7 +820,8 @@ def aggregate_backward_phase(card):
                  f"{row}")
         if not same:
             fail(f"two aggregate backward launches differ: {row}")
-        if n == 48 and dtype == torch.bfloat16 and not transposed:
+        if n == 48 and w == WIDTH and dtype == torch.bfloat16 and \
+                not transposed:
             rows[b] = row
         del a, v, dva, got, ref, again
     return rows
@@ -747,32 +868,64 @@ def legacy_forward_phase(card):
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = {}
-    for b, n, dtype, gated in KERNEL_CASES:
-        inputs = legacy_inputs(b, n, 256, 16, dtype, gated, gen)
-        scale = 16 ** -0.5
+    for case in CASES:
+        b, n, w, dtype, gated = case
+        inputs = legacy_inputs(b, n, w, 16, dtype, gated, gen)
+        scale = (w // 16) ** -0.5
         out = triplet_attention_fwd(*inputs, scale)
         torch.cuda.synchronize()
         ref = triplet_core_fwd_reference(*inputs, scale)
         err = float((out.float() - ref.float()).abs().max())
         tol = KERNEL_TOL[dtype] * float(ref.float().abs().max())
-        ok = bool(torch.isfinite(out.float()).all()) and err <= tol
-        library_ms, backend = (None, None) if gated else sdpa_time(
-            scale, *legacy_as_sdpa(*inputs[:4]))
-        bound_ms, bound_by = legacy_bound((*inputs, out), 4.0, dtype)
+        ok = (bool(torch.isfinite(out.float()).all()) and err <= tol
+              and not (gated and bool(out[2].any())))   # fully masked sample
         row = {"case": "triplet_attention_fwd", "b": b, "n": n,
-               "edge_width": 256, "heads": "2 x 16", "dtype": dtype_name(dtype),
+               "edge_width": w, "heads": "2 x 16", "dtype": dtype_name(dtype),
                "gated": gated, "max_abs_err": err, "tol": tol, "ok": ok,
                "ms": time_ms(lambda: triplet_attention_fwd(*inputs, scale)),
-               "plain_ms": time_ms(
-                   lambda: triplet_core_fwd_reference(*inputs, scale)),
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": library_ms, "library": backend, "card": card}
+               "card": card}
+        if repeats(case):
+            row["bitwise_equal"] = torch.equal(
+                out, triplet_attention_fwd(*inputs, scale))
+            ok &= row["bitwise_equal"]
+        if timed(case):
+            row["plain_ms"] = time_ms(
+                lambda: triplet_core_fwd_reference(*inputs, scale))
+            row["bound_ms"], row["bound_by"] = legacy_bound((*inputs, out),
+                                                            4.0, dtype)
+            row["library_ms"], row["library"] = (None, None) if gated else \
+                sdpa_time(scale, *legacy_as_sdpa(*inputs[:4]))
+        if n == 48 and w == WIDTH and dtype == torch.bfloat16:
+            device_times(row, lambda: triplet_attention_fwd(*inputs, scale),
+                         lambda: triplet_core_fwd_reference(*inputs, scale),
+                         None if gated else sdpa_call(
+                             scale, *legacy_as_sdpa(*inputs[:4]))[0])
         emit(row)
         if not ok:
             fail(f"legacy forward disagrees with its plain version: {row}")
-        rows[(b, n, dtype, gated)] = row
+        rows[case] = row
         del inputs, out, ref
     return rows
+
+
+def split_cost(inputs, dout, scale):
+    """The legacy bf16 backward with and without the split of the weights
+    for dv, in turns (split, high part alone, alone, split): the ms of each
+    and the dv error share of the high part alone."""
+    from tgt_torch.ops.kernels import triplet_attention as tl
+
+    def split():
+        return tl._bwd_mma(*inputs, dout, scale, split_dv=True)
+
+    def alone():
+        return tl._bwd_mma(*inputs, dout, scale, split_dv=False)
+
+    ref = tl.triplet_core_bwd_reference(*inputs, dout, scale)[2].float()
+    dv_alone = alone()[2].float()
+    times = [time_ms(f) for f in (split, alone, alone, split)]
+    return {"ms_split": [times[0], times[3]], "ms_unsplit": [times[1], times[2]],
+            "dv_share_unsplit": float((dv_alone - ref).abs().max())
+            / float(ref.abs().max())}
 
 
 def legacy_backward_phase(card):
@@ -782,38 +935,43 @@ def legacy_backward_phase(card):
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     rows = {}
-    for b, n, dtype, gated in BWD_CASES:
-        inputs = legacy_inputs(b, n, 256, 16, dtype, gated, gen)
-        scale = 16 ** -0.5
+    for case in CASES:
+        b, n, w, dtype, gated = case
+        inputs = legacy_inputs(b, n, w, 16, dtype, gated, gen)
+        scale = (w // 16) ** -0.5
         dout = torch.randn(inputs[0].shape, device="cuda",
                            generator=gen).to(dtype)
         got = triplet_attention_bwd(*inputs, dout, scale)
         torch.cuda.synchronize()
         ref = triplet_core_bwd_reference(*inputs, dout, scale)
         errs, ok = compare_bwd(got, ref, dtype)
-        again = triplet_attention_bwd(*inputs, dout, scale)
-        same = all(torch.equal(x, y) for x, y in zip(got, again))
-        library_ms, backend = (None, None) if gated else sdpa_time(
-            scale, *legacy_as_sdpa(*inputs[:4], dout))
-        bound_ms, bound_by = legacy_bound((*inputs, dout, *got), 10.0, dtype)
         row = {"case": "triplet_attention_bwd", "b": b, "n": n,
-               "edge_width": 256, "heads": "2 x 16", "dtype": dtype_name(dtype),
+               "edge_width": w, "heads": "2 x 16", "dtype": dtype_name(dtype),
                "gated": gated, "errs": errs,
                "max_abs_err": max(e for e, _ in errs.values()), "ok": ok,
-               "bitwise_equal": same,
+               "dv_share": errs["dv"][0] / float(ref[2].float().abs().max()),
                "ms": time_ms(
                    lambda: triplet_attention_bwd(*inputs, dout, scale)),
-               "plain_ms": time_ms(
-                   lambda: triplet_core_bwd_reference(*inputs, dout, scale)),
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": library_ms, "library": backend, "card": card}
+               "card": card}
+        if repeats(case):
+            row["bitwise_equal"] = same_outputs(
+                got, triplet_attention_bwd(*inputs, dout, scale))
+        if timed(case):
+            row["plain_ms"] = time_ms(
+                lambda: triplet_core_bwd_reference(*inputs, dout, scale))
+            row["bound_ms"], row["bound_by"] = legacy_bound(
+                (*inputs, dout, *got), 10.0, dtype)
+            row["library_ms"], row["library"] = (None, None) if gated else \
+                sdpa_time(scale, *legacy_as_sdpa(*inputs[:4], dout))
+        if n == 48 and w == WIDTH and dtype == torch.bfloat16:
+            row.update(split_cost(inputs, dout, scale))
         emit(row)
         if not ok:
             fail(f"legacy backward disagrees with its plain version: {row}")
-        if not same:
+        if row.get("bitwise_equal") is False:
             fail(f"two legacy backward launches differ: {row}")
-        rows[(b, n, dtype, gated)] = row
-        del inputs, dout, got, ref, again
+        rows[case] = row
+        del inputs, dout, got, ref
     return rows
 
 
@@ -1272,9 +1430,9 @@ def main() -> int:
         (_build.BUILD_DIR / f"{name}.log").read_text()) for name in libs}
     emit({"ptxas": report})
     spilled = [f for fns in report.values() for f in fns
-               if f[0].startswith(BWD_BODY_PREFIX) and (f[2] or f[3])]
+               if f[0].startswith(BODY_PREFIXES) and (f[2] or f[3])]
     if spilled:
-        fail(f"the backward body spills registers: {spilled}")
+        fail(f"a tensor-core body spills registers: {spilled}")
 
     at = ModelSpec("TGT-At", FLAGSHIP_YAML, {}, td.triplet_dense_fwd,
                    td.triplet_dense_bwd)
@@ -1345,7 +1503,7 @@ def main() -> int:
             "triplet_dense_fwd", td.KERNEL_SOURCE, td.REPLACES,
             {"serving": served[at.name], "training": trained[at.name]["fwd"],
              "serving_dropout": d_serve, "training_dropout": d_train["fwd"]},
-            dense[FLAGSHIP], dense[UNGATED]),
+            dense[FLAGSHIP], dense[UNGATED], dense[UNGATED_TRAIN]),
             drop["fwd"], {"serving": d_serve, "training": d_train["fwd"]}),
         with_dropout(entry(
             "triplet_dense_bwd", td.BWD_KERNEL_SOURCE, td.BWD_REPLACES,
@@ -1362,7 +1520,7 @@ def main() -> int:
         entry("triplet_attention_fwd", tl.KERNEL_SOURCE, tl.REPLACES,
               {"serving": served[at_l.name],
                "training": trained[at_l.name]["fwd"]},
-              legacy[FLAGSHIP], legacy[UNGATED]),
+              legacy[FLAGSHIP], legacy[UNGATED], legacy[UNGATED_TRAIN]),
         entry("triplet_attention_bwd", tl.BWD_KERNEL_SOURCE, tl.BWD_REPLACES,
               {"training": trained[at_l.name]["bwd"]},
               legacy_bwd[FLAGSHIP], legacy_bwd[UNGATED],

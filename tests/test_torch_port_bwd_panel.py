@@ -11,8 +11,9 @@
    inputs gives ``triplet_dense_bwd_reference``'s outputs, at rate 0 and at
    rate 0.3 with ``dropout_mask`` taken in the head-major frame; on the
    legacy inputs it gives ``triplet_core_bwd_reference``'s, in f32 exactly
-   the same formulas and in bf16 within the card's tolerance (the body
-   rounds the legacy weights to bf16 before dv).
+   the same formulas, and in bf16 with the legacy instantiation's split of
+   the weights (``split_dv``) within one bf16 step: dv takes tgt_tpu's f32
+   weights to about 2^-16.
 4. ``j_chunks`` covers every row j once and fills at most one wave.
 """
 import numpy as np
@@ -27,7 +28,8 @@ from tgt_torch.ops.kernels.triplet_attention import (UNGATED_GATE,
 from tgt_torch.ops.kernels.triplet_bwd_panel import (BLOCKS_PER_SM, j_chunks,
                                                      pad_head_dim,
                                                      padded_head_dim,
-                                                     panel_bwd_reference)
+                                                     panel_bwd_reference,
+                                                     split_weights)
 from tgt_torch.ops.kernels.triplet_dense import (KV_ORDER, PAIR_ORDER, Q_ORDER,
                                                  dropout_mask, from_head_major,
                                                  to_head_major,
@@ -203,9 +205,14 @@ class TestPanelReference:
         for name, g, w in zip(NAMES, got, want):
             assert_scaled_close(g.numpy(), w.numpy(), F32_TOL, name)
 
-    def test_legacy_weights_rounded_in_bf16_stay_in_tolerance(self):
-        """The body rounds p g to bf16 before dv, where tgt_tpu (and the
-        legacy plain version) keep f32: within the card's 1e-2."""
+    def test_legacy_split_weights_match_the_f32_weights_in_bf16(self):
+        """The legacy instantiation feeds dv the weights p g as a bf16 high
+        and low part, where tgt_tpu (and the legacy plain version) keep
+        them in f32 (``triplet_attention.py:81-83``). hi + lo holds p g to
+        about 2^-16 of its value, so in bf16 every output of the body's
+        plain version lies within one bf16 step (2^-8) of max|ref| of
+        ``triplet_core_bwd_reference``'s: both round the same f32 sums,
+        whose last bits differ with the order of the sums."""
         rs = np.random.RandomState(71)
         b, h, n, d = 2, 4, 24, 16
         q, k, v, do = (torch.from_numpy(rs.randn(b, h, n, n, d).astype(
@@ -213,10 +220,14 @@ class TestPanelReference:
         bias, gate = (torch.from_numpy(rs.randn(b, h, n, n).astype(
             np.float32)).to(torch.bfloat16) for _ in range(2))
         want = triplet_core_bwd_reference(q, k, v, bias, gate, do, 0.25)
-        got = panel_bwd_reference(q, k, v, bias, gate, do, 0.25)
+        got = panel_bwd_reference(q, k, v, bias, gate, do, 0.25,
+                                  split_dv=True)
         for name, g, w in zip(NAMES, got, want):
-            assert_scaled_close(g.float().numpy(), w.float().numpy(), 1e-2,
-                                name)
+            assert_scaled_close(g.float().numpy(), w.float().numpy(),
+                                2.0 ** -8, name)
+        a = torch.rand(4096) * torch.rand(4096) + 1e-6
+        err = (split_weights(a, torch.bfloat16) - a).abs() / a
+        assert float(err.max()) <= 2.0 ** -16
 
 
 class TestChunks:

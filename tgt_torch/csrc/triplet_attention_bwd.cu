@@ -32,9 +32,9 @@
 //    in place: one block per (b, h, chunk of j) walks j in order, as the TPU
 //    kernel walks j inside one (b, h) grid cell; the five products on the
 //    tensor cores, one recompute, dbias and dgate summed in registers and
-//    reduced over the chunks in a fixed order. It rounds the weights p g to
-//    bf16 before dv, where the TPU kernel takes f32 weights (:81-83): a
-//    departure within the bf16 tolerance of the checks.
+//    reduced over the chunks in a fixed order. dv takes the weights p g at
+//    f32 precision, as the TPU kernel does (:81-83): split into a bf16 high
+//    and low part, two tensor-core products per tile (kSplitDv).
 //  - f32, the 1e-4 checks and the f32 gradients: two kernels on the CUDA
 //    cores, dv from f32 weights. Both take every sum in a fixed order (two
 //    launches give bitwise equal outputs):
@@ -271,13 +271,17 @@ extern "C" int triplet_attention_bwd(const void* q, const void* k, const void* v
 // bf16. q, k, v, dout, dq, dk, dv: (batch, h, nj, n, dp) contiguous, dp 16
 // or 32; bias, gate, dbias, dgate: (batch, h, n, n) contiguous. partial:
 // 2 x chunks x batch x h x n x n floats of scratch; rows j go in chunks of
-// jc. Returns the first CUDA error (0 when both launches went out).
+// jc. split_dv 1 takes dv from the weights' high and low bf16 parts (the
+// TPU kernel's f32 weights); 0 from the high part alone, which only a
+// measurement of the split's cost asks for. Returns the first CUDA error (0
+// when both launches went out).
 extern "C" int triplet_attention_bwd_mma(const void* q, const void* k, const void* v,
                                          const void* bias, const void* gate,
                                          const void* dout, void* dq, void* dk, void* dv,
                                          void* dbias, void* dgate, void* partial,
                                          float scale, int batch, int h, int nj, int n,
-                                         int dp, int jc, int chunks, void* stream) {
+                                         int dp, int jc, int chunks, int split_dv,
+                                         void* stream) {
   using tbwd::bf16;
   const long long nn = (long long)n * n;
   tbwd::Args a{};
@@ -303,5 +307,7 @@ extern "C" int triplet_attention_bwd_mma(const void* q, const void* k, const voi
   a.jc = jc;
   a.chunks = chunks;
   if (!tbwd::valid(a)) return (int)cudaErrorInvalidValue;
-  return tbwd::launch<true, false>(a, o, (cudaStream_t)stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  return split_dv ? tbwd::launch<true, false, true>(a, o, s)
+                  : tbwd::launch<true, false, false>(a, o, s);
 }

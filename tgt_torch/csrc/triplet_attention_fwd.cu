@@ -9,11 +9,12 @@
 //   a[k]   = softmax_k(s)[k] * sigmoid(gate[b,h,i,k]), rounded to v's dtype
 //   out[b,h,j,i,:] = sum_k a[k] v_t[b,h,j,k,:]
 //
-// in f32, whatever the storage type (f32 or bf16): the scale is applied here,
-// the max is taken per row (per (i, h)), the denominator is not clamped (the
-// row max makes it at least 1), and the weights are rounded to v's dtype
-// before the product, as the TPU kernel does. The caller stacks the in and
-// out directions on the head axis, so one launch serves both.
+// with the sums in f32: the scale is applied here, the max is taken per row
+// (per (i, h)), the denominator is not clamped (the row max makes it at least
+// 1), and the normalised weights times the gate are rounded to v's dtype
+// before the product, as the TPU kernel does (triplet_attention.py:47-52).
+// The caller stacks the in and out directions on the head axis, so one
+// launch serves both.
 //
 // Bound on the H100: at b=16, N=48, edge width 256, 2 x 16 stacked heads,
 // d=16, bf16 the function reads q, k, v (3 x 37.7 MB), bias and gate (2 x
@@ -21,15 +22,19 @@
 // 3.6 GFLOP take 3.7 us at the bf16 tensor-core peak. So it is bound by
 // device memory.
 //
-// Design (simple and right first, as the dense pair's): one block per
-// (b, h, j), (b*h*Nj) blocks, 24,576 at that case. The block stages the
-// contiguous K[b,h,j] and V[b,h,j] panels (N x d) in shared memory as f32;
-// each warp takes rows i in turn, lanes over k for the softmax (a warp max,
-// exp, a warp sum), then lanes over (d, k-parity) for the sum of a*V. Every
-// global read and write is contiguous along d or k. The TPU kernel's grid of
-// (b, h) cells looping over j exists to amortise DMA set-up; Hopper's blocks
-// need no such amortisation, and (b, h, j) gives the card enough blocks.
+// Two paths, by storage type:
+//  - bf16, the serving and training path: triplet_attention_fwd_mma runs the
+//    tensor-core body shared with the dense forward (triplet_fwd_mma.cuh,
+//    legacy instantiation) on the head-major panels in place: one block per
+//    (b, h, chunk of j) walks j in order, as the TPU kernel walks j inside one
+//    (b, h) grid cell, with bias and sigmoid(gate) staged once per block.
+//  - f32, the 1e-4 checks and the f32 gradients: the CUDA-core kernel below.
+//    One block per (b, h, j) stages the contiguous K[b,h,j] and V[b,h,j]
+//    panels (N x d) in shared memory as f32; each warp takes rows i in turn,
+//    lanes over k for the softmax (a warp max, exp, a warp sum), then lanes
+//    over (d, k-parity) for the sum of a*V.
 #include "triplet_attention_row.cuh"
+#include "triplet_fwd_mma.cuh"
 
 namespace {
 
@@ -100,21 +105,47 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. All tensors contiguous: q, k, v, out
-// (batch, h, nj, n, d); bias, gate (batch, h, n, n). Returns
-// cudaGetLastError() after the launch.
+// f32 only (dtype 0; bf16 takes triplet_attention_fwd_mma). All tensors
+// contiguous: q, k, v, out (batch, h, nj, n, d); bias, gate (batch, h, n, n).
+// Returns cudaGetLastError() after the launch.
 extern "C" int triplet_attention_fwd(const void* q, const void* k, const void* v,
                                      const void* bias, const void* gate, void* out,
                                      float scale, int dtype, int batch, int h, int nj,
                                      int n, int d, void* stream) {
-  if (n < 1 || n > kMaxN || d < 1 || d > 32 || (d & (d - 1)) != 0 || h < 1 ||
-      batch < 1 || nj < 1 || (long long)batch * h > 65535) {
+  if (dtype != 0 || n < 1 || n > kMaxN || d < 1 || d > 32 || (d & (d - 1)) != 0 ||
+      h < 1 || batch < 1 || nj < 1 || (long long)batch * h > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch<float>(q, k, v, bias, gate, out, scale, batch * h, nj, n, d, s);
-  if (dtype == 1) {
-    return launch<__nv_bfloat16>(q, k, v, bias, gate, out, scale, batch * h, nj, n, d, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return launch<float>(q, k, v, bias, gate, out, scale, batch * h, nj, n, d,
+                       (cudaStream_t)stream);
+}
+
+// bf16. q, k, v, out: (batch, h, nj, n, dp) contiguous, dp 16 or 32; bias,
+// gate: (batch, h, n, n) contiguous. Rows j go in chunks of jc. Returns the
+// launch's CUDA error (0 when it went out).
+extern "C" int triplet_attention_fwd_mma(const void* q, const void* k, const void* v,
+                                         const void* bias, const void* gate, void* out,
+                                         float scale, int batch, int h, int nj, int n,
+                                         int dp, int jc, int chunks, void* stream) {
+  using tfwd::bf16;
+  const long long nn = (long long)n * n;
+  tfwd::Args a{};
+  a.q = (const bf16*)q;
+  a.k = (const bf16*)k;
+  a.v = (const bf16*)v;
+  a.bias = (const bf16*)bias;
+  a.gate = (const bf16*)gate;
+  a.out = (bf16*)out;
+  const long long st[4] = {h * nn, nn, n, 1};
+  for (int x = 0; x < 4; ++x) a.sb[x] = a.sg[x] = st[x];
+  a.scale = scale;
+  a.batch = batch;
+  a.h = h;
+  a.nj = nj;
+  a.n = n;
+  a.dp = dp;
+  a.jc = jc;
+  a.chunks = chunks;
+  if (!tfwd::valid(a)) return (int)cudaErrorInvalidValue;
+  return tfwd::launch<false, true, false>(a, (cudaStream_t)stream);
 }

@@ -20,12 +20,15 @@
 //   dQ   = scale ds' K,  dK = scale ds'^T Q,  dV = a'^T dO
 //   dbias[i,k] = sum_j ds,  dgate[i,k] = g (1 - g) sum_j dA pn
 //
-// where ds' and a' are ds and a rounded to bf16, as both TPU kernels round
-// ds before dQ and dK (triplet_dense.py:316-318 through _dot/_dot_t,
-// triplet_attention.py:92) and the dense one rounds a before dV (:321). The
-// legacy TPU kernel takes dV from f32 weights (triplet_attention.py:81-83):
-// rounding them here is a departure of the port, within the bf16 tolerance of
-// its checks. Rows i and keys k past n are zero padding; the denominator
+// where ds' is ds rounded to bf16, as both TPU kernels round ds before dQ and
+// dK (triplet_dense.py:316-318 through _dot/_dot_t, triplet_attention.py:92).
+// a' is a rounded to bf16 in the dense instantiation, as the dense TPU kernel
+// rounds it before dV (:321). The legacy TPU kernel takes dV from f32 weights
+// (triplet_attention.py:81-83): its instantiation (kSplitDv) splits a into
+// hi = bf16(a) and lo = bf16(a - hi) and adds both products, two mma.sync per
+// tile, so a' = hi + lo holds a to about 2^-16 of its value. S and its softmax
+// are the forward body's (triplet_mma.cuh), so the weights recomputed here are
+// the forward's. Rows i and keys k past n are zero padding; the denominator
 // clamp is the identity for the legacy pair, whose row max makes the sum at
 // least 1.
 //
@@ -49,7 +52,8 @@
 //    softmax in the accumulator fragments (row max and sum across the quad by
 //    shuffles), ds and a; ds stays in registers as the A operand of dQ, and
 //    ds and a go to shared memory as bf16. Then warp w takes keys 16w..16w+15
-//    for dK = ds^T Q and dV = a^T dO (ldmatrix.trans). dbias and dgate sums
+//    for dK = ds^T Q and dV = a^T dO (ldmatrix.trans; with kSplitDv also the
+//    low parts of a, from a fifth tile in shared memory). dbias and dgate sums
 //    stay in registers for n <= 64 (KT <= 4); above, the block adds them into
 //    its own slice of the f32 partial sums, read and written by the thread
 //    that owns each element.
@@ -66,13 +70,12 @@
 
 #include "dropout_hash.cuh"
 #include "triplet_common.cuh"
+#include "triplet_mma.cuh"
 
 namespace tbwd {
 
-using bf16 = __nv_bfloat16;
-using bf162 = __nv_bfloat162;
+using namespace tmma;
 
-constexpr int kMaxNodes = 128;
 constexpr int kRegTiles = 4;   // up to n = 64 the dbias/dgate sums stay in registers
 
 struct Args {
@@ -94,68 +97,12 @@ struct Out {
   long long so[4];
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-// c += A (16 x 16, row) B (16 x 8, col), bf16 in, f32 sums.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const bf162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(smem)),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// sigmoid with the fast exponential and division: within a few ulp of f32,
-// far inside the bf16 outputs' rounding
-__device__ __forceinline__ float fast_sigmoid(float x) {
-  return __fdividef(1.f, 1.f + __expf(-x));
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-__host__ __device__ constexpr int panel_stride(int dp) { return dp + 8; }
-__host__ __device__ constexpr int pair_stride(int kt) { return 16 * kt + 8; }
-
 // Shared memory of one block: two stages of the four panels, then ds, a,
 // bias and gate ([16 KT][16 KT + 8] bf16 each).
-__host__ __device__ constexpr size_t shared_bytes(int kt, int dp) {
+// With the split of the weights (kSplitDv) a fifth tile holds their low parts.
+__host__ __device__ constexpr size_t shared_bytes(int kt, int dp, bool split) {
   return 2 * ((size_t)8 * 16 * kt * panel_stride(dp) +
-              (size_t)4 * 16 * kt * pair_stride(kt));
+              (size_t)(split ? 5 : 4) * 16 * kt * pair_stride(kt));
 }
 
 // The second bound promises four resident blocks per SM up to n = 48 (KT 3),
@@ -163,7 +110,7 @@ __host__ __device__ constexpr size_t shared_bytes(int kt, int dp) {
 // triplet_bwd_panel.py), and one above. Either way ptxas may use every
 // register the bound allows: with the first bound alone it capped one
 // instantiation at 128 registers and spilled.
-template <int KT, bool kGated, bool kDropout>
+template <int KT, bool kGated, bool kDropout, bool kSplitDv>
 __global__ void __launch_bounds__(KT * 32, KT <= 3 ? 4 : 1)
 panel_bwd_kernel(const Args a) {
   constexpr int NP = 16 * KT, NT = 2 * KT, NS = pair_stride(KT);
@@ -182,8 +129,9 @@ panel_bwd_kernel(const Args a) {
   bf16* a_s = ds_s + NP * NS;
   bf16* bias_s = a_s + NP * NS;
   bf16* gate_s = bias_s + NP * NS;
+  bf16* alo_s = gate_s + NP * NS;                 // [NP][NS] with kSplitDv
 
-  const int chunks16 = (int)(shared_bytes(KT, dp) / 16);
+  const int chunks16 = (int)(shared_bytes(KT, dp, kSplitDv) / 16);
   for (int x = threadIdx.x; x < chunks16; x += blockDim.x) smem[x] = make_uint4(0, 0, 0, 0);
   __syncthreads();                  // the padding stays zero from here on
 
@@ -241,71 +189,15 @@ panel_bwd_kernel(const Args a) {
     const bf16* vs = panels + (stage * 4 + 2) * NP * ps;
     const bf16* os = panels + (stage * 4 + 3) * NP * ps;
 
+    // the keep mask's index (j n + i)(n H) + k H + h from this j's base (so
+    // written, ptxas keeps every dropout instantiation free of spills)
+    const uint32_t nh = (uint32_t)(n * a.h);
+    const uint32_t jbase = (uint32_t)j * (uint32_t)n * nh + (uint32_t)hh;
     // -- phase 1: rows i m0..m0+15 against every key --------------------------
-    float sf[NT][4], da[NT][4];
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) sf[t][q] = da[t][q] = 0.f;
-    }
-#pragma unroll
-    for (int et = 0; et < 2; ++et) {
-      if (et * 16 < dp) {
-        uint32_t qa[4], oa[4];
-        const int ar = m0 + (lane & 7) + ((lane >> 3) & 1) * 8, ac = et * 16 + (lane >> 4) * 8;
-        ldsm_x4(qa, qs + ar * ps + ac);
-        ldsm_x4(oa, os + ar * ps + ac);
-#pragma unroll
-        for (int kt = 0; kt < KT; ++kt) {
-          uint32_t kb[4], vb[4];
-          const int br = kt * 16 + (lane & 7) + (lane >> 4) * 8;
-          const int bc = et * 16 + ((lane >> 3) & 1) * 8;
-          ldsm_x4(kb, ks + br * ps + bc);
-          ldsm_x4(vb, vs + br * ps + bc);
-          mma(sf[2 * kt], qa, kb[0], kb[1]);
-          mma(sf[2 * kt + 1], qa, kb[2], kb[3]);
-          mma(da[2 * kt], oa, vb[0], vb[1]);
-          mma(da[2 * kt + 1], oa, vb[2], vb[3]);
-        }
-      }
-    }
-
-    // fragment element (t, q): row m0 + gid + 8 (q >> 1), key 8 t + 2 tig + (q & 1)
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int row = m0 + gid + 8 * hf, col = 8 * t + 2 * tig;
-        const float2 bv = __bfloat1622float2(*reinterpret_cast<const bf162*>(bias_s + row * NS + col));
-        const float x0 = col < n ? fmaf(sf[t][2 * hf], scale, bv.x) : -INFINITY;
-        const float x1 = col + 1 < n ? fmaf(sf[t][2 * hf + 1], scale, bv.y) : -INFINITY;
-        sf[t][2 * hf] = x0;
-        sf[t][2 * hf + 1] = x1;
-        mx[hf] = fmaxf(mx[hf], fmaxf(x0, x1));
-      }
-    }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(kFullMask, mx[hf], 1));
-      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(kFullMask, mx[hf], 2));
-    }
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        sf[t][q] = __expf(sf[t][q] - mx[q >> 1]);
-        sum[q >> 1] += sf[t][q];
-      }
-    }
-    float recip[2];
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      sum[hf] += __shfl_xor_sync(kFullMask, sum[hf], 1);
-      sum[hf] += __shfl_xor_sync(kFullMask, sum[hf], 2);
-      recip[hf] = 1.f / fmaxf(sum[hf], 1e-30f);
-    }
+    // S = Q K^T and dA = dO V^T, then the softmax numerators of S
+    float sf[NT][4], da[NT][4], recip[2];
+    qk_fragments2<KT>(sf, da, qs, ks, os, vs, ps, dp, m0, lane);
+    softmax_fragments<NT>(sf, bias_s, NS, n, m0, gid, tig, scale, 1e-30f, recip);
 
     // pn, the gate, the keep mask and dA: a to shared memory, dA pn into the
     // dgate sums, sf := pn, da := dp = dA g, and the row sums of dp pn
@@ -328,9 +220,9 @@ panel_bwd_kernel(const Args a) {
           const float pn = sf[t][q] * recip[hf];
           float keep = 1.f;
           if (kDropout) {
-            keep = dropout_keep((uint32_t)(j * n + row) * (uint32_t)(n * a.h) +
-                                    (uint32_t)((col + u) * a.h + hh),
-                                seed, a.thresh, a.keep_scale);
+            keep = dropout_keep(
+                jbase + (uint32_t)row * nh + (uint32_t)(col + u) * (uint32_t)a.h, seed,
+                a.thresh, a.keep_scale);
           }
           const float dav = da[t][q] * keep;
           if constexpr (kGated) {
@@ -347,7 +239,13 @@ panel_bwd_kernel(const Args a) {
           rs[hf] = fmaf(da[t][q], pn, rs[hf]);
           w[u] = pn * g[u] * keep;
         }
-        *reinterpret_cast<uint32_t*>(a_s + row * NS + col) = pack(w[0], w[1]);
+        const uint32_t hi = pack(w[0], w[1]);
+        *reinterpret_cast<uint32_t*>(a_s + row * NS + col) = hi;
+        if constexpr (kSplitDv) {
+          // the low parts, exact in f32: a = hi + lo to about 2^-16 of a
+          const float2 hv = __bfloat1622float2(*reinterpret_cast<const bf162*>(&hi));
+          *reinterpret_cast<uint32_t*>(alo_s + row * NS + col) = pack(w[0] - hv.x, w[1] - hv.y);
+        }
       }
     }
 #pragma unroll
@@ -422,10 +320,11 @@ panel_bwd_kernel(const Args a) {
     }
 #pragma unroll
     for (int it = 0; it < KT; ++it) {
-      uint32_t dsf[4], af[4];
+      uint32_t dsf[4], af[4], alf[4];
       const int ar = it * 16 + (lane & 7) + (lane >> 4) * 8, ac = m0 + ((lane >> 3) & 1) * 8;
       ldsm_x4_t(dsf, ds_s + ar * NS + ac);
       ldsm_x4_t(af, a_s + ar * NS + ac);
+      if constexpr (kSplitDv) ldsm_x4_t(alf, alo_s + ar * NS + ac);
 #pragma unroll
       for (int et = 0; et < 2; ++et) {
         if (et * 16 < dp) {
@@ -438,6 +337,10 @@ panel_bwd_kernel(const Args a) {
           mma(dk[2 * et + 1], dsf, qb[2], qb[3]);
           mma(dv[2 * et], af, ob[0], ob[1]);
           mma(dv[2 * et + 1], af, ob[2], ob[3]);
+          if constexpr (kSplitDv) {
+            mma(dv[2 * et], alf, ob[0], ob[1]);
+            mma(dv[2 * et + 1], alf, ob[2], ob[3]);
+          }
         }
       }
     }
@@ -497,10 +400,10 @@ __global__ void reduce_kernel(const Args a, const Out o) {
   }
 }
 
-template <int KT, bool kGated, bool kDropout>
+template <int KT, bool kGated, bool kDropout, bool kSplitDv>
 int launch_tiles(const Args& a, cudaStream_t stream) {
-  const size_t smem = shared_bytes(KT, a.dp);
-  auto kernel = panel_bwd_kernel<KT, kGated, kDropout>;
+  const size_t smem = shared_bytes(KT, a.dp, kSplitDv);
+  auto kernel = panel_bwd_kernel<KT, kGated, kDropout, kSplitDv>;
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   kernel<<<dim3(a.batch * a.h, a.chunks), KT * 32, smem, stream>>>(a);
@@ -509,18 +412,18 @@ int launch_tiles(const Args& a, cudaStream_t stream) {
 
 // The backward of one call: the panel kernel, then the reduction of its
 // dbias and dgate sums. Returns the first CUDA error (0 when both launched).
-template <bool kGated, bool kDropout>
+template <bool kGated, bool kDropout, bool kSplitDv = false>
 int launch(const Args& a, const Out& o, cudaStream_t stream) {
   const int kt = (a.n + 15) / 16;
   int e;
   if (kt <= 2) {
-    e = launch_tiles<2, kGated, kDropout>(a, stream);
+    e = launch_tiles<2, kGated, kDropout, kSplitDv>(a, stream);
   } else if (kt == 3) {
-    e = launch_tiles<3, kGated, kDropout>(a, stream);
+    e = launch_tiles<3, kGated, kDropout, kSplitDv>(a, stream);
   } else if (kt == 4) {
-    e = launch_tiles<4, kGated, kDropout>(a, stream);
+    e = launch_tiles<4, kGated, kDropout, kSplitDv>(a, stream);
   } else {
-    e = launch_tiles<8, kGated, kDropout>(a, stream);
+    e = launch_tiles<8, kGated, kDropout, kSplitDv>(a, stream);
   }
   if (e != 0) return e;
   const long long count = (long long)a.batch * a.h * a.n * a.n;

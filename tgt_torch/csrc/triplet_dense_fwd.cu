@@ -1,23 +1,20 @@
 // Forward dense triplet attention for Hopper (sm_90a).
 //
 // Replaces the TPU kernel tgt_tpu/ops/pallas/triplet_dense.py:_fwd_kernel
-// (with _attn_tile), at dropout rate 0 and at rate > 0 (with _keep_tile and
-// _hash_keepf). For every batch row b, pair column j and triplet head h it
-// computes, for each row i,
+// (reached through _call_fwd, with _attn_tile), at dropout rate 0 and at
+// rate > 0 (with _keep_tile and _hash_keepf). For every batch row b, pair
+// column j and triplet head h it computes, for each row i,
 //
 //   s[k]       = sum_d Q[b,i,j,d,h] K[b,j,k,d,h] + bias[b,i,k,h]   (Q pre-scaled)
-//   a[k]       = softmax_k(s)[k] * sigmoid(gate[b,i,k,h])          (gate optional)
+//   e[k]       = exp(s[k] - max_k s)                                (max per (i, h))
+//   a[k]       = e[k] * sigmoid(gate[b,i,k,h])                      (gate optional)
 //                * keep(seed[b], (j*n + i)*(n*H) + k*H + h)        (rate > 0)
-//   va[b,j,i,:,h] = sum_k a[k] V[b,j,k,:,h]
+//   va[b,j,i,:,h] = sum_k a[k] V[b,j,k,:,h] / max(sum_k e[k], 1e-30)
 //
 // keep is the stateless hash of dropout_hash.cuh: the dropout runs in the
 // kernel, on the gated weights (softmax, gate, dropout, as the TPU kernel
-// orders them), and the mask never reaches device memory. The rate > 0
-// branch is a template flag: the rate-0 instantiations carry none of it.
-//
-// in f32, whatever the storage type (f32 or bf16). No (b, N, N, N, h)
-// tensor reaches device memory: the N x N logits of one (b, j, h) live in
-// registers and shared memory only.
+// orders them), and the mask never reaches device memory. No (b, N, N, N, h)
+// tensor reaches device memory either.
 //
 // Bound on the H100: at the flagship bucket (b=16, N=48, edge width 256,
 // H=16, d=16, bf16) the function must move q, k, v and va (4 x 18.9 MB) plus
@@ -25,21 +22,42 @@
 // 3.35 TB/s; its 1.81 GFLOP take 1.8 us at the bf16 tensor-core peak. So it is
 // bound by device memory.
 //
-// Design (simple and right first; wgmma/TMA are later work): one block per
-// (b, j, h), so b*N*H blocks (12,288 at the flagship bucket). The block
-// stages K[b,j,:,:,h] and V[b,j,:,:,h] (N x d each) in shared memory as f32.
-// Each warp takes rows i in turn: lanes take k, then a warp max, exp, a warp
-// sum, the gate, and the k-sum of a*V with lanes split over (d, k-parity).
-// The softmax max is taken per (i, h), so a head whose logits all sit far
+// Two paths, by storage type:
+//  - bf16, the serving and training path: triplet_dense_fwd_mma runs the
+//    tensor-core body shared with the legacy forward (triplet_fwd_mma.cuh,
+//    kDense: one block per (b, h, chunk of j) walks j in order, S = Q K^T and
+//    W V on mma.sync, the softmax in the accumulator fragments). Up to n = 48
+//    with d of 8 or 16, triplet_dense_fwd_inplace reads the natural layouts
+//    in place (tfwd::inplace_fwd_kernel: one block per (b, 8 heads, chunk of
+//    j), 16-byte pieces of 8 heads transposed to per-head panels in shared
+//    memory and back). Other shapes take triplet_dense_fwd_mma on head-major
+//    copies (b, h, j, i|k, d) that the wrapper makes of q, k and v, as
+//    tgt_tpu's _pack relayouts around its kernel, with a head-major output
+//    that the wrapper moves back; bias and gate are read in place at their
+//    (b, h, i, k) strides. Both routes compute the same sums in the same
+//    order, so their outputs are bitwise equal. The rounding is
+//    _fwd_kernel's: the unnormalised gated weights (times the keep mask) are
+//    rounded to bf16 before the product, which sums in f32 and is then
+//    multiplied by the reciprocal of the clamped denominator
+//    (triplet_dense.py:243-252).
+//  - f32, the 1e-4 checks and the f32 gradients: the CUDA-core kernel below,
+//    which reads the natural layouts in place. One block per (b, j, h), so
+//    b*N*H blocks (12,288 at the flagship bucket), stages K[b,j,:,:,h] and
+//    V[b,j,:,:,h] (N x d each) in shared memory. Each warp takes rows i in
+//    turn: lanes take k, then a warp max, exp, a warp sum, the gate, and the
+//    k-sum of a*V with lanes split over (d, k-parity). Heads are the fastest
+//    axis in memory, so a block reads its operands with stride H; the H
+//    blocks of one (b, j) are adjacent in the grid and share those cache
+//    lines through L2.
+// Both take the softmax max per (i, h), so a head whose logits all sit far
 // below the other heads' keeps its own distribution (the TPU kernel's
-// cross-head row max flushes such a head to zero). The denominator is still
-// clamped at 1e-30 as in the TPU kernel. Heads are the fastest axis in
-// memory, so a block reads its operands with stride H; the H blocks of one
-// (b, j) are adjacent in the grid and share those cache lines through L2.
+// cross-head row max flushes such a head to zero); the denominator is still
+// clamped at 1e-30 as in the TPU kernel.
 #include <stdint.h>
 
 #include "dropout_hash.cuh"
 #include "triplet_common.cuh"
+#include "triplet_fwd_mma.cuh"
 
 namespace {
 
@@ -181,10 +199,10 @@ void dispatch(const void* q, const void* k, const void* v, const void* bias,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. strides: 15 element strides, the three
-// outer axes of q, k, v, bias and gate in that order. gate may be null
-// (ungated). seeds: null at rate 0, else (batch) int32 on the device, with
-// the threshold and the kept value of dropout_hash.cuh. Returns
+// f32 only (dtype 0; bf16 takes triplet_dense_fwd_mma). strides: 15 element
+// strides, the three outer axes of q, k, v, bias and gate in that order. gate
+// may be null (ungated). seeds: null at rate 0, else (batch) int32 on the
+// device, with the threshold and the kept value of dropout_hash.cuh. Returns
 // cudaGetLastError() after the launch.
 extern "C" int triplet_dense_fwd(const void* q, const void* k, const void* v,
                                  const void* bias, const void* gate, void* out,
@@ -192,20 +210,100 @@ extern "C" int triplet_dense_fwd(const void* q, const void* k, const void* v,
                                  float keep_scale, int dtype, int batch, int n,
                                  int d, int h, const long long* strides,
                                  void* stream) {
-  if (n < 1 || n > kMaxN || d < 1 || d > 32 || (d & (d - 1)) != 0 || h < 1 ||
-      batch < 1 || batch > 65535) {
+  if (dtype != 0 || n < 1 || n > kMaxN || d < 1 || d > 32 || (d & (d - 1)) != 0 ||
+      h < 1 || batch < 1 || batch > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int* sd = (const int*)seeds;
-  if (dtype == 0) {
-    dispatch<float>(q, k, v, bias, gate, out, sd, thresh, keep_scale, batch, n,
-                    d, h, strides, s);
-  } else if (dtype == 1) {
-    dispatch<__nv_bfloat16>(q, k, v, bias, gate, out, sd, thresh, keep_scale,
-                            batch, n, d, h, strides, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  dispatch<float>(q, k, v, bias, gate, out, (const int*)seeds, thresh, keep_scale, batch,
+                  n, d, h, strides, (cudaStream_t)stream);
   return (int)cudaGetLastError();
+}
+
+// bf16. q_t, k_t, v_t: head-major (batch, h, n, n, dp) contiguous copies of q
+// (its (b, h, j, i, d) view), k and v (their (b, h, j, k, d) views), dp 16 or
+// 32; out_t the same, the (b, h, j, i, d) view of va. bias, gate: (b, i, k, h)
+// with the element strides of their (b, h, i, k) axes in sb and sg; gate null
+// when ungated. Rows j go in chunks of jc. seeds as above. Returns the
+// launch's CUDA error (0 when it went out).
+extern "C" int triplet_dense_fwd_mma(const void* q_t, const void* k_t, const void* v_t,
+                                     const void* bias, const void* gate,
+                                     const long long* sb, const long long* sg, void* out_t,
+                                     const void* seeds, unsigned thresh, float keep_scale,
+                                     int batch, int n, int dp, int h, int jc, int chunks,
+                                     void* stream) {
+  using tfwd::bf16;
+  tfwd::Args a{};
+  a.q = (const bf16*)q_t;
+  a.k = (const bf16*)k_t;
+  a.v = (const bf16*)v_t;
+  a.bias = (const bf16*)bias;
+  a.gate = (const bf16*)(gate != nullptr ? gate : bias);
+  a.out = (bf16*)out_t;
+  for (int x = 0; x < 4; ++x) {
+    a.sb[x] = sb[x];
+    a.sg[x] = gate != nullptr ? sg[x] : sb[x];
+  }
+  a.seeds = (const int*)seeds;
+  a.thresh = thresh;
+  a.keep_scale = keep_scale;
+  a.scale = 1.f;                    // q comes pre-scaled
+  a.batch = batch;
+  a.h = h;
+  a.nj = n;
+  a.n = n;
+  a.dp = dp;
+  a.jc = jc;
+  a.chunks = chunks;
+  if (!tfwd::valid(a)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (gate != nullptr && seeds != nullptr) return tfwd::launch<true, true, true>(a, s);
+  if (gate != nullptr) return tfwd::launch<true, true, false>(a, s);
+  if (seeds != nullptr) return tfwd::launch<true, false, true>(a, s);
+  return tfwd::launch<true, false, false>(a, s);
+}
+
+// bf16, read in place (tfwd::inplace_fwd_kernel). q (b, i, j, d, h), k and v
+// (b, j, k, d, h), bias and gate (b, i, k, h) with the strides of the natural
+// layouts: strides holds the three outer element strides of q, k, v, bias and
+// gate; the (d, h) axes of q, k, v and the h axis of bias and gate are
+// contiguous, every piece of 8 heads 16-byte aligned. out: (b, j, i, d, h)
+// contiguous. Takes n <= 48, d of 8 or 16 and h a multiple of 8 (the wrapper
+// sends other shapes through triplet_dense_fwd_mma). Rows j go in chunks of
+// jc. Returns the launch's CUDA error (0 when it went out).
+extern "C" int triplet_dense_fwd_inplace(const void* q, const void* k, const void* v,
+                                         const void* bias, const void* gate, void* out,
+                                         const void* seeds, unsigned thresh,
+                                         float keep_scale, int batch, int n, int d, int h,
+                                         const long long* strides, int jc, int chunks,
+                                         void* stream) {
+  using tfwd::bf16;
+  tfwd::InPlaceArgs a{};
+  a.q = (const bf16*)q;
+  a.k = (const bf16*)k;
+  a.v = (const bf16*)v;
+  a.bias = (const bf16*)bias;
+  a.gate = (const bf16*)(gate != nullptr ? gate : bias);
+  a.out = (bf16*)out;
+  for (int x = 0; x < 3; ++x) {
+    a.sq[x] = strides[x];
+    a.sk[x] = strides[3 + x];
+    a.sv[x] = strides[6 + x];
+    a.sb[x] = strides[9 + x];
+    a.sg[x] = strides[12 + x];
+  }
+  a.seeds = (const int*)seeds;
+  a.thresh = thresh;
+  a.keep_scale = keep_scale;
+  a.batch = batch;
+  a.h = h;
+  a.n = n;
+  a.d = d;
+  a.jc = jc;
+  a.chunks = chunks;
+  if (!tfwd::valid_inplace(a)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (gate != nullptr && seeds != nullptr) return tfwd::launch_inplace<true, true>(a, s);
+  if (gate != nullptr) return tfwd::launch_inplace<true, false>(a, s);
+  if (seeds != nullptr) return tfwd::launch_inplace<false, true>(a, s);
+  return tfwd::launch_inplace<false, false>(a, s);
 }

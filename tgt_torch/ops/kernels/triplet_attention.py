@@ -7,7 +7,7 @@ Counterpart of ``tgt_tpu/ops/pallas/triplet_attention.py``, reached with
 ``tgt_torch/csrc/triplet_attention_fwd.cu`` and its ``_bwd_kernel`` is
 ``tgt_torch/csrc/triplet_attention_bwd.cu``; the custom VJP
 ``_triplet_core`` is :class:`TripletCore`. The kernels read the head-major
-layout in place.
+layout in place (a head narrower than 16 padded with zero columns in bf16).
 
 Contract of :func:`triplet_biased_attention` (and :func:`triplet_attention_fwd`):
   q_t, k_t, v_t  (b, h, Nj, N, d), contiguous, q not scaled
@@ -23,10 +23,11 @@ constant gate of 30.0, whose sigmoid is exactly 1.0 in float32.
 :func:`triplet_attention_bwd` takes the same inputs and the cotangent
 ``do`` and returns ``dq``, ``dk``, ``dv`` (contiguous, in q's dtype) and
 ``dbias``, ``dgate``, summed over j in float32 and cast to bias's dtype. In
-bf16 on the card it runs the tensor-core body shared with the dense pair
-(``tgt_torch/csrc/triplet_bwd_mma.cuh``), which rounds the weights to bf16
-before dv where ``_bwd_kernel`` keeps them in f32 (within the bf16
-tolerance of the checks); the plain version keeps tgt_tpu's f32 weights.
+bf16 on the card the forward and the backward run the tensor-core bodies
+shared with the dense pair (``tgt_torch/csrc/triplet_fwd_mma.cuh`` and
+``triplet_bwd_mma.cuh``). The backward takes dv from the f32 weights as
+``_bwd_kernel`` does (``triplet_attention.py:81-83``): its instantiation
+splits them into a bf16 high and low part and adds both products.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel,
 and what the kernel cannot take raises. There is no fallback.
@@ -43,6 +44,7 @@ from tgt_torch.ops.common import layernorm, linear
 from tgt_torch.ops.kernels._build import load_library
 from tgt_torch.ops.kernels.triplet_bwd_panel import (j_chunks, pad_head_dim,
                                                      padded_head_dim, sm_count)
+from tgt_torch.ops.kernels.triplet_fwd_panel import FWD_BLOCKS_PER_SM
 
 KERNEL_SOURCE = "tgt_torch/csrc/triplet_attention_fwd.cu"
 REPLACES = "tgt_tpu/ops/pallas/triplet_attention.py:35"
@@ -155,6 +157,15 @@ def _fwd_kernel():
 
 
 @functools.cache
+def _fwd_mma_kernel():
+    fn = load_library("triplet_attention_fwd").triplet_attention_fwd_mma
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_float]
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
 def _bwd_kernel():
     fn = load_library("triplet_attention_bwd").triplet_attention_bwd
     fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_float]
@@ -167,15 +178,37 @@ def _bwd_kernel():
 def _bwd_mma_kernel():
     fn = load_library("triplet_attention_bwd").triplet_attention_bwd_mma
     fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_float]
-                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _bwd_mma(q_t, k_t, v_t, bias, gate, do, scale):
+def _fwd_mma(q_t, k_t, v_t, bias, gate, scale):
+    """The bf16 forward: the tensor-core body shared with the dense pair
+    (``triplet_fwd_mma.cuh``: one launch) on the head-major panels in
+    place, a head narrower than 16 padded."""
+    b, h, nj, n, d = q_t.shape
+    dp = padded_head_dim(d)
+    q_p, k_p, v_p = (pad_head_dim(x, dp) for x in (q_t, k_t, v_t))
+    out = torch.empty_like(q_p)
+    jc, chunks = j_chunks(b * h, nj, sm_count(q_t.device), FWD_BLOCKS_PER_SM)
+    with torch.cuda.device(q_t.device):
+        rc = _fwd_mma_kernel()(
+            q_p.data_ptr(), k_p.data_ptr(), v_p.data_ptr(), bias.data_ptr(),
+            gate.data_ptr(), out.data_ptr(), scale, b, h, nj, n, dp, jc,
+            chunks, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"triplet_attention_fwd kernel launch failed with "
+                           f"CUDA error {rc}")
+    return out if dp == d else out[..., :d].contiguous()
+
+
+def _bwd_mma(q_t, k_t, v_t, bias, gate, do, scale, split_dv=True):
     """The bf16 backward: the tensor-core body shared with the dense pair
     (``triplet_bwd_mma.cuh``: one panel launch and one ordered reduction)
-    on the head-major panels in place, a head narrower than 16 padded."""
+    on the head-major panels in place, a head narrower than 16 padded; dv
+    from the weights' high and low bf16 parts (``split_dv=False``, dv from
+    the high part alone, only measures what the split costs)."""
     b, h, nj, n, d = q_t.shape
     dp = padded_head_dim(d)
     q_p, k_p, v_p, do_p = (pad_head_dim(x, dp) for x in (q_t, k_t, v_t, do))
@@ -190,7 +223,7 @@ def _bwd_mma(q_t, k_t, v_t, bias, gate, do, scale):
             gate.data_ptr(), do_p.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), dbias.data_ptr(), dgate.data_ptr(),
             partial.data_ptr(), scale, b, h, nj, n, dp, jc, chunks,
-            torch.cuda.current_stream().cuda_stream)
+            int(split_dv), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"triplet_attention_bwd kernel launch failed with "
                            f"CUDA error {rc}")
@@ -204,7 +237,9 @@ def triplet_attention_fwd(q_t: torch.Tensor, k_t: torch.Tensor,
                           gate: torch.Tensor, scale: float) -> torch.Tensor:
     """The legacy core's forward, with no gradient on the card: a caller
     that needs one takes :func:`triplet_biased_attention`. See the module
-    docstring for the contract."""
+    docstring for the contract. On the card, bf16 runs the tensor-core body
+    shared with the dense forward, f32 the CUDA-core kernel; either way one
+    call counts once."""
     _check(q_t, k_t, v_t, bias, gate)
     if q_t.device.type == "cpu":
         return triplet_core_fwd_reference(q_t, k_t, v_t, bias, gate, scale)
@@ -214,6 +249,10 @@ def triplet_attention_fwd(q_t: torch.Tensor, k_t: torch.Tensor,
         raise RuntimeError("triplet_attention_fwd returns no gradient on "
                            "the card; call triplet_biased_attention, which "
                            "differentiates through the backward kernel")
+    if q_t.dtype == torch.bfloat16:
+        out = _fwd_mma(q_t, k_t, v_t, bias, gate, scale)
+        triplet_attention_fwd.launches += 1
+        return out
     b, h, nj, n, d = q_t.shape
     out = torch.empty_like(q_t)
     with torch.cuda.device(q_t.device):

@@ -33,11 +33,12 @@ def pad_head_dim(x: torch.Tensor, dp: int) -> torch.Tensor:
     return out
 
 
-def j_chunks(pairs: int, nj: int, sms: int) -> Tuple[int, int]:
+def j_chunks(pairs: int, nj: int, sms: int,
+             per_sm: int = BLOCKS_PER_SM) -> Tuple[int, int]:
     """(rows j per chunk, chunks) for ``pairs`` (b, h) pairs of ``nj`` rows
-    on a card of ``sms`` SMs: as many chunks as fit one wave of
-    BLOCKS_PER_SM blocks per SM, at least one."""
-    want = max(1, min(nj, BLOCKS_PER_SM * sms // pairs))
+    on a card of ``sms`` SMs: as many chunks as fit one wave of ``per_sm``
+    blocks per SM, at least one."""
+    want = max(1, min(nj, per_sm * sms // pairs))
     jc = -(-nj // want)
     return jc, -(-nj // jc)
 
@@ -46,16 +47,28 @@ def sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def split_weights(a: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``hi + lo`` in f32, with hi = ``a`` rounded to ``dtype`` and lo = the
+    rest rounded to ``dtype``: the weights the legacy instantiation of the
+    body feeds dV in two products, within about 2^-16 of ``a`` in bf16."""
+    hi = a.to(dtype).float()
+    return hi + (a - hi).to(dtype).float()
+
+
 def panel_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias: torch.Tensor, gate: Optional[torch.Tensor],
                         dout: torch.Tensor, scale: float,
-                        keep: Optional[torch.Tensor] = None):
+                        keep: Optional[torch.Tensor] = None,
+                        split_dv: bool = False):
     """Plain version of the body on head-major panels: q, k, v, dout
     (b, h, nj, n, d), bias and gate (b, h, n, n) or ``gate=None``, ``keep``
-    the (b, h, nj, n, n) float keep mask or None. In f32 math, ds and the
-    weights a rounded to q's dtype before the dQ, dK and dV products as the
-    body rounds them. Returns ``(dq, dk, dv, dbias, dgate)`` in q's dtype;
-    ``dgate`` is None when ungated."""
+    the (b, h, nj, n, n) float keep mask or None. In f32 math, ds rounded to
+    q's dtype before the dQ and dK products as the body rounds it; the
+    weights a rounded once before dV (the dense instantiation), or with
+    ``split_dv`` split into a high and a low part (:func:`split_weights`,
+    the legacy instantiation, which keeps tgt_tpu's f32 weights). Returns
+    ``(dq, dk, dv, dbias, dgate)`` in q's dtype; ``dgate`` is None when
+    ungated."""
     s = (torch.einsum("bhjid,bhjkd->bhjik", q.float(), k.float()) * scale
          + bias.float()[:, :, None])
     pn = torch.softmax(s, dim=-1)
@@ -75,7 +88,8 @@ def panel_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dp = da
     ds = pn * (dp - (dp * pn).sum(-1, keepdim=True))
     dt = q.dtype
-    dsr, ar = ds.to(dt).float(), a.to(dt).float()
+    dsr = ds.to(dt).float()
+    ar = split_weights(a, dt) if split_dv else a.to(dt).float()
     dq = torch.einsum("bhjik,bhjkd->bhjid", dsr, k.float()) * scale
     dk = torch.einsum("bhjik,bhjid->bhjkd", dsr, q.float()) * scale
     dv = torch.einsum("bhjik,bhjid->bhjkd", ar, do32)

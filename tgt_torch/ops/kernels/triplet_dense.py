@@ -7,11 +7,14 @@ is ``tgt_torch/csrc/triplet_dense_fwd.cu`` and its ``_bwd_kernel`` is
 > 0; the custom VJP ``_dense_core`` is :class:`TripletDenseCore`. Each
 source note gives its kernel's bound on the H100 and its design. The TPU
 machinery (lane packing, ``JBLK`` j-padding, ``_pick_jblk`` VMEM budgets,
-the shard_map data mesh) has no counterpart: the forward and the f32
-backward read the natural ``(..., d, h)`` layouts in place; the bf16
-backward, the tensor-core body it shares with the legacy pair
-(``triplet_bwd_mma.cuh``), runs on head-major copies that
-:func:`to_head_major` makes, as ``_pack`` relayouts around the TPU kernel.
+the shard_map data mesh) has no counterpart: the f32 kernels read the
+natural ``(..., d, h)`` layouts in place; in bf16 the forward and the
+backward run the tensor-core bodies they share with the legacy pair
+(``triplet_fwd_mma.cuh``, ``triplet_bwd_mma.cuh``). The bf16 forward reads
+the natural layouts in place where :func:`reads_in_place` allows (8 heads
+per block, transposed in shared memory); otherwise, and in the backward,
+the bodies run on head-major copies that :func:`to_head_major` makes, as
+``_pack`` relayouts around the TPU kernels.
 
 Contract of :func:`triplet_dense` (and of :func:`triplet_dense_fwd`):
   q     (b, i, j, d, h), already scaled by d**-0.5
@@ -46,6 +49,7 @@ import torch
 from tgt_torch.ops.kernels._build import load_library
 from tgt_torch.ops.kernels.triplet_bwd_panel import (j_chunks, pad_head_dim,
                                                      padded_head_dim, sm_count)
+from tgt_torch.ops.kernels.triplet_fwd_panel import FWD_BLOCKS_PER_SM
 
 KERNEL_SOURCE = "tgt_torch/csrc/triplet_dense_fwd.cu"
 REPLACES = "tgt_tpu/ops/pallas/triplet_dense.py:222"
@@ -142,14 +146,29 @@ def triplet_dense_fwd_reference(q: torch.Tensor, k: torch.Tensor,
                                 seed: Optional[torch.Tensor] = None,
                                 rate: float = 0.0) -> torch.Tensor:
     """Plain version: the einsum form of ``tgt_tpu/ops/triplet.py:353-364``
-    without ``lin_O``, computed in float32 like the kernel and returned in
-    the input dtype; at rate > 0 the gated weights are multiplied by
-    :func:`dropout_mask` (softmax, gate, dropout, as ``_fwd_kernel:245-248``).
-    It materialises the (b, j, h, i, k) logits."""
-    a = dense_weights(q, k, bias, gate)
+    without ``lin_O``, computed in float32 and returned in the input dtype,
+    rounded where ``_fwd_kernel`` rounds (``triplet_dense.py:243-252``).
+    The unnormalised weights ``e = exp(s - max_k s)`` times sigmoid(gate)
+    and, at rate > 0, the :func:`dropout_mask` (softmax, gate, dropout, as
+    ``:245-248`` orders them) are rounded to the input dtype before the
+    product with V, as ``_dot`` casts its operands (``:179-182, 250``); the
+    product sums in f32 and is then multiplied by 1 / max(sum_k e, 1e-30).
+    The max is taken per (i, h), where the TPU kernel takes the cross-head
+    row max (``:207-212``), so bf16 results agree with it to bf16 rounding,
+    not bit for bit. In f32 the rounding is the identity: ``_plain_core``
+    (``ops/triplet.py``) takes this function at rate 0, and the plain path
+    still matches tgt_tpu's jnp path to 1e-5
+    (``tests/test_torch_port_triplet.py``). It materialises the (b, j, h,
+    i, k) logits."""
+    s = _logits(q, k, bias)
+    e = torch.exp(s - s.amax(-1, keepdim=True).detach())
+    a = e if gate is None else e * _gate(gate)
     if rate > 0.0:
         a = a * dropout_mask(seed, q.shape[1], q.shape[-1], rate)
-    return torch.einsum("bjhik,bjkdh->bjidh", a, v.float()).to(q.dtype)
+    dt = q.dtype
+    va = torch.einsum("bjhik,bjkdh->bjidh", a.to(dt).float(), v.float())
+    recip = 1.0 / e.sum(-1).clamp_min(1e-30)              # (b, j, h, i)
+    return (va * recip.permute(0, 1, 3, 2)[:, :, :, None]).to(dt)
 
 
 def triplet_dense_bwd_reference(q: torch.Tensor, k: torch.Tensor,
@@ -194,9 +213,10 @@ def triplet_dense_bwd_reference(q: torch.Tensor, k: torch.Tensor,
             None if dgate is None else dgate.to(dt))
 
 
-# The bf16 backward runs on head-major copies, as tgt_tpu's ``_pack``
-# relayouts around its kernel (``triplet_dense.py:334-346, 406-408``): the
-# permutations to (b, h, j, i|k, d) and (b, h, i, k).
+# The bf16 kernels run on head-major copies, as tgt_tpu's ``_pack``
+# relayouts around its kernels (``triplet_dense.py:334-346, 406-408``): the
+# permutations to (b, h, j, i|k, d) and (b, h, i, k). The forward's output
+# va (b, j, i, d, h) comes back from KV_ORDER.
 Q_ORDER = (0, 4, 2, 1, 3)      # q (b, i, j, d, h) -> (b, h, j, i, d)
 KV_ORDER = (0, 4, 1, 2, 3)     # k, v, dva (b, j, k, d, h) -> (b, h, j, k, d)
 PAIR_ORDER = (0, 3, 1, 2)      # bias, gate (b, i, k, h) -> (b, h, i, k)
@@ -296,6 +316,28 @@ def _fwd_kernel():
 
 
 @functools.cache
+def _fwd_mma_kernel():
+    fn = load_library("triplet_dense_fwd").triplet_dense_fwd_mma
+    fn.argtypes = ([ctypes.c_void_p] * 5
+                   + [ctypes.POINTER(ctypes.c_longlong)] * 2
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_uint, ctypes.c_float]
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _fwd_inplace_kernel():
+    fn = load_library("triplet_dense_fwd").triplet_dense_fwd_inplace
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_uint, ctypes.c_float]
+                   + [ctypes.c_int] * 4
+                   + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
 def _bwd_kernel():
     fn = load_library("triplet_dense_bwd").triplet_dense_bwd
     fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_uint, ctypes.c_float]
@@ -321,6 +363,73 @@ def _bwd_mma_kernel():
 def _pair_strides(t: torch.Tensor):
     """The element strides of a (b, i, k, h) tensor's (b, h, i, k) axes."""
     return (ctypes.c_longlong * 4)(*(t.stride(a) for a in PAIR_ORDER))
+
+
+def _fwd_mma(q, k, v, bias, gate, seed, rate):
+    """The bf16 forward: head-major copies of q, k and v in, the shared body
+    (``triplet_fwd_mma.cuh``: one launch), the head-major output moved
+    back; bias and gate read in place."""
+    b, n, _, d, h = q.shape
+    dp = padded_head_dim(d)
+    q_t = to_head_major(q, Q_ORDER, dp)
+    k_t, v_t = (to_head_major(x, KV_ORDER, dp) for x in (k, v))
+    out_t = torch.empty_like(q_t)
+    jc, chunks = j_chunks(b * h, n, sm_count(q.device), FWD_BLOCKS_PER_SM)
+    seeds, thresh, scale = _dropout_args(seed, rate)
+    with torch.cuda.device(q.device):
+        rc = _fwd_mma_kernel()(
+            q_t.data_ptr(), k_t.data_ptr(), v_t.data_ptr(), bias.data_ptr(),
+            None if gate is None else gate.data_ptr(), _pair_strides(bias),
+            _pair_strides(bias if gate is None else gate), out_t.data_ptr(),
+            seeds, thresh, scale, b, n, dp, h, jc, chunks,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"triplet_dense_fwd kernel launch failed with "
+                           f"CUDA error {rc}")
+    return from_head_major(out_t, KV_ORDER, d)
+
+
+# what the in-place loader takes (``triplet_fwd_mma.cuh``,
+# ``inplace_fwd_kernel``): its shared memory holds 8 heads up to n = 48 at a
+# head width of 8 or 16, and it copies 16-byte pieces of 8 heads
+INPLACE_GROUP = 8
+INPLACE_MAX_NODES = 48
+
+
+def reads_in_place(q, k, v, bias, gate) -> bool:
+    """Whether the bf16 forward reads this call's layouts in place: n <=
+    INPLACE_MAX_NODES, d of 8 or 16, H a multiple of 8, and every piece of
+    8 heads 16-byte aligned (data pointers and outer strides). Any other
+    shape goes through the head-major copies."""
+    b, n, _, d, h = q.shape
+    if n > INPLACE_MAX_NODES or d not in (8, 16) or h % INPLACE_GROUP:
+        return False
+    return all(t.data_ptr() % 16 == 0
+               and all(st % INPLACE_GROUP == 0 for st in t.stride()[:-1])
+               for t in (q, k, v, bias, gate) if t is not None)
+
+
+def _fwd_inplace(q, k, v, bias, gate, seed, rate):
+    """The bf16 forward on the natural layouts in place: one launch of the
+    body's in-place loader, one block per (b, 8 heads, chunk of j)."""
+    b, n, _, d, h = q.shape
+    out = torch.empty((b, n, n, d, h), dtype=q.dtype, device=q.device)
+    gate_or_bias = bias if gate is None else gate
+    strides = (ctypes.c_longlong * 15)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *bias.stride()[:3], *gate_or_bias.stride()[:3])
+    jc, chunks = j_chunks(b * h // INPLACE_GROUP, n, sm_count(q.device), 1)
+    seeds, thresh, scale = _dropout_args(seed, rate)
+    with torch.cuda.device(q.device):
+        rc = _fwd_inplace_kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            None if gate is None else gate.data_ptr(), out.data_ptr(), seeds,
+            thresh, scale, b, n, d, h, strides, jc, chunks,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"triplet_dense_fwd kernel launch failed with "
+                           f"CUDA error {rc}")
+    return out
 
 
 def _bwd_mma(q, k, v, bias, gate, dva, seed, rate):
@@ -372,7 +481,10 @@ def triplet_dense_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Gated (or, with ``gate=None``, ungated) dense triplet attention
     forward, with dropout at ``rate`` > 0 under the (b, 1) ``seed``, and no
     gradient on the card: a caller that needs one takes
-    :func:`triplet_dense`. See the module docstring for the contract."""
+    :func:`triplet_dense`. See the module docstring for the contract. On
+    the card, bf16 runs the tensor-core body shared with the legacy
+    forward, in place or on head-major copies, f32 the CUDA-core kernel;
+    either way one call counts once."""
     _check_shapes(q, k, v, bias, gate, seed=seed, rate=rate)
     if q.device.type == "cpu":
         return triplet_dense_fwd_reference(q, k, v, bias, gate, seed, rate)
@@ -382,6 +494,13 @@ def triplet_dense_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError("triplet_dense_fwd returns no gradient on the "
                            "card; call triplet_dense, which differentiates "
                            "through the backward kernel")
+    if q.dtype == torch.bfloat16:
+        if reads_in_place(q, k, v, bias, gate):
+            out = _fwd_inplace(q, k, v, bias, gate, seed, rate)
+        else:
+            out = _fwd_mma(q, k, v, bias, gate, seed, rate)
+        _count(triplet_dense_fwd, rate)
+        return out
     b, n, _, d, h = q.shape
     gate_or_bias = bias if gate is None else gate
     out = torch.empty((b, n, n, d, h), dtype=q.dtype, device=q.device)
