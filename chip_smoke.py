@@ -9,8 +9,9 @@ Phases, each of which fails the run (non-zero exit) on error:
    the build of the six CUDA kernel sources of the package from this
    checkout (``nvcc`` for sm_90a, one process per source, started
    together), with each kernel's ptxas report (registers and spill bytes
-   per function); a spill in either tensor-core body (the backward
-   ``triplet_bwd_mma.cuh``, the forward ``triplet_fwd_mma.cuh``) fails the
+   per function); a spill in any tensor-core body (the attention backward
+   ``triplet_bwd_mma.cuh``, the attention forward ``triplet_fwd_mma.cuh``,
+   the aggregate backward's body in ``triplet_aggregate_bwd.cu``) fails the
    run.
 2. Kernel against plain: ``triplet_dense_fwd`` against its plain PyTorch
    version on the card at b=16, N in {24, 40, 48, 56}, edge width 256,
@@ -48,10 +49,16 @@ Phases, each of which fails the run (non-zero exit) on error:
    fully masked sample; the out direction's pair-transposed V view at b=32
    in bf16 and f32. Tolerances as in 2. One JSON line per case with the
    kernel's, the plain version's and the library call's times
-   (``torch.einsum``) and the bound.
+   (``torch.einsum``) and the bound; at N=48 in bf16 (b=16 and b=32) also
+   their back-to-back device times (``device_ms``).
 2e. The aggregate backward against plain: dA and dV on the same cases with
-   a random cotangent, the transposed V included; two launches bitwise
-   equal; the library time is that of the two einsums of dA and dV.
+   a random cotangent, the transposed V included; each call takes the route
+   ``agg_bwd_route`` names (bf16: the tensor-core body; f32: the panel
+   route); two launches bitwise equal; the library time is that of the two
+   einsums of dA and dV. At N=48 in bf16 (b=16 and b=32): the back-to-back
+   device times of the kernel, its plain version and the einsums, and the
+   body and the panel route timed in turns on the same inputs, which must
+   agree within the bf16 tolerance.
 2f, 2g. The legacy pair (``use_pallas: true``) against its plain versions
    on phase 2's cases, both directions stacked on the head axis (2 x 16
    heads, head-major), ungated with the constant gate 30.0; tolerances,
@@ -102,11 +109,13 @@ Phases, each of which fails the run (non-zero exit) on error:
    48 forward launches per served forward (2 directions x 12 layers x 2
    applications); per training micro-batch 48 + 44 forward (the remat
    replay of the 11 inner layers, twice each) and 48 backward, 736 and 384
-   over the run.
+   over the run, every backward launch through the body
+   (``body_launches``).
 7. The kernels line (six kernels, launches by path, the dense pair's
    dropout launches and rate > 0 times, the ungated times and SDPA's at
-   b=16 and b=32), then ``{"ok": true, "device":
-   {...}}`` as the last line.
+   b=16 and b=32, the aggregate pair's back-to-back times and the
+   backward's two routes), then ``{"ok": true, "device": {...}}`` as the
+   last line.
 
 Each phase prints its wall seconds. Every JSON row is also appended to
 ``chiprun_out/chip_smoke_rows.jsonl``, which the run starts empty.
@@ -161,9 +170,10 @@ def emit(row: dict) -> None:
 
 
 # mangled-name prefixes of the tensor-core bodies' kernels, which must not
-# spill: the backward (tgt_torch/csrc/triplet_bwd_mma.cuh, namespace tbwd)
-# and the forward (triplet_fwd_mma.cuh, namespace tfwd)
-BODY_PREFIXES = ("_ZN4tbwd", "_ZN4tfwd")
+# spill: the attention backward (tgt_torch/csrc/triplet_bwd_mma.cuh,
+# namespace tbwd), the attention forward (triplet_fwd_mma.cuh, namespace
+# tfwd) and the aggregate backward (triplet_aggregate_bwd.cu, namespace tagb)
+BODY_PREFIXES = ("_ZN4tbwd", "_ZN4tfwd", "_ZN4tagb")
 
 
 def ptxas_report(log: str) -> list:
@@ -768,20 +778,45 @@ def aggregate_kernel_phase(card):
                "ok": ok, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": library_ms, "card": card}
+        if n == 48 and w == WIDTH and dtype == torch.bfloat16 and \
+                not transposed:
+            device_times(row, lambda: triplet_aggregate_fwd(a, v),
+                         lambda: triplet_aggregate_fwd_reference(a, v),
+                         lambda: torch.einsum("bikh,bjkdh->bjidh", a, v))
+            rows[b] = row
         emit(row)
         if not ok:
             fail(f"aggregate kernel disagrees with its plain version: {row}")
-        if n == 48 and w == WIDTH and dtype == torch.bfloat16 and \
-                not transposed:
-            rows[b] = row
         del a, v, out, ref
     return rows
+
+
+def agg_bwd_routes(a, v, dva, tol):
+    """The bf16 body and today's route of the aggregate backward on the same
+    inputs: per call in turns (body, panel, panel, body), back to back, and
+    the largest difference between their outputs against the tolerance."""
+    from tgt_torch.ops.kernels.triplet_aggregate import triplet_aggregate_bwd
+
+    def body():
+        return triplet_aggregate_bwd(a, v, dva)
+
+    def panel():
+        return triplet_aggregate_bwd(a, v, dva, _panel_route=True)
+
+    diff = [float((x.float() - y.float()).abs().max())
+            for x, y in zip(body(), panel())]
+    times = [time_ms(f) for f in (body, panel, panel, body)]
+    return {"ms_body": [times[0], times[3]],
+            "ms_panel_route": [times[1], times[2]],
+            "device_ms_panel_route": device_ms(panel),
+            "routes_max_abs_diff": diff,
+            "routes_agree": all(x <= t for x, t in zip(diff, tol))}
 
 
 def aggregate_backward_phase(card):
     """Phase 2e; returns the rows at (16, 48, bf16) and (32, 48, bf16)."""
     from tgt_torch.ops.kernels.triplet_aggregate import (
-        triplet_aggregate_bwd, triplet_aggregate_bwd_reference)
+        agg_bwd_route, triplet_aggregate_bwd, triplet_aggregate_bwd_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = {}
@@ -790,10 +825,13 @@ def aggregate_backward_phase(card):
         if transposed:
             v = v.transpose(1, 2)
         dva = torch.randn(v.shape, device="cuda", generator=gen).to(dtype)
+        route = agg_bwd_route(dtype, n, w // 16, 16, v.stride()[:3], True)
+        body_before = triplet_aggregate_bwd.body_launches
         got = triplet_aggregate_bwd(a, v, dva)
         torch.cuda.synchronize()
+        took_body = triplet_aggregate_bwd.body_launches > body_before
         ref = triplet_aggregate_bwd_reference(a, v, dva)
-        errs, ok = {}, True
+        errs, ok = {}, took_body == (route == "body")
         for name, g, r in zip(("da", "dv"), got, ref):
             err = float((g.float() - r.float()).abs().max())
             tol = KERNEL_TOL[dtype] * float(r.float().abs().max())
@@ -801,28 +839,37 @@ def aggregate_backward_phase(card):
             ok &= bool(torch.isfinite(g.float()).all()) and err <= tol
         again = triplet_aggregate_bwd(a, v, dva)
         same = all(torch.equal(x, y) for x, y in zip(got, again))
+
+        def einsums():
+            return (torch.einsum("bjidh,bjkdh->bikh", dva, v),
+                    torch.einsum("bikh,bjidh->bjkdh", a, dva))
+
         ms = time_ms(lambda: triplet_aggregate_bwd(a, v, dva))
         plain_ms = time_ms(lambda: triplet_aggregate_bwd_reference(a, v, dva))
-        library_ms = time_ms(lambda: (
-            torch.einsum("bjidh,bjkdh->bikh", dva, v),
-            torch.einsum("bikh,bjidh->bjkdh", a, dva)))
+        library_ms = time_ms(einsums)
         bound_ms, bound_by = agg_bound((a, v, dva, *got), 4.0, dtype)
         row = {"case": "triplet_aggregate_bwd", "b": b, "n": n,
                "edge_width": w, "heads": 16, "dtype": dtype_name(dtype),
-               "transposed_v": transposed, "errs": errs,
+               "transposed_v": transposed, "route": route, "errs": errs,
                "max_abs_err": max(e for e, _ in errs.values()), "ok": ok,
                "bitwise_equal": same, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": library_ms, "card": card}
-        emit(row)
-        if not ok:
-            fail(f"aggregate backward disagrees with its plain version: "
-                 f"{row}")
-        if not same:
-            fail(f"two aggregate backward launches differ: {row}")
         if n == 48 and w == WIDTH and dtype == torch.bfloat16 and \
                 not transposed:
+            row.update(agg_bwd_routes(a, v, dva,
+                                      [t for _, t in errs.values()]))
+            device_times(row, lambda: triplet_aggregate_bwd(a, v, dva),
+                         lambda: triplet_aggregate_bwd_reference(a, v, dva),
+                         einsums)
+            ok &= row["routes_agree"]
             rows[b] = row
+        emit(row)
+        if not ok:
+            fail(f"aggregate backward disagrees with its plain version or "
+                 f"took another route: {row}")
+        if not same:
+            fail(f"two aggregate backward launches differ: {row}")
         del a, v, dva, got, ref, again
     return rows
 
@@ -1038,7 +1085,9 @@ class ModelSpec(NamedTuple):
     wrappers of the kernels its triplet layers launch, the counter that
     counts them (``dropout_launches`` for the dense pair at rate > 0), and
     the launches of each wrapper per layer application (2: one per
-    direction; 1: the legacy pair serves both directions in one launch)."""
+    direction; 1: the legacy pair serves both directions in one launch), and
+    the backward wrapper's counter of the calls that must all take its
+    tensor-core body (``body_launches`` of the aggregate backward), if any."""
     name: str
     yaml: str
     overrides: dict
@@ -1046,6 +1095,7 @@ class ModelSpec(NamedTuple):
     bwd: Callable
     counter: str = "launches"
     per_layer: int = 2
+    body_counter: str = ""
 
     def launches(self, wrapper) -> int:
         return getattr(wrapper, self.counter)
@@ -1062,6 +1112,7 @@ def kernel_counters():
             (td.triplet_dense_bwd, "dropout_launches"),
             (ta.triplet_aggregate_fwd, "launches"),
             (ta.triplet_aggregate_bwd, "launches"),
+            (ta.triplet_aggregate_bwd, "body_launches"),
             (tl.triplet_attention_fwd, "launches"),
             (tl.triplet_attention_bwd, "launches")]
 
@@ -1073,7 +1124,8 @@ def reset_counts() -> None:
 
 def check_only(spec: ModelSpec) -> None:
     """The path launched no kernel but its own, counted by its counter."""
-    own = ((spec.fwd, spec.counter), (spec.bwd, spec.counter))
+    own = ((spec.fwd, spec.counter), (spec.bwd, spec.counter),
+           (spec.bwd, spec.body_counter))
     others = {f"{w.__name__}.{a}": getattr(w, a)
               for w, a in kernel_counters()
               if (w, a) not in own and getattr(w, a)}
@@ -1305,12 +1357,16 @@ def training_phase(card, spec: ModelSpec):
     torch.cuda.synchronize()
     launches = {"fwd": spec.launches(spec.fwd),
                 "bwd": spec.launches(spec.bwd)}  # the main path ends
+    if spec.body_counter:
+        launches["bwd_body"] = getattr(spec.bwd, spec.body_counter)
     check_only(spec)
     n_steps = len(steps)
     per_micro = spec.per_layer * cfg.model_height * cfg.layer_multiplier
     replay = per_micro - spec.per_layer * cfg.layer_multiplier  # remat
     expect = {"fwd": n_steps * trainer.grad_accum * (per_micro + replay),
               "bwd": n_steps * trainer.grad_accum * per_micro}
+    if spec.body_counter:            # every backward call took the body
+        expect["bwd_body"] = expect["bwd"]
     ends = [start] + [e for _, e in steps]
     step_ms = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
     losses = [float(m["loss"]) for m, _ in steps]
@@ -1446,7 +1502,8 @@ def main() -> int:
                      tl.triplet_attention_fwd, tl.triplet_attention_bwd,
                      per_layer=1)
     agx2 = ModelSpec("TGT-Agx2", AGX2_YAML, {"use_pallas": "dense"},
-                     ta.triplet_aggregate_fwd, ta.triplet_aggregate_bwd)
+                     ta.triplet_aggregate_fwd, ta.triplet_aggregate_bwd,
+                     body_counter="body_launches")
 
     dense = phase("2 attention fwd kernel", kernel_phase, card)
     dense_bwd = phase("2b attention bwd kernel", backward_kernel_phase, card)
@@ -1496,6 +1553,15 @@ def main() -> int:
                                 "bound_by", "library_ms")}})
         return out
 
+    def with_device(out, rows, **extra):
+        """The back-to-back device times at b=16 and b=32 (N=48, bf16) of
+        the kernel, its plain version and its library call."""
+        out.update(extra, device_ms={
+            f"b{b}": {k: row[k] for k in (
+                "device_ms", "plain_device_ms", "library_device_ms")}
+            for b, row in rows.items()})
+        return out
+
     d_serve, d_train = served[at_d.name], trained[at_d.name]
     print(f"card: {card}", flush=True)
     emit({"kernels": [
@@ -1512,11 +1578,17 @@ def main() -> int:
             dense_bwd[FLAGSHIP], dense_bwd[UNGATED],
             dense_bwd[UNGATED_TRAIN]),
             drop["bwd"], {"training": d_train["bwd"]}),
-        entry("triplet_aggregate_fwd", ta.KERNEL_SOURCE, ta.REPLACES,
-              {"serving": served[agx2.name],
-               "training": trained[agx2.name]["fwd"]}, agg[16]),
-        entry("triplet_aggregate_bwd", ta.BWD_KERNEL_SOURCE, ta.BWD_REPLACES,
-              {"training": trained[agx2.name]["bwd"]}, agg_bwd[16]),
+        with_device(entry(
+            "triplet_aggregate_fwd", ta.KERNEL_SOURCE, ta.REPLACES,
+            {"serving": served[agx2.name],
+             "training": trained[agx2.name]["fwd"]}, agg[16]), agg),
+        with_device(entry(
+            "triplet_aggregate_bwd", ta.BWD_KERNEL_SOURCE, ta.BWD_REPLACES,
+            {"training": trained[agx2.name]["bwd"]}, agg_bwd[16]), agg_bwd,
+            body_launches=trained[agx2.name]["bwd_body"],
+            panel_route={f"b{b}": {k: row[k] for k in (
+                "ms_body", "ms_panel_route", "device_ms_panel_route")}
+                for b, row in agg_bwd.items()}),
         entry("triplet_attention_fwd", tl.KERNEL_SOURCE, tl.REPLACES,
               {"serving": served[at_l.name],
                "training": trained[at_l.name]["fwd"]},

@@ -17,5 +17,11 @@ does, and ``triplet_attention.TripletCore`` the legacy pair as
 ``_triplet_core`` does. Every Pallas kernel of tgt_tpu has its counterpart
 here. In bf16 the two triplet-attention backwards run one body on the tensor
 cores (``csrc/triplet_bwd_mma.cuh``, whose plain version and launch helpers
-are ``triplet_bwd_panel``); in f32 they keep their CUDA-core kernels.
+are ``triplet_bwd_panel``), and so do the two forwards
+(``csrc/triplet_fwd_mma.cuh``); in f32 they keep their CUDA-core kernels.
+The aggregate backward has two routes, chosen by shape
+(``triplet_aggregate.agg_bwd_route``): in bf16 one tensor-core pass with no
+workspace (its partition in plain PyTorch is
+``triplet_aggregate.agg_bwd_body_reference``), in f32 and at shapes outside
+the body three CUDA-core kernels.
 """

@@ -3,14 +3,25 @@ versions, and the autograd function that joins forward and backward.
 
 Counterpart of the aggregate part of ``tgt_tpu/ops/pallas/triplet_dense.py``
 (``:448-540``): its ``_agg_fwd_kernel`` is
-``tgt_torch/csrc/triplet_aggregate_fwd.cu`` and its ``_agg_bwd_kernel`` is
-``tgt_torch/csrc/triplet_aggregate_bwd.cu`` (both built on the panel loop of
-``triplet_aggregate_panel.cuh``: tensor cores in bf16, CUDA cores in f32);
-the custom VJP ``_agg_core`` is :class:`TripletAggregateCore`. Only the O(N^3) k-aggregation runs in a
-kernel: the N^2 weights (softmax, gate, dropout) are computed by the caller,
-as ``triplet_aggregate_dense`` computes them. The TPU machinery (lane
-packing, ``JBLK`` j-padding, ``_pick_jblk``, ``dense_unsupported_reason``)
-has no counterpart.
+``tgt_torch/csrc/triplet_aggregate_fwd.cu`` (on the panel loop of
+``triplet_aggregate_panel.cuh``: tensor cores in bf16, CUDA cores in f32) and
+its ``_agg_bwd_kernel`` is ``tgt_torch/csrc/triplet_aggregate_bwd.cu``, which
+has two routes, chosen by :func:`agg_bwd_route` from the call's shapes:
+
+- ``"body"``: bf16 with H a multiple of 8, d a multiple of 8 up to 32,
+  n <= 64 (128 at d <= 16) and 16-byte pieces of 8 heads: one tensor-core
+  launch, one block per (b, 8 or 16 heads, 16 rows k) walking j in order,
+  no workspace (:func:`agg_bwd_body_reference` is its partition in plain
+  PyTorch, :func:`agg_bwd_heads_per_block` picks the heads per block);
+- ``"panel"``: f32 (the tensor cores' TF32 keeps too few bits) and any other
+  bf16 shape: dA on CUDA cores in chunks of ``J_CHUNK`` rows j through a
+  float32 workspace, their ordered reduction, and dV on the panel loop.
+
+The custom VJP ``_agg_core`` is :class:`TripletAggregateCore`. Only the
+O(N^3) k-aggregation runs in a kernel: the N^2 weights (softmax, gate,
+dropout) are computed by the caller, as ``triplet_aggregate_dense`` computes
+them. The TPU machinery (lane packing, ``JBLK`` j-padding, ``_pick_jblk``,
+``dense_unsupported_reason``) has no counterpart.
 
 Contract of :func:`triplet_aggregate_fwd`:
   a     (b, i, k, h), the weights
@@ -21,7 +32,8 @@ Contract of :func:`triplet_aggregate_fwd`:
 
 :func:`triplet_aggregate_bwd` takes the same inputs and the cotangent ``dva``
 (b, j, i, d, h) and returns ``da`` (b, i, k, h), summed over j and d in
-float32 and cast to a's dtype, and ``dv`` (b, j, k, d, h), contiguous.
+float32 in a fixed order and cast to a's dtype, and ``dv`` (b, j, k, d, h),
+contiguous; both routes are bitwise deterministic on repeat.
 
 a and v share one dtype (float32 or bfloat16). A CPU tensor goes to the
 plain version; a CUDA tensor goes to the kernel, and what the kernel cannot
@@ -36,6 +48,7 @@ from typing import Tuple
 import torch
 
 from tgt_torch.ops.kernels._build import load_library
+from tgt_torch.ops.kernels.triplet_bwd_panel import sm_count
 
 KERNEL_SOURCE = "tgt_torch/csrc/triplet_aggregate_fwd.cu"
 REPLACES = "tgt_tpu/ops/pallas/triplet_dense.py:453"
@@ -44,7 +57,10 @@ BWD_REPLACES = "tgt_tpu/ops/pallas/triplet_dense.py:468"
 
 MAX_NODES = 128
 MAX_SHARED_BYTES = 232448         # shared memory one block may use on Hopper
-J_CHUNK = 12                      # rows j per partial sum of the dA kernel
+J_CHUNK = 12                      # rows j per partial sum of the panel route's dA
+BODY_GROUP = 8                    # heads per 16-byte piece: one block, one warp each
+BODY_K_TILE = 16                  # rows k per block of the body
+BODY_MAX_D = 32
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -68,6 +84,61 @@ def triplet_aggregate_bwd_reference(a: torch.Tensor, v: torch.Tensor,
     return da.to(a.dtype), dv.to(v.dtype)
 
 
+def agg_bwd_body_reference(a: torch.Tensor, v: torch.Tensor,
+                           dva: torch.Tensor, k_tile: int = BODY_K_TILE
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward body's partition in plain PyTorch: for each group of
+    ``BODY_GROUP`` heads and each tile of ``k_tile`` rows k (one block of the
+    kernel), walk j in order, add ``dva_j V_j^T`` to the tile of dA in
+    float32 and write the tile of ``dV_j = A^T dva_j``; the tile of dA is
+    cast to a's dtype once, after the last j."""
+    b, n, _, d, h = v.shape
+    a32, v32, g32 = a.float(), v.float(), dva.float()
+    da = torch.empty((b, n, n, h), dtype=a.dtype, device=a.device)
+    dv = torch.empty((b, n, n, d, h), dtype=v.dtype, device=v.device)
+    for h0 in range(0, h, BODY_GROUP):
+        hs = slice(h0, min(h, h0 + BODY_GROUP))
+        for k0 in range(0, n, k_tile):
+            ks = slice(k0, min(n, k0 + k_tile))
+            a_tile = a32[:, :, ks, hs]                        # (b, i, k, h)
+            acc = torch.zeros_like(a_tile)
+            for j in range(n):
+                g_j = g32[:, j, :, :, hs]                     # (b, i, d, h)
+                acc += torch.einsum("bidh,bkdh->bikh", g_j, v32[:, j, ks, :, hs])
+                dv[:, j, ks, :, hs] = torch.einsum(
+                    "bikh,bidh->bkdh", a_tile, g_j).to(v.dtype)
+            da[:, :, ks, hs] = acc.to(a.dtype)
+    return da, dv
+
+
+def agg_bwd_route(dtype: torch.dtype, n: int, d: int, h: int,
+                  v_strides: Tuple[int, int, int], aligned: bool) -> str:
+    """Which route of ``triplet_aggregate_bwd.cu`` a call takes: ``"body"``
+    (the bf16 tensor-core body) for bf16 with H a multiple of
+    ``BODY_GROUP``, d a multiple of 8 up to ``BODY_MAX_D``, n <= 64 (n <=
+    MAX_NODES at d <= 16, where the body's double-buffered tiles still fit
+    shared memory), V's three outer strides (elements) multiples of 8 and
+    every data pointer 16-byte ``aligned``, so that 8 heads of one (row, d)
+    are one 16-byte piece; ``"panel"`` (the CUDA-core dA and panel dV)
+    otherwise."""
+    if (dtype == torch.bfloat16 and h % BODY_GROUP == 0 and d % 8 == 0
+            and d <= BODY_MAX_D and (n <= 64 or (n <= MAX_NODES and d <= 16))
+            and aligned and all(s % 8 == 0 for s in v_strides)):
+        return "body"
+    return "panel"
+
+
+def agg_bwd_heads_per_block(b: int, n: int, d: int, h: int, sms: int) -> int:
+    """Heads per block of the body: 16 (a block's rows are contiguous in
+    memory, read by bulk copies; 16 warps) where H = 16, n <= 48, d <= 16
+    and the ``b * ceil(n / 16)`` such blocks give at least half the card's
+    ``sms`` one each; else 8 (twice the blocks, 16-byte pieces read by
+    cp.async)."""
+    if h == 16 and n <= 48 and d <= 16 and 2 * b * -(-n // BODY_K_TILE) >= sms:
+        return 16
+    return BODY_GROUP
+
+
 def _check_shapes(a, v, dva=None) -> None:
     if v.dim() != 5:
         raise ValueError(f"v must be (b, j, k, d, h), got shape "
@@ -88,19 +159,21 @@ def _check_shapes(a, v, dva=None) -> None:
 
 
 def shared_bytes(n: int, d: int, h: int, itemsize: int) -> int:
-    """Shared memory of the largest CUDA-core block the two sources launch:
-    the panel loop (8 rows of weights in f32, padded to 12 floats per (k, h),
-    and one (n, d*h) panel in the storage type) and the dA loop (8 rows of
-    dva laid out the same way, and the V rows of 256 (k, h) columns, padded
-    by h, in f32). The bf16 tensor-core panel loop runs only where its own
-    tiles fit, and the CUDA-core loop otherwise."""
+    """Shared memory of the largest CUDA-core block that the forward and the
+    backward's panel route launch: the panel loop (8 rows of weights in f32,
+    padded to 12 floats per (k, h), and one (n, d*h) panel in the storage
+    type) and the dA loop (8 rows of dva laid out the same way, and the V
+    rows of 256 (k, h) columns, padded by h, in f32). The bf16 tensor-core
+    panel loop runs only where its own tiles fit, and the CUDA-core loop
+    otherwise. The backward's body fits at every shape it takes."""
     panel = 4 * 12 * n * h + itemsize * n * d * h
     v_rows = min(n, -(-256 // h) + 1)
     return max(panel, 4 * (12 * d * h + v_rows * (d * h + h)))
 
 
-def _check_kernel_limits(v) -> None:
-    """What both kernels take; raises on anything else."""
+def _check_kernel_limits(v, route: str = "panel") -> None:
+    """What the forward and the backward's ``route`` take; raises on
+    anything else."""
     if v.device.type != "cuda":
         raise ValueError(f"the aggregate kernels run on cpu or cuda, not "
                          f"{v.device}")
@@ -109,6 +182,11 @@ def _check_kernel_limits(v) -> None:
         raise TypeError(f"the kernel takes float32 or bfloat16, not {v.dtype}")
     if n > MAX_NODES:
         raise ValueError(f"the kernel takes at most {MAX_NODES} nodes, got {n}")
+    if v.stride(4) != 1 or v.stride(3) != h:
+        raise ValueError(f"v's (d, h) axes must be contiguous, strides "
+                         f"{v.stride()}")
+    if route == "body":
+        return
     need = shared_bytes(n, d, h, v.element_size())
     if need > MAX_SHARED_BYTES:
         raise ValueError(f"N={n}, d={d}, H={h} needs {need} bytes of shared "
@@ -117,9 +195,6 @@ def _check_kernel_limits(v) -> None:
     if b * -(-n // J_CHUNK) > 65535:
         raise ValueError(f"the kernel takes at most 65535 (batch row, chunk "
                          f"of {J_CHUNK} j) pairs, got b={b}, N={n}")
-    if v.stride(4) != 1 or v.stride(3) != h:
-        raise ValueError(f"v's (d, h) axes must be contiguous, strides "
-                         f"{v.stride()}")
 
 
 @functools.cache
@@ -135,6 +210,15 @@ def _fwd_kernel():
 def _bwd_kernel():
     fn = load_library("triplet_aggregate_bwd").triplet_aggregate_bwd
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_body_kernel():
+    fn = load_library("triplet_aggregate_bwd").triplet_aggregate_bwd_body
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -170,20 +254,28 @@ def triplet_aggregate_fwd(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 triplet_aggregate_fwd.launches = 0  # kernel launches, read by chip_smoke.py
 
 
-def triplet_aggregate_bwd(a: torch.Tensor, v: torch.Tensor,
-                          dva: torch.Tensor
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Gradients ``(da, dv)`` of the forward given the cotangent ``dva``.
-    One call launches the backward's three kernels and counts once; dA's
-    partial sums over chunks of ``J_CHUNK`` rows j go through a float32
-    workspace."""
-    _check_shapes(a, v, dva)
-    if v.device.type == "cpu":
-        return triplet_aggregate_bwd_reference(a, v, dva)
-    _check_kernel_limits(v)
-    dva = dva.contiguous()
+def _bwd_body(a, v, dva, heads_per_block=None):
+    """The body: one launch, no workspace. a and dva contiguous."""
     b, n, _, d, h = v.shape
-    a = a.contiguous()
+    if heads_per_block is None:
+        heads_per_block = agg_bwd_heads_per_block(b, n, d, h,
+                                                  sm_count(v.device))
+    da = torch.empty((b, n, n, h), dtype=a.dtype, device=v.device)
+    dv = torch.empty((b, n, n, d, h), dtype=v.dtype, device=v.device)
+    strides = (ctypes.c_longlong * 3)(*v.stride()[:3])
+    with torch.cuda.device(v.device):
+        rc = _bwd_body_kernel()(a.data_ptr(), v.data_ptr(), dva.data_ptr(),
+                                da.data_ptr(), dv.data_ptr(), b, n, d, h,
+                                heads_per_block, strides,
+                                torch.cuda.current_stream().cuda_stream)
+    return rc, da, dv
+
+
+def _bwd_panel(a, v, dva):
+    """Today's route: dA's partial sums over chunks of ``J_CHUNK`` rows j
+    through a float32 workspace, their ordered reduction, and dV on the
+    panel loop; three kernels. a and dva contiguous."""
+    b, n, _, d, h = v.shape
     da = torch.empty((b, n, n, h), dtype=a.dtype, device=v.device)
     dv = torch.empty((b, n, n, d, h), dtype=v.dtype, device=v.device)
     workspace = torch.empty((-(-n // J_CHUNK), b, n, n, h),
@@ -194,14 +286,42 @@ def triplet_aggregate_bwd(a: torch.Tensor, v: torch.Tensor,
                            da.data_ptr(), dv.data_ptr(), workspace.data_ptr(),
                            _DTYPE_CODES[v.dtype], b, n, d, h, J_CHUNK,
                            strides, torch.cuda.current_stream().cuda_stream)
+    return rc, da, dv
+
+
+def triplet_aggregate_bwd(a: torch.Tensor, v: torch.Tensor,
+                          dva: torch.Tensor, *, _panel_route: bool = False
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gradients ``(da, dv)`` of the forward given the cotangent ``dva``,
+    through the route :func:`agg_bwd_route` picks; one call counts once in
+    ``launches``, and once more in ``body_launches`` when it took the body.
+    ``_panel_route`` sends a call through today's route whatever its shape
+    (``chip_smoke.py`` times the two routes against each other)."""
+    _check_shapes(a, v, dva)
+    if v.device.type == "cpu":
+        return triplet_aggregate_bwd_reference(a, v, dva)
+    a, dva = a.contiguous(), dva.contiguous()
+    b, n, _, d, h = v.shape
+    route = "panel" if _panel_route else agg_bwd_route(
+        v.dtype, n, d, h, v.stride()[:3],
+        all(t.data_ptr() % 16 == 0 for t in (a, v, dva)))
+    _check_kernel_limits(v, route)
+    if route == "body":
+        rc, da, dv = _bwd_body(a, v, dva)
+    else:
+        rc, da, dv = _bwd_panel(a, v, dva)
     if rc != 0:
-        raise RuntimeError(f"triplet_aggregate_bwd kernel launch failed with "
-                           f"CUDA error {rc}")
+        raise RuntimeError(f"triplet_aggregate_bwd ({route} route) launch "
+                           f"failed with CUDA error {rc}")
     triplet_aggregate_bwd.launches += 1
+    if route == "body":
+        triplet_aggregate_bwd.body_launches += 1
     return da, dv
 
 
-triplet_aggregate_bwd.launches = 0  # one per call on the card, read by chip_smoke.py
+# calls on the card, and those of them that took the body; read by chip_smoke.py
+triplet_aggregate_bwd.launches = 0
+triplet_aggregate_bwd.body_launches = 0
 
 
 class TripletAggregateCore(torch.autograd.Function):

@@ -23,7 +23,8 @@ traces, with ``torch.profiler`` after a warm-up:
 Prints JSON lines: the wall time per forward or step, the device busy share
 of the window (sum of kernel times over the wall time, so the rest is the
 device idle while the host enqueues), the kernels that take the most device
-time, and the launches per forward or step.
+time, the launches per forward or step, and the device time of each of the
+package's own CUDA kernels.
 """
 from __future__ import annotations
 
@@ -37,6 +38,9 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# name fragments of the package's own CUDA kernels (tgt_torch/csrc), listed
+# apart from the top kernels whatever their rank
+OWN_KERNELS = ("triplet", "agg_", "tagb::", "tfwd::", "tbwd::")
 FLAGSHIP_YAML = os.path.join(
     REPO, "configs", "pcqm", "tgt_at_200m", "dist_pred", "tgt_at_dp_rdkit.yaml")
 
@@ -177,6 +181,12 @@ def main() -> int:
                               e.self_device_time_total / 1e3 / args.steps,
                           "share": e.self_device_time_total / device_us}),
               flush=True)
+    own = {}
+    for e in kernels:
+        if any(t in e.key for t in OWN_KERNELS):
+            own[e.key[:90]] = {"calls": e.count, "device_ms_per_step":
+                               e.self_device_time_total / 1e3 / args.steps}
+    print(json.dumps({"package_kernels": own}), flush=True)
     if args.path == "serve":
         out_dir = os.path.join(REPO, "chiprun_out")
         os.makedirs(out_dir, exist_ok=True)
