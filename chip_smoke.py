@@ -11,8 +11,8 @@ Phases, each of which fails the run (non-zero exit) on error:
    together), with each kernel's ptxas report (registers and spill bytes
    per function); a spill in any tensor-core body (the attention backward
    ``triplet_bwd_mma.cuh``, the attention forward ``triplet_fwd_mma.cuh``,
-   the aggregate backward's body in ``triplet_aggregate_bwd.cu``) fails the
-   run.
+   the aggregate bodies in ``triplet_aggregate_bwd.cu`` and
+   ``triplet_aggregate_fwd.cu``) fails the run.
 2. Kernel against plain: ``triplet_dense_fwd`` against its plain PyTorch
    version on the card at b=16, N in {24, 40, 48, 56}, edge width 256,
    16 triplet heads; gated and ungated; bf16 and f32; plus the training
@@ -47,10 +47,15 @@ Phases, each of which fails the run (non-zero exit) on error:
    56}, edge width 256, 16 triplet heads, bf16 and f32, the training
    micro-batch (b=32, N=48, bf16) and the F3 shapes, with a padded and a
    fully masked sample; the out direction's pair-transposed V view at b=32
-   in bf16 and f32. Tolerances as in 2. One JSON line per case with the
-   kernel's, the plain version's and the library call's times
-   (``torch.einsum``) and the bound; at N=48 in bf16 (b=16 and b=32) also
-   their back-to-back device times (``device_ms``).
+   in bf16 and f32. Tolerances as in 2. Each call takes the route
+   ``agg_fwd_route`` names (bf16 up to N=56: the tensor-core body; f32 and
+   N=80/128: the panel route); two launches bitwise equal. One JSON line
+   per case with the kernel's, the plain version's and the library call's
+   times (``torch.einsum``) and the bound; at N=48 in bf16 (b=16 and b=32)
+   also their back-to-back device times (``device_ms``), the body and the
+   panel route timed in turns on the same inputs, which must agree within
+   the bf16 tolerance, and the body's device time at the partition
+   ``agg_fwd_blocks`` picks and at its neighbours.
 2e. The aggregate backward against plain: dA and dV on the same cases with
    a random cotangent, the transposed V included; each call takes the route
    ``agg_bwd_route`` names (bf16: the tensor-core body; f32: the panel
@@ -109,12 +114,13 @@ Phases, each of which fails the run (non-zero exit) on error:
    48 forward launches per served forward (2 directions x 12 layers x 2
    applications); per training micro-batch 48 + 44 forward (the remat
    replay of the 11 inner layers, twice each) and 48 backward, 736 and 384
-   over the run, every backward launch through the body
-   (``body_launches``).
+   over the run; every bf16 forward and backward launch of the served and
+   trained paths through the bodies (``body_launches``), and the f32
+   forwards of 6b through the panel route.
 7. The kernels line (six kernels, launches by path, the dense pair's
    dropout launches and rate > 0 times, the ungated times and SDPA's at
-   b=16 and b=32, the aggregate pair's back-to-back times and the
-   backward's two routes), then ``{"ok": true, "device": {...}}`` as the
+   b=16 and b=32, the aggregate pair's back-to-back times, body launches
+   and two routes), then ``{"ok": true, "device": {...}}`` as the
    last line.
 
 Each phase prints its wall seconds. Every JSON row is also appended to
@@ -172,8 +178,9 @@ def emit(row: dict) -> None:
 # mangled-name prefixes of the tensor-core bodies' kernels, which must not
 # spill: the attention backward (tgt_torch/csrc/triplet_bwd_mma.cuh,
 # namespace tbwd), the attention forward (triplet_fwd_mma.cuh, namespace
-# tfwd) and the aggregate backward (triplet_aggregate_bwd.cu, namespace tagb)
-BODY_PREFIXES = ("_ZN4tbwd", "_ZN4tfwd", "_ZN4tagb")
+# tfwd), the aggregate backward (triplet_aggregate_bwd.cu, namespace tagb)
+# and the aggregate forward (triplet_aggregate_fwd.cu, namespace tagf)
+BODY_PREFIXES = ("_ZN4tbwd", "_ZN4tfwd", "_ZN4tagb", "_ZN4tagf")
 
 
 def ptxas_report(log: str) -> list:
@@ -748,10 +755,54 @@ def dtype_name(dtype):
     return str(dtype).replace("torch.", "")
 
 
+def agg_fwd_routes(a, v, tol):
+    """The bf16 body and the panel route of the aggregate forward on the
+    same inputs: per call in turns (body, panel, panel, body), back to back,
+    and the largest difference between their outputs against the
+    tolerance."""
+    from tgt_torch.ops.kernels.triplet_aggregate import triplet_aggregate_fwd
+
+    def body():
+        return triplet_aggregate_fwd(a, v)
+
+    def panel():
+        return triplet_aggregate_fwd(a, v, _panel_route=True)
+
+    diff = float((body().float() - panel().float()).abs().max())
+    times = [time_ms(f) for f in (body, panel, panel, body)]
+    return {"ms_body": [times[0], times[3]],
+            "ms_panel_route": [times[1], times[2]],
+            "device_ms_panel_route": device_ms(panel),
+            "routes_max_abs_diff": diff, "routes_agree": diff <= tol}
+
+
+def agg_fwd_partitions(a, v, ref, tol):
+    """Back-to-back device times of the forward body at the partition
+    ``agg_fwd_blocks`` picks and at its neighbours (half and twice the rows
+    j with 16 heads, 4 and 8 chunks of j with 8), each held to the plain
+    version: {"<heads>x<rows j>": ms}."""
+    from tgt_torch.ops.kernels.triplet_aggregate import (
+        _fwd_body, agg_fwd_blocks)
+    from tgt_torch.ops.kernels.triplet_bwd_panel import sm_count
+
+    b, n, _, d, h = v.shape
+    hb, jc = agg_fwd_blocks(b, n, d, h, sm_count(v.device))
+    times = {}
+    for x, y in sorted({(hb, jc), (16, max(1, jc // 2)), (16, 2 * jc),
+                        (8, -(-n // 4)), (8, -(-n // 8))}):
+        rc, out = _fwd_body(a, v, x, y)
+        torch.cuda.synchronize()
+        if rc != 0 or float((out.float() - ref.float()).abs().max()) > tol:
+            fail(f"the forward body at {x} heads and {y} rows j per block "
+                 f"failed (CUDA error {rc}) or disagrees")
+        times[f"{x}x{y}"] = device_ms(lambda: _fwd_body(a, v, x, y))
+    return times
+
+
 def aggregate_kernel_phase(card):
     """Phase 2d; returns the rows at (16, 48, bf16) and (32, 48, bf16)."""
     from tgt_torch.ops.kernels.triplet_aggregate import (
-        triplet_aggregate_fwd, triplet_aggregate_fwd_reference)
+        agg_fwd_route, triplet_aggregate_fwd, triplet_aggregate_fwd_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = {}
@@ -759,34 +810,45 @@ def aggregate_kernel_phase(card):
         a, v = agg_inputs(b, n, w, 16, dtype, gen)
         if transposed:
             v = v.transpose(1, 2)   # the out direction's view, read in place
+        route = agg_fwd_route(dtype, n, w // 16, 16, v.stride()[:3], True)
+        body_before = triplet_aggregate_fwd.body_launches
         out = triplet_aggregate_fwd(a, v)
         torch.cuda.synchronize()
+        took_body = triplet_aggregate_fwd.body_launches > body_before
         ref = triplet_aggregate_fwd_reference(a, v)
         err = float((out.float() - ref.float()).abs().max())
         scale = float(ref.float().abs().max())
-        ok = (bool(torch.isfinite(out.float()).all())
-              and err <= KERNEL_TOL[dtype] * scale
+        tol = KERNEL_TOL[dtype] * scale
+        ok = (took_body == (route == "body")
+              and bool(torch.isfinite(out.float()).all()) and err <= tol
               and not bool(out[2].any()))          # the fully masked sample
+        same = torch.equal(out, triplet_aggregate_fwd(a, v))
         ms = time_ms(lambda: triplet_aggregate_fwd(a, v))
         plain_ms = time_ms(lambda: triplet_aggregate_fwd_reference(a, v))
         library_ms = time_ms(lambda: torch.einsum("bikh,bjkdh->bjidh", a, v))
         bound_ms, bound_by = agg_bound((a, v, out), 2.0, dtype)
         row = {"case": "triplet_aggregate_fwd", "b": b, "n": n,
                "edge_width": w, "heads": 16, "dtype": dtype_name(dtype),
-               "transposed_v": transposed, "max_abs_err": err,
-               "max_abs_ref": scale, "tol": KERNEL_TOL[dtype] * scale,
-               "ok": ok, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": library_ms, "card": card}
+               "transposed_v": transposed, "route": route,
+               "max_abs_err": err, "max_abs_ref": scale, "tol": tol,
+               "ok": ok, "bitwise_equal": same, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": library_ms, "card": card}
         if n == 48 and w == WIDTH and dtype == torch.bfloat16 and \
                 not transposed:
+            row.update(agg_fwd_routes(a, v, tol),
+                       partitions_device_ms=agg_fwd_partitions(a, v, ref, tol))
             device_times(row, lambda: triplet_aggregate_fwd(a, v),
                          lambda: triplet_aggregate_fwd_reference(a, v),
                          lambda: torch.einsum("bikh,bjkdh->bjidh", a, v))
+            ok &= row["routes_agree"]
             rows[b] = row
         emit(row)
         if not ok:
-            fail(f"aggregate kernel disagrees with its plain version: {row}")
+            fail(f"aggregate kernel disagrees with its plain version or took "
+                 f"another route: {row}")
+        if not same:
+            fail(f"two aggregate forward launches differ: {row}")
         del a, v, out, ref
     return rows
 
@@ -1086,8 +1148,9 @@ class ModelSpec(NamedTuple):
     counts them (``dropout_launches`` for the dense pair at rate > 0), and
     the launches of each wrapper per layer application (2: one per
     direction; 1: the legacy pair serves both directions in one launch), and
-    the backward wrapper's counter of the calls that must all take its
-    tensor-core body (``body_launches`` of the aggregate backward), if any."""
+    the backward and forward wrappers' counters of the calls that must all
+    take their tensor-core bodies (``body_launches`` of the aggregate pair),
+    if any."""
     name: str
     yaml: str
     overrides: dict
@@ -1096,6 +1159,7 @@ class ModelSpec(NamedTuple):
     counter: str = "launches"
     per_layer: int = 2
     body_counter: str = ""
+    fwd_body_counter: str = ""
 
     def launches(self, wrapper) -> int:
         return getattr(wrapper, self.counter)
@@ -1111,6 +1175,7 @@ def kernel_counters():
             (td.triplet_dense_bwd, "launches"),
             (td.triplet_dense_bwd, "dropout_launches"),
             (ta.triplet_aggregate_fwd, "launches"),
+            (ta.triplet_aggregate_fwd, "body_launches"),
             (ta.triplet_aggregate_bwd, "launches"),
             (ta.triplet_aggregate_bwd, "body_launches"),
             (tl.triplet_attention_fwd, "launches"),
@@ -1125,7 +1190,7 @@ def reset_counts() -> None:
 def check_only(spec: ModelSpec) -> None:
     """The path launched no kernel but its own, counted by its counter."""
     own = ((spec.fwd, spec.counter), (spec.bwd, spec.counter),
-           (spec.bwd, spec.body_counter))
+           (spec.bwd, spec.body_counter), (spec.fwd, spec.fwd_body_counter))
     others = {f"{w.__name__}.{a}": getattr(w, a)
               for w, a in kernel_counters()
               if (w, a) not in own and getattr(w, a)}
@@ -1244,6 +1309,10 @@ def serving_phase(card, spec: ModelSpec):
                           "predict_s": req_s, "predict_bins_s": bins_s,
                           "launches_per_call": expect})
     main_launches = spec.launches(spec.fwd)  # the main path ends here
+    body = (getattr(spec.fwd, spec.fwd_body_counter)
+            if spec.fwd_body_counter else None)
+    if body is not None and body != main_launches:
+        fail(f"{body} of {main_launches} forward launches took the body")
     check_only(spec)
     if hit != set(buckets):
         fail(f"served buckets {sorted(hit)}, expected {list(buckets)}")
@@ -1254,7 +1323,8 @@ def serving_phase(card, spec: ModelSpec):
         "model": os.path.relpath(spec.yaml, REPO), "card": card,
         "molecules_per_s": 64 / p50, "p50_request_s": p50,
         "request_s": lat, "predict_bins_p50_s": float(np.median(lat_bins)),
-        "buckets_hit": sorted(hit), "kernel_launches": main_launches})
+        "buckets_hit": sorted(hit), "kernel_launches": main_launches,
+        "kernel_body_launches": body})
 
     if spec.counter != "launches":
         # a deterministic forward runs no dropout: the rate-0 checks below
@@ -1359,6 +1429,8 @@ def training_phase(card, spec: ModelSpec):
                 "bwd": spec.launches(spec.bwd)}  # the main path ends
     if spec.body_counter:
         launches["bwd_body"] = getattr(spec.bwd, spec.body_counter)
+    if spec.fwd_body_counter:
+        launches["fwd_body"] = getattr(spec.fwd, spec.fwd_body_counter)
     check_only(spec)
     n_steps = len(steps)
     per_micro = spec.per_layer * cfg.model_height * cfg.layer_multiplier
@@ -1367,6 +1439,8 @@ def training_phase(card, spec: ModelSpec):
               "bwd": n_steps * trainer.grad_accum * per_micro}
     if spec.body_counter:            # every backward call took the body
         expect["bwd_body"] = expect["bwd"]
+    if spec.fwd_body_counter:        # every forward call took the body
+        expect["fwd_body"] = expect["fwd"]
     ends = [start] + [e for _, e in steps]
     step_ms = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
     losses = [float(m["loss"]) for m, _ in steps]
@@ -1420,6 +1494,8 @@ def gradient_phase(card, spec: ModelSpec, weights):
                               device="cuda")
         model.load_state_dict(weights)
         before = spec.launches(spec.bwd)
+        body_before = (getattr(spec.fwd, spec.fwd_body_counter)
+                       if spec.fwd_body_counter else 0)
         with context():
             loss, _ = scheme.loss_fn(model, feed, seed=7)
             names, params = zip(*model.named_parameters())
@@ -1428,6 +1504,9 @@ def gradient_phase(card, spec: ModelSpec, weights):
         if (launched > 0) != (name == "kernel"):
             fail(f"the {name} side of the f32 gradients launched "
                  f"{launched} backward kernels")
+        if spec.fwd_body_counter and \
+                getattr(spec.fwd, spec.fwd_body_counter) != body_before:
+            fail("an f32 forward call took the bf16 body")
         out[name] = (float(loss.detach()), dict(zip(names, grads)))
         del model, loss, params, grads
     (loss, got), (ref_loss, ref) = out["kernel"], out["plain"]
@@ -1503,7 +1582,8 @@ def main() -> int:
                      per_layer=1)
     agx2 = ModelSpec("TGT-Agx2", AGX2_YAML, {"use_pallas": "dense"},
                      ta.triplet_aggregate_fwd, ta.triplet_aggregate_bwd,
-                     body_counter="body_launches")
+                     body_counter="body_launches",
+                     fwd_body_counter="body_launches")
 
     dense = phase("2 attention fwd kernel", kernel_phase, card)
     dense_bwd = phase("2b attention bwd kernel", backward_kernel_phase, card)
@@ -1581,7 +1661,12 @@ def main() -> int:
         with_device(entry(
             "triplet_aggregate_fwd", ta.KERNEL_SOURCE, ta.REPLACES,
             {"serving": served[agx2.name],
-             "training": trained[agx2.name]["fwd"]}, agg[16]), agg),
+             "training": trained[agx2.name]["fwd"]}, agg[16]), agg,
+            # the serving phase fails unless all its launches took the body
+            body_launches=served[agx2.name] + trained[agx2.name]["fwd_body"],
+            panel_route={f"b{b}": {k: row[k] for k in (
+                "ms_body", "ms_panel_route", "device_ms_panel_route")}
+                for b, row in agg.items()}),
         with_device(entry(
             "triplet_aggregate_bwd", ta.BWD_KERNEL_SOURCE, ta.BWD_REPLACES,
             {"training": trained[agx2.name]["bwd"]}, agg_bwd[16]), agg_bwd,

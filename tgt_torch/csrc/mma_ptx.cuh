@@ -1,9 +1,12 @@
 // The PTX pieces of the package's bf16 tensor-core bodies for Hopper
 // (sm_90a): ldmatrix (plain and transposed), stmatrix (transposed), movmatrix,
-// mma.sync m16n8k16 (bf16 in, f32 sums), bf16 pair packing and cp.async. The triplet-attention bodies take
-// them through triplet_mma.cuh; the aggregate backward body
-// (triplet_aggregate_bwd.cu) includes this header alone, as it has its own
-// f32 and bf16 load and store helpers (triplet_aggregate_panel.cuh).
+// mma.sync m16n8k16 (bf16 in, f32 sums), bf16 pair packing and cp.async; and
+// what the two aggregate bodies share: the transposes of 16-byte pieces of 8
+// heads into per-head panels. The triplet-attention bodies take them through
+// triplet_mma.cuh; the aggregate bodies (triplet_aggregate_fwd.cu, namespace
+// tagf, and triplet_aggregate_bwd.cu, namespace tagb) include this header
+// alone, as they have their own f32 and bf16 load and store helpers
+// (triplet_aggregate_panel.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -77,6 +80,45 @@ __device__ __forceinline__ void cp_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// -- per-head panels of 16-byte pieces of 8 heads --
+
+constexpr int kPieceHeads = 8;   // bf16 heads in one 16-byte piece
+
+// A head's panel of `rows` rows at row stride ps, padded to 8 mod 64
+// elements, so that the transposes' 8 heads fall in distinct banks.
+__host__ __device__ constexpr int head_stride(int rows, int ps) {
+  return (rows * ps + 63) / 64 * 64 + 8;
+}
+
+// Offset of the 16-byte chunk c of row r in a head's panel of DP (8, 16, 32,
+// 48 or 64) columns: the chunks are XOR-swizzled by row, so that the 8
+// consecutive rows one ldmatrix or stmatrix phase touches fall in distinct
+// banks with no padding.
+template <int DP>
+__device__ __forceinline__ int swz(int r, int c) {
+  static_assert(DP == 8 || DP == 16 || DP == 32 || DP == 48 || DP == 64, "panel width");
+  constexpr int shift = DP == 32 ? 1 : (DP == 64 ? 0 : 2);
+  constexpr int mask = DP == 8 ? 0 : (DP == 32 ? 3 : (DP == 64 ? 7 : 1));
+  return r * DP + ((c ^ ((r >> shift) & mask)) << 3);
+}
+
+// One group's raw pieces [rows][OCT blocks of 8 columns][8 heads, at a stride
+// of HB] -> its per-head panels [row][column], by the group's 8 warps (u =
+// warp in the group), 4 blocks of 8 columns by 8 heads at a time: ldmatrix
+// reads a block's 8 columns as rows of 8 heads, stmatrix.trans writes its 8
+// heads as rows of 8 columns, each into its head's panel (swz<DP>).
+template <int DP, int OCT, int HB>
+__device__ __forceinline__ void to_panels(const bf16* raw, bf16* panels, int hs, int blocks,
+                                          int u, int lane) {
+  for (int q0 = u * 4; q0 < blocks; q0 += kPieceHeads * 4) {
+    const int mine = min(q0 + (lane >> 3), blocks - 1);   // a repeated block stores twice
+    const int r = mine / OCT, c = mine - r * OCT;
+    uint32_t t4[4];
+    ldsm_x4(t4, raw + (mine * 8 + (lane & 7)) * HB);
+    stsm_x4_t(t4, panels + (lane & 7) * hs + swz<DP>(r, c));
+  }
 }
 
 }  // namespace tmma

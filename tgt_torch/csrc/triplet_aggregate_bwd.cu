@@ -233,20 +233,6 @@ using namespace tmma;
 constexpr int kGroup = 8;                // heads per 16-byte piece
 constexpr int kTile = 16;                // rows k per block
 
-// A head's panel of `rows` rows at row stride ps, padded to 8 mod 64
-// elements, so that the transposes' 8 heads fall in distinct banks.
-__host__ __device__ constexpr int head_stride(int rows, int ps) {
-  return (rows * ps + 63) / 64 * 64 + 8;
-}
-
-// Offset of the 16-byte chunk c of row r in a head's panel of DP (16 or 32)
-// columns: the chunks are XOR-swizzled by row, so that the 8 rows one
-// ldmatrix phase reads fall in distinct banks with no padding.
-template <int DP>
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * DP + ((c ^ ((r >> (DP == 16 ? 2 : 1)) & (DP / 8 - 1))) << 3);
-}
-
 // The tiles of one block of HB heads (G = HB / 8 groups of 8) at n <= 16 NI
 // and head width D, in shared memory:
 //  - STAGES raw stages, each (16 NI + 16) rows of D pieces of HB heads (dva
@@ -341,25 +327,8 @@ struct Args {
   int n, h;
 };
 
-// One group's raw pieces [rows][OCT blocks of 8 d][8 heads, at a stride of
-// HB] -> its per-head panels [row][d], by the group's 8 warps (u = warp in
-// the group), 4 blocks of 8 d by 8 heads at a time: ldmatrix reads a block's
-// 8 d as rows of 8 heads, stmatrix.trans writes its 8 heads as rows of 8 d,
-// each into its head's panel.
-template <int DP, int OCT, int HB>
-__device__ __forceinline__ void to_panels(const bf16* raw, bf16* panels, int hs, int blocks,
-                                          int u, int lane) {
-  for (int q0 = u * 4; q0 < blocks; q0 += kGroup * 4) {
-    const int mine = min(q0 + (lane >> 3), blocks - 1);   // a repeated block stores twice
-    const int r = mine / OCT, c = mine - r * OCT;
-    uint32_t t4[4];
-    ldsm_x4(t4, raw + (mine * 8 + (lane & 7)) * HB);
-    stsm_x4_t(t4, panels + (lane & 7) * hs + swz<DP>(r, c));
-  }
-}
-
-// The inverse, for dV_j: one group's per-head panels [k][d] -> raw pieces
-// [k][d][8 heads, at a stride of HB].
+// The inverse of to_panels (mma_ptx.cuh), for dV_j: one group's per-head
+// panels [k][d] -> raw pieces [k][d][8 heads, at a stride of HB].
 template <int PS, int OCT, int HB>
 __device__ __forceinline__ void to_pieces(const bf16* panels, int hs, bf16* raw, int blocks,
                                           int u, int lane) {

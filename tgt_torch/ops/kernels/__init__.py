@@ -19,9 +19,10 @@ here. In bf16 the two triplet-attention backwards run one body on the tensor
 cores (``csrc/triplet_bwd_mma.cuh``, whose plain version and launch helpers
 are ``triplet_bwd_panel``), and so do the two forwards
 (``csrc/triplet_fwd_mma.cuh``); in f32 they keep their CUDA-core kernels.
-The aggregate backward has two routes, chosen by shape
-(``triplet_aggregate.agg_bwd_route``): in bf16 one tensor-core pass with no
-workspace (its partition in plain PyTorch is
-``triplet_aggregate.agg_bwd_body_reference``), in f32 and at shapes outside
-the body three CUDA-core kernels.
+The aggregate forward and backward each have two routes, chosen by shape
+(``triplet_aggregate.agg_fwd_route``, ``agg_bwd_route``): in bf16 one
+tensor-core pass (their partitions in plain PyTorch are
+``triplet_aggregate.agg_fwd_body_reference`` and ``agg_bwd_body_reference``),
+in f32 and at shapes outside the bodies the panel loop (forward) and three
+CUDA-core kernels (backward).
 """

@@ -3,19 +3,30 @@ versions, and the autograd function that joins forward and backward.
 
 Counterpart of the aggregate part of ``tgt_tpu/ops/pallas/triplet_dense.py``
 (``:448-540``): its ``_agg_fwd_kernel`` is
-``tgt_torch/csrc/triplet_aggregate_fwd.cu`` (on the panel loop of
-``triplet_aggregate_panel.cuh``: tensor cores in bf16, CUDA cores in f32) and
-its ``_agg_bwd_kernel`` is ``tgt_torch/csrc/triplet_aggregate_bwd.cu``, which
-has two routes, chosen by :func:`agg_bwd_route` from the call's shapes:
+``tgt_torch/csrc/triplet_aggregate_fwd.cu`` and its ``_agg_bwd_kernel`` is
+``tgt_torch/csrc/triplet_aggregate_bwd.cu``. Each has two routes, chosen
+from the call's shapes by :func:`agg_fwd_route` and :func:`agg_bwd_route`:
 
-- ``"body"``: bf16 with H a multiple of 8, d a multiple of 8 up to 32,
-  n <= 64 (128 at d <= 16) and 16-byte pieces of 8 heads: one tensor-core
-  launch, one block per (b, 8 or 16 heads, 16 rows k) walking j in order,
-  no workspace (:func:`agg_bwd_body_reference` is its partition in plain
-  PyTorch, :func:`agg_bwd_heads_per_block` picks the heads per block);
-- ``"panel"``: f32 (the tensor cores' TF32 keeps too few bits) and any other
-  bf16 shape: dA on CUDA cores in chunks of ``J_CHUNK`` rows j through a
-  float32 workspace, their ordered reduction, and dV on the panel loop.
+- forward ``"body"``: bf16 with H a multiple of 8, d a multiple of 8 up to
+  32, n <= 48 (64 at d <= 16) and 16-byte pieces of 8 heads: one
+  tensor-core launch, one block per (b, 8 or 16 heads, chunk of rows j)
+  that stages A once and keeps it in registers while it walks its j in
+  order (:func:`agg_fwd_body_reference` is its partition in plain PyTorch,
+  :func:`agg_fwd_blocks` picks the heads and rows j per block); A is read
+  through its strides;
+- forward ``"panel"``: f32 (the tensor cores' TF32 keeps too few bits) and
+  any other bf16 shape: one block per (b, j) runs the panel loop of
+  ``triplet_aggregate_panel.cuh`` (tensor cores in bf16, CUDA cores in f32)
+  on a contiguous A;
+- backward ``"body"``: bf16 with H a multiple of 8, d a multiple of 8 up to
+  32, n <= 64 (128 at d <= 16) and 16-byte pieces of 8 heads: one
+  tensor-core launch, one block per (b, 8 or 16 heads, 16 rows k) walking j
+  in order, no workspace (:func:`agg_bwd_body_reference` is its partition
+  in plain PyTorch, :func:`agg_bwd_heads_per_block` picks the heads per
+  block);
+- backward ``"panel"``: f32 and any other bf16 shape: dA on CUDA cores in
+  chunks of ``J_CHUNK`` rows j through a float32 workspace, their ordered
+  reduction, and dV on the panel loop.
 
 The custom VJP ``_agg_core`` is :class:`TripletAggregateCore`. Only the
 O(N^3) k-aggregation runs in a kernel: the N^2 weights (softmax, gate,
@@ -28,7 +39,8 @@ Contract of :func:`triplet_aggregate_fwd`:
   v     (b, j, k, d, h), with (d, h) contiguous; the outer strides are free,
         so the out direction's pair-transposed view is read in place
   ->    va (b, j, i, d, h) = sum_k a[b,i,k,h] v[b,j,k,d,h], contiguous,
-        summed in float32 and returned in v's dtype
+        summed in float32 in a fixed order (bitwise equal on repeat) and
+        returned in v's dtype
 
 :func:`triplet_aggregate_bwd` takes the same inputs and the cotangent ``dva``
 (b, j, i, d, h) and returns ``da`` (b, i, k, h), summed over j and d in
@@ -61,6 +73,7 @@ J_CHUNK = 12                      # rows j per partial sum of the panel route's 
 BODY_GROUP = 8                    # heads per 16-byte piece: one block, one warp each
 BODY_K_TILE = 16                  # rows k per block of the body
 BODY_MAX_D = 32
+FWD_BODY_MAX_N = 64               # the forward body's A fragments: n^2 / 64 registers
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -82,6 +95,53 @@ def triplet_aggregate_bwd_reference(a: torch.Tensor, v: torch.Tensor,
     da = torch.einsum("bjidh,bjkdh->bikh", dva32, v.float())
     dv = torch.einsum("bikh,bjidh->bjkdh", a.float(), dva32)
     return da.to(a.dtype), dv.to(v.dtype)
+
+
+def agg_fwd_body_reference(a: torch.Tensor, v: torch.Tensor,
+                           heads_per_block: int, j_chunk: int) -> torch.Tensor:
+    """The forward body's partition in plain PyTorch: for each group of
+    ``heads_per_block`` heads and each chunk of ``j_chunk`` rows j (one block
+    of the kernel), walk its j in order and write ``va_j = A V_j`` for every
+    row i, summed in float32 and cast to v's dtype once."""
+    b, n, _, d, h = v.shape
+    a32, v32 = a.float(), v.float()
+    va = torch.empty((b, n, n, d, h), dtype=v.dtype, device=v.device)
+    for h0 in range(0, h, heads_per_block):
+        hs = slice(h0, min(h, h0 + heads_per_block))
+        for j0 in range(0, n, j_chunk):
+            for j in range(j0, min(n, j0 + j_chunk)):
+                va[:, j, :, :, hs] = torch.einsum(
+                    "bikh,bkdh->bidh", a32[..., hs], v32[:, j, :, :, hs]
+                ).to(v.dtype)
+    return va
+
+
+def agg_fwd_route(dtype: torch.dtype, n: int, d: int, h: int,
+                  v_strides: Tuple[int, int, int], aligned: bool) -> str:
+    """Which route of ``triplet_aggregate_fwd.cu`` a call takes: ``"body"``
+    (the bf16 tensor-core body) for bf16 with H a multiple of
+    ``BODY_GROUP``, d a multiple of 8 up to ``BODY_MAX_D``, n <= 48 (n <=
+    ``FWD_BODY_MAX_N`` at d <= 16, where the body's tiles still fit shared
+    memory), V's three outer strides (elements) multiples of 8 and every
+    data pointer 16-byte ``aligned``, so that 8 heads of one (row, d) are
+    one 16-byte piece (the wrapper makes A contiguous where its strides are
+    not multiples of 8); ``"panel"`` (the panel loop) otherwise."""
+    if (dtype == torch.bfloat16 and h % BODY_GROUP == 0 and d % 8 == 0
+            and d <= BODY_MAX_D and (n <= 48 or (n <= FWD_BODY_MAX_N and d <= 16))
+            and aligned and all(s % 8 == 0 for s in v_strides)):
+        return "body"
+    return "panel"
+
+
+def agg_fwd_blocks(b: int, n: int, d: int, h: int, sms: int) -> Tuple[int, int]:
+    """``(heads per block, rows j per block)`` of the forward body: 16 heads
+    (16 warps a block) where H is a multiple of 16, n <= 48 and d <= 16
+    (where their tiles fit), else 8; and the rows j split into about ``sms``
+    / (b H / heads) chunks, so that the grid comes near one wave of the
+    card's ``sms``."""
+    hb = 16 if h % 16 == 0 and n <= 48 and d <= 16 else BODY_GROUP
+    chunks = max(1, min(n, round(sms / (b * (h // hb)))))
+    return hb, -(-n // chunks)
 
 
 def agg_bwd_body_reference(a: torch.Tensor, v: torch.Tensor,
@@ -207,6 +267,15 @@ def _fwd_kernel():
 
 
 @functools.cache
+def _fwd_body_kernel():
+    fn = load_library("triplet_aggregate_fwd").triplet_aggregate_fwd_body
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                   + [ctypes.POINTER(ctypes.c_longlong)] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
 def _bwd_kernel():
     fn = load_library("triplet_aggregate_bwd").triplet_aggregate_bwd
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
@@ -224,34 +293,73 @@ def _bwd_body_kernel():
     return fn
 
 
-def triplet_aggregate_fwd(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """The k-aggregation forward, with no gradient on the card: a caller
-    that needs one takes :func:`triplet_aggregate_core`. See the module
-    docstring for the contract."""
-    _check_shapes(a, v)
-    if v.device.type == "cpu":
-        return triplet_aggregate_fwd_reference(a, v)
-    _check_kernel_limits(v)
-    if torch.is_grad_enabled() and (a.requires_grad or v.requires_grad):
-        raise RuntimeError("triplet_aggregate_fwd returns no gradient on the "
-                           "card; call triplet_aggregate_core, which "
-                           "differentiates through the backward kernel")
+def _fwd_body(a, v, heads_per_block=None, j_chunk=None):
+    """The body: one launch; a read through its strides."""
     b, n, _, d, h = v.shape
-    a = a.contiguous()
+    if heads_per_block is None:
+        heads_per_block, j_chunk = agg_fwd_blocks(b, n, d, h, sm_count(v.device))
+    out = torch.empty((b, n, n, d, h), dtype=v.dtype, device=v.device)
+    a_strides = (ctypes.c_longlong * 3)(*a.stride()[:3])
+    v_strides = (ctypes.c_longlong * 3)(*v.stride()[:3])
+    with torch.cuda.device(v.device):
+        rc = _fwd_body_kernel()(a.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                                n, d, h, heads_per_block, j_chunk, a_strides,
+                                v_strides,
+                                torch.cuda.current_stream().cuda_stream)
+    return rc, out
+
+
+def _fwd_panel(a, v):
+    """The panel loop: one block per (b, j); a contiguous."""
+    b, n, _, d, h = v.shape
     out = torch.empty((b, n, n, d, h), dtype=v.dtype, device=v.device)
     strides = (ctypes.c_longlong * 3)(*v.stride()[:3])
     with torch.cuda.device(v.device):
         rc = _fwd_kernel()(a.data_ptr(), v.data_ptr(), out.data_ptr(),
                            _DTYPE_CODES[v.dtype], b, n, d, h, strides,
                            torch.cuda.current_stream().cuda_stream)
+    return rc, out
+
+
+def triplet_aggregate_fwd(a: torch.Tensor, v: torch.Tensor, *,
+                          _panel_route: bool = False) -> torch.Tensor:
+    """The k-aggregation forward, with no gradient on the card (a caller
+    that needs one takes :func:`triplet_aggregate_core`), through the route
+    :func:`agg_fwd_route` picks; one call counts once in ``launches``, and
+    once more in ``body_launches`` when it took the body. ``_panel_route``
+    sends a call through the panel loop whatever its shape (``chip_smoke.py``
+    times the two routes against each other). See the module docstring for
+    the contract."""
+    _check_shapes(a, v)
+    if v.device.type == "cpu":
+        return triplet_aggregate_fwd_reference(a, v)
+    if torch.is_grad_enabled() and (a.requires_grad or v.requires_grad):
+        raise RuntimeError("triplet_aggregate_fwd returns no gradient on the "
+                           "card; call triplet_aggregate_core, which "
+                           "differentiates through the backward kernel")
+    b, n, _, d, h = v.shape
+    if a.stride(3) != 1 or any(s % 8 for s in a.stride()[:3]):
+        a = a.contiguous()
+    route = "panel" if _panel_route else agg_fwd_route(
+        v.dtype, n, d, h, v.stride()[:3],
+        all(t.data_ptr() % 16 == 0 for t in (a, v)))
+    _check_kernel_limits(v, route)
+    if route == "body":
+        rc, out = _fwd_body(a, v)
+    else:
+        rc, out = _fwd_panel(a.contiguous(), v)
     if rc != 0:
-        raise RuntimeError(f"triplet_aggregate_fwd kernel launch failed with "
-                           f"CUDA error {rc}")
+        raise RuntimeError(f"triplet_aggregate_fwd ({route} route) launch "
+                           f"failed with CUDA error {rc}")
     triplet_aggregate_fwd.launches += 1
+    if route == "body":
+        triplet_aggregate_fwd.body_launches += 1
     return out
 
 
-triplet_aggregate_fwd.launches = 0  # kernel launches, read by chip_smoke.py
+# calls on the card, and those of them that took the body; read by chip_smoke.py
+triplet_aggregate_fwd.launches = 0
+triplet_aggregate_fwd.body_launches = 0
 
 
 def _bwd_body(a, v, dva, heads_per_block=None):
