@@ -16,7 +16,9 @@ Phases, each of which fails the run (non-zero exit) on error:
 2. Kernel against plain: ``triplet_dense_fwd`` against its plain PyTorch
    version on the card at b=16, N in {24, 40, 48, 56}, edge width 256,
    16 triplet heads; gated and ungated; bf16 and f32; plus the training
-   micro-batch, b=32, N=48, bf16, gated and ungated; plus the F3 shapes that
+   micro-batch, b=32, N=48, bf16, gated and ungated; the published eval
+   batch, b=64 (batch_size 32 x prediction_bmult 2), N=48 and 56, bf16,
+   gated; plus the F3 shapes that
    no published bucket reaches (N=80 and N=128 at b=4; edge widths 128 and
    512, d = 8 and 32, at b=16, N=48; gated, bf16 and f32); and the out
    direction's pair-transposed K/V views at b=32 in bf16 and f32; with a
@@ -117,11 +119,30 @@ Phases, each of which fails the run (non-zero exit) on error:
    over the run; every bf16 forward and backward launch of the served and
    trained paths through the bodies (``body_launches``), and the f32
    forwards of 6b through the panel route.
-7. The kernels line (six kernels, launches by path, the dense pair's
+7. The CLI at full width and depth, in a temporary directory: the port's
+   ``write_synthetic_dataset`` writes 256 molecules of up to 48 atoms in
+   the PCQM4Mv2 parquet format (train-3d 168, valid-3d 24, valid 64);
+   ``tgt_torch.cli.execute`` runs ``train`` with the published TGT-At yaml
+   and ``dataset_path``, ``save_path_prefix``, ``global_batch_size: 64``
+   and ``num_epochs: 1``, then ``train`` again with ``num_epochs: 2`` (a
+   resume), ``evaluate`` and ``predict``. Checks the counters and the two
+   history.yaml entries after the resume, finite losses, results.yaml, the
+   bins50 parquet of train and valid read back through the port's ``Bins``
+   column, one request served by ``DistancePredictor.from_model_dir``, and
+   every command's dense-kernel launches against the count its micro-batches
+   and draws imply (per training micro-batch 94 + 48, per forward 48) with
+   no call of the plain core; then an f32 ``evaluate`` with
+   ``predict_in_train: false`` through the kernel and with ``use_pallas:
+   false``: val losses within 1e-4 relative; and the f32 logits of the
+   first eval batch (b=64) through both: max|diff| <= 1e-4 max|ref|. A
+   planted fault (the kernel's output scaled by 0.9) must fail that logits
+   check; its val loss is printed beside the others. Prints wall seconds
+   per command, ms per training step and molecules/s evaluated.
+8. The kernels line (six kernels, launches by path, the dense pair's
    dropout launches and rate > 0 times, the ungated times and SDPA's at
    b=16 and b=32, the aggregate pair's back-to-back times, body launches
-   and two routes), then ``{"ok": true, "device": {...}}`` as the
-   last line.
+   and two routes, the dense forward at the eval batch b=64), then
+   ``{"ok": true, "device": {...}}`` as the last line.
 
 Each phase prints its wall seconds. Every JSON row is also appended to
 ``chiprun_out/chip_smoke_rows.jsonl``, which the run starts empty.
@@ -395,6 +416,9 @@ F3_CASES = [case for dtype in (torch.bfloat16, torch.float32) for case in (
     (4, 80, WIDTH, dtype, True), (4, 128, WIDTH, dtype, True),
     (16, 48, 128, dtype, True), (16, 48, 512, dtype, True))]
 CASES = KERNEL_CASES + F3_CASES
+# the published eval batch (batch_size 32 x prediction_bmult 2) that the
+# CLI's validation, evaluation and prediction run at; phase 2 only
+EVAL_CASES = [(64, n, WIDTH, torch.bfloat16, True) for n in (48, 56)]
 
 
 # the cases the kernels line reports: b=16, N=48, bf16, gated (and ungated,
@@ -448,7 +472,7 @@ def kernel_phase(card):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
-    for case in CASES:
+    for case in CASES + EVAL_CASES:
         b, n, w, dtype, gated = case
         inputs = core_inputs(b, n, w, 16, dtype, gated, gen)
         out = triplet_dense_fwd(*inputs)
@@ -1534,6 +1558,309 @@ def gradient_phase(card, spec: ModelSpec, weights):
     if not min(tri.values()) > 0:
         fail("a triplet projection got no gradient through the kernels")
 
+# -- phase 7: the CLI -------------------------------------------------------------
+
+CLI_MOLECULES, CLI_MAX_NODES = 256, 48
+FAULT_SCALE = 0.9   # the planted fault of the f32 path-level check
+
+
+@contextlib.contextmanager
+def recorded_trainer():
+    """Record, for every ``Trainer`` the CLI makes, a CUDA event at the end
+    of each training step, the wall seconds and molecules of each
+    evaluation pass and the wall seconds of each checkpoint write and
+    load; count the calls of the triplet layer's plain core."""
+    import tgt_torch.ops.triplet as tri
+    from tgt_torch.training import Trainer
+
+    rec = {"steps": [], "evals": [], "plain_core": 0, "checkpoint_s": [],
+           "load_or_init_s": []}
+    train_step, eval_epoch, plain = (Trainer.train_step, Trainer.eval_epoch,
+                                     tri._plain_core)
+    checkpoint, load_or_init = Trainer.checkpoint, Trainer.load_or_init
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            rec[key].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def step(self, *args, **kwargs):
+        state, metrics = train_step(self, *args, **kwargs)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        rec["steps"].append((self.epoch, metrics, end))
+        return state, metrics
+
+    def evaluate(self, model, loader, seed=0):
+        t0 = time.perf_counter()
+        preds = eval_epoch(self, model, loader, seed)
+        rec["evals"].append((time.perf_counter() - t0, len(preds["loss"])))
+        return preds
+
+    def plain_core(*args, **kwargs):
+        rec["plain_core"] += 1
+        return plain(*args, **kwargs)
+
+    Trainer.train_step, Trainer.eval_epoch = step, evaluate
+    Trainer.checkpoint = timed(checkpoint, "checkpoint_s")
+    Trainer.load_or_init = timed(load_or_init, "load_or_init_s")
+    tri._plain_core = plain_core
+    try:
+        yield rec
+    finally:
+        Trainer.train_step, Trainer.eval_epoch = train_step, eval_epoch
+        Trainer.checkpoint, Trainer.load_or_init = checkpoint, load_or_init
+        tri._plain_core = plain
+
+
+@contextlib.contextmanager
+def scaled_dense_core(factor):
+    """A planted fault: TripletAttention's dense kernel with its output
+    scaled by ``factor`` (None leaves the kernel as it is)."""
+    import tgt_torch.ops.triplet as tri
+
+    saved = tri.triplet_dense
+    if factor is not None:
+        tri.triplet_dense = lambda *a, **k: saved(*a, **k) * factor
+    try:
+        yield
+    finally:
+        tri.triplet_dense = saved
+
+
+def f32_eval_logits(spec: ModelSpec, cfg: dict, model_dir: str):
+    """Deterministic f32 logits of the first val batch (``batch_size *
+    prediction_bmult`` rows) from the model dir's checkpoint: through the
+    kernel, through the plain path, and through the kernel scaled by
+    ``FAULT_SCALE``; with each forward's kernel launches."""
+    from tgt_torch.models import make_model
+    from tgt_torch.models.convert import (load_jax_npz,
+                                          state_dict_from_jax_params)
+    from tgt_torch.schemes import get_scheme
+
+    scheme = get_scheme(cfg["scheme"])(dict(
+        cfg, mixed_precision=False, predict_in_train=False),
+        command="evaluate")
+    host = next(iter(scheme.val_loader(0, 1)))
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+             for k, v in scheme.device_batch(host, training=False).items()}
+    feed = scheme._model_inputs(batch, scheme.edge_mask_of(batch), None,
+                                training=False)
+    state = state_dict_from_jax_params(load_jax_npz(os.path.join(
+        model_dir, "checkpoint", "model.npz")), scheme.model_cfg)
+    out, launched = {}, []
+    for route, use_pallas, factor in (("dense", "dense", None),
+                                      ("plain", False, None),
+                                      ("fault", "dense", FAULT_SCALE)):
+        model = make_model("distance", scheme.model_cfg.replace(
+            use_pallas=use_pallas), device="cuda")
+        model.load_state_dict(state)
+        reset_counts()
+        with torch.inference_mode(), scaled_dense_core(factor):
+            out[route] = model(feed, deterministic=True).float()
+        torch.cuda.synchronize()
+        launched.append(spec.launches(spec.fwd))
+        if not bool(torch.isfinite(out[route]).all()):
+            fail(f"non-finite f32 eval logits through the {route} path")
+        del model
+    return out, launched
+
+
+def cli_phase(card, spec: ModelSpec):
+    """The published config through the port's CLI on PCQM-format parquet:
+    train one epoch, resume for a second, evaluate, predict, serve from the
+    model dir; every command's triplet launches against the count its
+    micro-batches and draws imply; an f32 evaluate through the kernel
+    against the plain path."""
+    import shutil
+    import tempfile
+
+    import yaml
+
+    from tgt_torch.cli.execute import execute
+    from tgt_torch.data.pcqm import Bins, PCQM4Mv2Dataset
+    from tgt_torch.data.prepare import write_synthetic_dataset
+    from tgt_torch.serving import DistancePredictor
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        data = os.path.join(root, "data")
+        write_synthetic_dataset(data, num_samples=CLI_MOLECULES,
+                                max_nodes=CLI_MAX_NODES)
+        with np.load(os.path.join(data, "splits.npz")) as splits:
+            n_split = {k: len(splits[k]) for k in splits.files}
+        if (n_split["train-3d"], n_split["valid-3d"], n_split["valid"]) != \
+                (168, 24, 64):
+            fail(f"synthetic splits {n_split}")
+        cfg = load_config(spec, dataset_path=data, global_batch_size=64,
+                          save_path_prefix=os.path.join(root, "models"),
+                          num_epochs=1)
+        model_dir = os.path.join(root, "models", cfg["model_prefix"],
+                                 cfg["model_name"])
+        per_fwd = 2 * cfg["model_height"]          # both directions
+        replay = per_fwd - 2                       # remat of the inner layers
+        eval_b = cfg["batch_size"] * cfg["prediction_bmult"]
+        steps = math.ceil(n_split["train-3d"] / cfg["global_batch_size"])
+        micro = steps * cfg["global_batch_size"] // cfg["batch_size"]
+        val_fwd = (math.ceil(n_split["valid-3d"] / eval_b)
+                   * cfg["evaluation_samples"] * per_fwd)
+        epoch = {"fwd": micro * (per_fwd + replay) + val_fwd,
+                 "bwd": micro * per_fwd}
+        expect = {
+            "train": epoch, "resume": epoch,
+            "evaluate": {"fwd": val_fwd, "bwd": 0},
+            "predict": {"fwd": sum(math.ceil(n_split[s] / eval_b)
+                                   for s in ("train", "valid"))
+                        * cfg["prediction_samples"] * per_fwd, "bwd": 0}}
+        wall, launches, out = {}, {}, {}
+        with recorded_trainer() as rec:
+            for name, command, extra in (
+                    ("train", "train", {}), ("resume", "train",
+                                             {"num_epochs": 2}),
+                    ("evaluate", "evaluate", {}),
+                    ("predict", "predict", {})):
+                torch.cuda.synchronize()
+                reset_counts()                  # the main path starts
+                t0 = time.time()
+                out[name] = execute(command, dict(cfg, **extra))
+                torch.cuda.synchronize()
+                wall[name] = time.time() - t0
+                launches[name] = {"fwd": spec.launches(spec.fwd),
+                                  "bwd": spec.launches(spec.bwd)}
+                check_only(spec)                # the main path ends
+                if isinstance(out[name], dict):
+                    out[name].pop("state", None)   # free the card
+                torch.cuda.empty_cache()
+        if launches != expect or rec["plain_core"]:
+            fail(f"CLI kernel launches {launches}, expected {expect}; "
+                 f"{rec['plain_core']} plain-core calls")
+
+        # train and resume: counters, history, finite losses
+        with open(os.path.join(model_dir, "checkpoint",
+                               "training_state.json")) as f:
+            counters = json.load(f)
+        with open(os.path.join(model_dir, "logs", "history.yaml")) as f:
+            history = yaml.safe_load(f)
+        if (counters["epoch"], counters["global_step"]) != (2, 2 * steps) or \
+                [h["global_step"] for h in history] != [steps, 2 * steps]:
+            fail(f"after resume: counters {counters}, history {history}")
+        if not all(math.isfinite(h["val_loss"]) and math.isfinite(h["loss"])
+                   for h in history):
+            fail(f"non-finite training or validation loss: {history}")
+        if not all(bool(m["ok"]) for _, m, _ in rec["steps"]):
+            fail("a training step was skipped as non-finite")
+        step_ms = {}
+        for e in (0, 1):
+            ends = [ev for ep, _, ev in rec["steps"] if ep == e]
+            step_ms[e] = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+
+        # evaluate and predict: results.yaml and the bins parquet
+        with open(os.path.join(model_dir, "predictions",
+                               "results.yaml")) as f:
+            results = yaml.safe_load(f)
+        if not math.isfinite(results["val"]["loss"]):
+            fail(f"results.yaml {results}")
+        eval_s, eval_mols = rec["evals"][-1]
+        bins_dir = os.path.join(model_dir, "predictions",
+                                f"bins{cfg['prediction_samples']}")
+        for split in ("train", "valid"):
+            ds = PCQM4Mv2Dataset(split, data, return_idx=True,
+                                 additional_columns=[Bins(
+                                     bins_dir, cfg["prediction_samples"])])
+            for i in range(len(ds)):
+                row = ds[i]
+                n = row["num_nodes"]
+                b = row["dist_bins"]
+                if b.shape != (cfg["prediction_samples"], n, n) or \
+                        b.max() >= cfg["num_dist_bins"]:
+                    fail(f"{split} row {i}: bins {b.shape} max {b.max()}")
+
+        # serve one request from the model dir
+        reset_counts()
+        pred = DistancePredictor.from_model_dir(
+            model_dir, mc_samples=cfg["evaluation_samples"], batch_size=16,
+            buckets=tuple(cfg["buckets"]))
+        probs = pred.predict(request(np.random.RandomState(7), 16))
+        served = spec.launches(spec.fwd)
+        if served != per_fwd * cfg["evaluation_samples"] or \
+                not np.isfinite(probs).all():
+            fail(f"serving from the model dir: {served} launches")
+        del pred
+
+        # f32, deterministic: the evaluate command through the kernel,
+        # through the plain path and through the kernel with a planted fault
+        # (its output scaled by 0.9), on the same checkpoint; then the logits
+        # of the first eval batch the same three ways. The fault must fail
+        # the logits check: that shows the check can see a wrong kernel.
+        f32 = {}
+        for route in ("dense", "plain", "fault"):
+            reset_counts()
+            with scaled_dense_core(FAULT_SCALE if route == "fault" else None):
+                metrics = execute("evaluate", dict(
+                    cfg, mixed_precision=False, predict_in_train=False,
+                    evaluation_samples=2,
+                    use_pallas=False if route == "plain" else "dense"))
+            f32[route] = (metrics["val"]["loss"], spec.launches(spec.fwd))
+        (loss, n_kernel), (ref, n_plain) = f32["dense"], f32["plain"]
+        rel = abs(loss - ref) / abs(ref)
+        rel_fault = abs(f32["fault"][0] - ref) / abs(ref)
+        logits, n_logits = f32_eval_logits(spec, cfg, model_dir)
+        scale = float(logits["plain"].abs().max())
+        err = float((logits["dense"] - logits["plain"]).abs().max())
+        err_fault = float((logits["fault"] - logits["plain"]).abs().max())
+        row = {"cli": "tgt_torch.cli.execute", "model": os.path.relpath(
+                   spec.yaml, REPO), "card": card,
+               "molecules": n_split, "wall_s": wall,
+               "ms_per_step": {f"epoch_{e + 1}": v
+                               for e, v in step_ms.items()},
+               "median_ms_per_step_epoch_2": float(np.median(step_ms[1])),
+               "molecules_per_s_evaluated": eval_mols / eval_s,
+               "evaluate_s": eval_s, "evaluated_molecules": eval_mols,
+               "checkpoint_s": rec["checkpoint_s"],
+               "load_or_init_s": rec["load_or_init_s"],
+               "history": history, "results": results,
+               "launches": launches, "expected_launches": expect,
+               "served_launches": served,
+               "val_loss_f32_kernel": loss, "val_loss_f32_plain": ref,
+               "val_loss_rel_diff": rel, "f32_launches": [n_kernel, n_plain],
+               "val_loss_f32_fault": f32["fault"][0],
+               "val_loss_rel_diff_fault": rel_fault,
+               "fault_scale": FAULT_SCALE,
+               "logits_f32_b": int(logits["plain"].shape[0]),
+               "logits_f32_max_abs_err": err,
+               "logits_f32_max_abs_err_fault": err_fault,
+               "logits_f32_max_abs_ref": scale,
+               "logits_f32_launches": n_logits}
+        emit(row)
+        if rel > 1e-4 or n_kernel != 2 * per_fwd * math.ceil(
+                n_split["valid-3d"] / eval_b) or n_plain != 0:
+            fail(f"f32 evaluate: kernel {loss} ({n_kernel} launches) "
+                 f"against plain {ref} ({n_plain})")
+        if err > 1e-4 * scale or n_logits != [per_fwd, 0, per_fwd]:
+            fail(f"f32 eval logits: kernel against plain max|diff| {err}, "
+                 f"max|ref| {scale}; launches {n_logits}")
+        if err_fault <= 1e-4 * scale:
+            fail(f"the logits check does not see a kernel scaled by "
+                 f"{FAULT_SCALE}: max|diff| {err_fault}, max|ref| {scale}")
+        print(f"CLI on {card}: train {wall['train']:.1f} s, resume "
+              f"{wall['resume']:.1f} s, evaluate {wall['evaluate']:.1f} s, "
+              f"predict {wall['predict']:.1f} s; "
+              f"{row['median_ms_per_step_epoch_2']:.1f} ms per step, "
+              f"{row['molecules_per_s_evaluated']:.1f} molecules/s "
+              f"evaluated; f32 val loss {loss} against {ref}, with the "
+              f"planted fault {f32['fault'][0]}; f32 logits max|diff| {err} "
+              f"of max|ref| {scale}, with the fault {err_fault}", flush=True)
+        total = {k: sum(v[k] for v in launches.values())
+                 for k in ("fwd", "bwd")}
+        total["fwd"] += served + n_kernel
+        return total
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1608,6 +1935,7 @@ def main() -> int:
         del weights
     if not all(served.values()):
         fail(f"a served path never launched its triplet kernel: {served}")
+    cli = phase("7 TGT-At CLI", cli_phase, card, at)
 
     def entry(name, source, replaces, by_path, row, ungated=None,
               ungated_train=None):
@@ -1645,16 +1973,20 @@ def main() -> int:
     d_serve, d_train = served[at_d.name], trained[at_d.name]
     print(f"card: {card}", flush=True)
     emit({"kernels": [
-        with_dropout(entry(
+        dict(with_dropout(entry(
             "triplet_dense_fwd", td.KERNEL_SOURCE, td.REPLACES,
             {"serving": served[at.name], "training": trained[at.name]["fwd"],
-             "serving_dropout": d_serve, "training_dropout": d_train["fwd"]},
+             "serving_dropout": d_serve, "training_dropout": d_train["fwd"],
+             "cli": cli["fwd"]},
             dense[FLAGSHIP], dense[UNGATED], dense[UNGATED_TRAIN]),
             drop["fwd"], {"serving": d_serve, "training": d_train["fwd"]}),
+            eval_b64={f"n{case[1]}": {k: dense[case].get(k) for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "device_ms",
+                "route")} for case in EVAL_CASES}),
         with_dropout(entry(
             "triplet_dense_bwd", td.BWD_KERNEL_SOURCE, td.BWD_REPLACES,
             {"training": trained[at.name]["bwd"],
-             "training_dropout": d_train["bwd"]},
+             "training_dropout": d_train["bwd"], "cli": cli["bwd"]},
             dense_bwd[FLAGSHIP], dense_bwd[UNGATED],
             dense_bwd[UNGATED_TRAIN]),
             drop["bwd"], {"training": d_train["bwd"]}),

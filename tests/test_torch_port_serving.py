@@ -304,7 +304,12 @@ class TestImportRule:
                 "tgt_torch.ops.kernels.triplet_attention, tgt_torch.profiling, "
                 "tgt_torch.training, "
                 "tgt_torch.training.harness, tgt_torch.data.loader, "
-                "tgt_torch.data.synthetic, tgt_torch.schemes.dist_pred; "
+                "tgt_torch.data.synthetic, tgt_torch.schemes.dist_pred, "
+                "tgt_torch.data.bins, tgt_torch.data.pcqm, "
+                "tgt_torch.data.prepare, tgt_torch.training.checkpoint, "
+                "tgt_torch.training.progress, tgt_torch.cli, "
+                "tgt_torch.cli.execute, tgt_torch.cli.run_training, "
+                "tgt_torch.cli.make_predictions, tgt_torch.cli.do_evaluations; "
                 "bad = [m for m in sys.modules "
                 "if m.split('.')[0] in ('jax', 'jaxlib', 'tgt_tpu')]; "
                 "print(bad); sys.exit(1 if bad else 0)")

@@ -7,8 +7,11 @@ This package imports ``torch``, ``numpy`` and ``yaml``; it never imports
 ``jax`` or ``tgt_tpu``.
 
 Ported so far: serving of the distance predictor (``tgt_torch.serving.
-DistancePredictor``) and its training (``tgt_torch.training.Trainer`` on
-the ``pcqm.dist_pred`` scheme), with all six triplet variants. With
+DistancePredictor``), its training (``tgt_torch.training.Trainer`` on the
+``pcqm.dist_pred`` scheme, with checkpoints in tgt_tpu's format), the
+PCQM4Mv2 parquet data layer and the CLI (``python -m
+tgt_torch.cli.run_training``, ``do_evaluations``, ``make_predictions``),
+with all six triplet variants. With
 ``use_pallas: dense`` the triplet core runs hand-written CUDA kernels on the
 card: ``csrc/triplet_dense_{fwd,bwd}.cu`` for the attention variants
 (TGT-At, with triplet dropout drawn in the kernels),

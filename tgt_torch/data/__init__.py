@@ -1,4 +1,5 @@
 """Host-side data preparation (counterpart of tgt_tpu/data): structural
-transform, bucketed collation, the synthetic dataset, the training sampler
-and the threaded loader. The PCQM parquet dataset, the other samplers and
-the native library binding come with ROADMAP.md item 1j."""
+transform, bucketed collation, the synthetic dataset, the PCQM4Mv2 parquet
+dataset and its writers, the samplers and the threaded loader. The
+preparation of the real PCQM4Mv2 and the native library binding are
+ROADMAP.md item 1j's rest."""

@@ -1,12 +1,13 @@
-"""Training sampler and a threaded prefetching batch loader (counterpart of
-tgt_tpu/data/loader.py; ported: ``slice_for_rank``,
-``DistributedTrainSampler`` and ``DataLoader``. The size-bucketed sampler
-and the test sampler come with ROADMAP.md item 1j).
+"""Samplers and a threaded prefetching batch loader (counterpart of
+tgt_tpu/data/loader.py: the same arguments give the same index lists).
 
-Sharding as the reference samplers (lib/training/samplers.py): each rank
-owns a static contiguous slice of the dataset, shuffles within it each
-epoch, and wrap-pads so that all ranks yield epochs of equal length. The
-loader collates on a host thread while the card runs the previous batch.
+Sharding as the reference samplers (lib/training/samplers.py):
+- train (``DistributedTrainSampler``, ``SizeBucketedTrainSampler``): each
+  rank owns a static contiguous slice of the dataset, shuffles within it
+  each epoch, and wrap-pads so that all ranks yield epochs of equal length;
+- test (``DistributedTestSampler``): contiguous ``np.array_split`` chunks
+  in fixed batches, the last one short.
+The loader collates on a host thread while the card runs the previous batch.
 """
 from __future__ import annotations
 
@@ -51,6 +52,81 @@ class DistributedTrainSampler:
 
     def __len__(self) -> int:
         return (self.per_rank + self.batch_size - 1) // self.batch_size
+
+
+class SizeBucketedTrainSampler:
+    """Batches of molecules of similar size, so that each batch collates to
+    the smallest bucket that holds it (``size_bucketed_batching``). Keeps
+    the per-rank contiguous slice of ``DistributedTrainSampler``; shuffles
+    within each bucket's pool and the batch order each epoch."""
+
+    def __init__(self, sizes, batch_size: int, buckets, rank: int = 0,
+                 world_size: int = 1, seed: int = 0):
+        self.sizes = np.asarray(sizes)
+        self.batch_size = batch_size
+        self.buckets = list(buckets)
+        self.seed = seed
+        self.start, self.end = slice_for_rank(len(self.sizes), rank,
+                                              world_size)
+        self.per_rank = (len(self.sizes) + world_size - 1) // world_size
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def _bucket_of(self, n: int) -> int:
+        for b in self.buckets:
+            if n <= b:
+                return b
+        return int(n)
+
+    def __iter__(self) -> Iterator[List[int]]:
+        rs = np.random.RandomState(self.seed + self.epoch)
+        idx = np.arange(self.start, self.end)
+        # a cache-ranged dataset's sizes are -1 outside its shard: reading
+        # one means the sampler's slice and the cache range disagree
+        if len(idx) and self.sizes[idx].min() < 0:
+            raise ValueError(
+                f"sampler slice [{self.start},{self.end}) reads sizes "
+                f"outside the dataset's cached shard (found -1 sentinel)")
+        if len(idx) < self.per_rank and len(idx) > 0:
+            idx = np.concatenate([idx, idx[:self.per_rank - len(idx)]])
+        pools: Dict[int, List[int]] = {}
+        for i in idx:
+            pools.setdefault(self._bucket_of(int(self.sizes[i])),
+                             []).append(int(i))
+        batches = []
+        for bucket in sorted(pools):
+            pool = np.asarray(pools[bucket])
+            rs.shuffle(pool)
+            for k in range((len(pool) + self.batch_size - 1)
+                           // self.batch_size):
+                batches.append(pool[k * self.batch_size:
+                                    (k + 1) * self.batch_size].tolist())
+        for t in rs.permutation(len(batches)):
+            yield batches[t]
+
+    def __len__(self) -> int:
+        # an upper bound: each bucket's remainder can add a batch
+        return (self.per_rank + self.batch_size - 1) // self.batch_size + \
+            len(self.buckets)
+
+
+class DistributedTestSampler:
+    """Contiguous per-rank chunk in fixed-size batches (reference
+    samplers.py:5-13)."""
+
+    def __init__(self, length: int, batch_size: int, rank: int = 0,
+                 world_size: int = 1):
+        self.indices = np.array_split(np.arange(length), world_size)[rank]
+        self.batch_size = batch_size
+
+    def __iter__(self) -> Iterator[List[int]]:
+        for i in range(0, len(self.indices), self.batch_size):
+            yield self.indices[i:i + self.batch_size].tolist()
+
+    def __len__(self) -> int:
+        return (len(self.indices) + self.batch_size - 1) // self.batch_size
 
 
 class DataLoader:

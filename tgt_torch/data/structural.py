@@ -1,6 +1,6 @@
 """Structural preprocessing: hop-distance matrix + dense feature scatter
 (counterpart of tgt_tpu/data/structural.py, numpy path; binding the C++
-library csrc/tgt_native.cpp is ROADMAP.md item 1j).
+library csrc/tgt_native.cpp is the rest of ROADMAP.md item 1j).
 
 As the reference's numba kernels (lib/data/pcqm/structural_transform.py:8-75):
 - ``floyd_warshall``: all-pairs hop distance, unreachable pairs = 510,

@@ -64,6 +64,8 @@ class SyntheticDataset:
             row["node_mask"] = np.ones(n, np.uint8)
             row["idx"] = i                   # global row id
             self._cache.append(transform(row))
+        # per-row node counts, read by the size-bucketed sampler
+        self.sizes = np.asarray([r["num_nodes"] for r in self._cache])
 
     def __len__(self):
         return len(self._cache)

@@ -1,5 +1,5 @@
-"""Weight bridge from tgt_tpu's params to the port's state_dict (the
-counterpart of tgt_tpu/models/convert.py, which maps the other way).
+"""Weight bridge between tgt_tpu's params and the port's state_dict, both
+ways (the counterpart of tgt_tpu/models/convert.py).
 
 The port's module names are the reference PyTorch state_dict names, so a
 params tree of tgt_tpu maps onto them one for one:
@@ -10,16 +10,23 @@ params tree of tgt_tpu maps onto them one for one:
   ``encoder.TGT_layers.{0..h-2}``; ``encoder.last`` -> ``TGT_layers.{h-1}``
 - the Gaussian 3D embedding's names follow ``_M3D_GAUSSIAN_MAP``.
 
-Input arrays are numpy; this module needs no JAX. ``load_jax_npz`` reads the
-flat ``.npz`` that ``tgt_tpu.training.checkpoint.save_pytree`` writes (keys
+``jax_params_from_state_dict`` inverts the map (restacking the inner
+layers under ``encoder/layers``), and ``opt_state_to_jax`` /
+``opt_state_from_jax`` do the same for the optimizer state ``{mu, nu,
+count}`` (tgt_tpu/training/harness.py:131-136), so that a checkpoint of
+either package loads strictly in the other.
+
+Arrays are numpy; this module needs no JAX. ``load_jax_npz`` reads the
+flat ``.npz`` that ``save_pytree`` writes (keys
 ``encoder/layers/update/lin_QKV/w``, ...) back into a nested dict.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from tgt_torch.models.model_config import TGTConfig
 
@@ -90,6 +97,86 @@ def state_dict_from_jax_params(params: Mapping[str, Any],
             _put_module(out, f"encoder.TGT_layers.{h - 1}", sub["last"])
         else:
             _put_module(out, "", {top: sub})
+    return out
+
+
+def _stack(trees: List[Mapping[str, Any]]) -> Dict[str, Any]:
+    return {k: _stack([t[k] for t in trees]) if isinstance(v, Mapping)
+            else np.stack([t[k] for t in trees]) for k, v in trees[0].items()}
+
+
+def _put_leaf(tree: Dict[str, Any], path: List[str], value) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value
+
+
+def jax_params_from_state_dict(state_dict: Mapping[str, torch.Tensor],
+                               cfg: TGTConfig) -> Dict[str, Any]:
+    """The port's state_dict (or any dict keyed by its parameter names,
+    such as Adam's moments) -> tgt_tpu's params tree of numpy arrays: the
+    inverse of ``state_dict_from_jax_params``. The kind of each module
+    (Linear, LayerNorm, Embedding) comes from the distance model built on
+    the meta device."""
+    from tgt_torch.models.heads import DistanceModel
+    modules = dict(DistanceModel(cfg, device="meta").named_modules())
+    m3d = {v: k for k, v in _M3D_GAUSSIAN_MAP.items()}
+    h = cfg.model_height
+    out: Dict[str, Any] = {}
+    layers: List[Dict[str, Any]] = [{} for _ in range(h - 1)]
+    for key, t in state_dict.items():
+        a = t.detach().cpu().numpy()
+        name, attr = key.rsplit(".", 1)
+        mod = modules.get(name)
+        if isinstance(mod, nn.Linear):
+            leaf = ["w", np.ascontiguousarray(a.T)] if attr == "weight" \
+                else ["b", a]
+        elif isinstance(mod, nn.LayerNorm):
+            leaf = ["scale" if attr == "weight" else "bias", a]
+        elif isinstance(mod, nn.Embedding):
+            leaf = ["w", a]
+        else:                                  # raw buffer (angular_freqs)
+            name, leaf = key, [None, a]
+        parts = name.split(".")
+        tree = out
+        if parts[:2] == ["encoder", "TGT_layers"]:
+            i, parts = int(parts[2]), parts[3:]
+            if i < h - 1:
+                tree = layers[i]
+            else:
+                parts = ["encoder", "last"] + parts
+        elif parts[:2] == ["input_embed", "m3d_embed"] and \
+                ".".join(parts[2:]) in m3d:
+            parts = parts[:2] + [m3d[".".join(parts[2:])]]
+        path = parts + ([leaf[0]] if leaf[0] is not None else [])
+        _put_leaf(tree, path, leaf[1])
+    if h > 1:
+        out.setdefault("encoder", {})["layers"] = _stack(layers)
+    return out
+
+
+def opt_state_to_jax(opt_state: Mapping[str, Any],
+                     cfg: TGTConfig) -> Dict[str, Any]:
+    """The port's optimizer state ``{mu, nu, count}`` (moments keyed by
+    parameter name) -> tgt_tpu's tree of numpy arrays."""
+    out = {k: jax_params_from_state_dict(v, cfg)
+           for k, v in opt_state.items() if k != "count"}
+    out["count"] = np.asarray(int(opt_state["count"]), np.int32)
+    return out
+
+
+def opt_state_from_jax(tree: Mapping[str, Any], cfg: TGTConfig,
+                       names, device) -> Dict[str, Any]:
+    """tgt_tpu's optimizer state tree -> the port's, with the moments of
+    the parameters ``names`` on ``device``."""
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        if k == "count":
+            out[k] = torch.tensor(int(np.asarray(v)), dtype=torch.int32,
+                                  device=device)
+        else:
+            sd = state_dict_from_jax_params(v, cfg)
+            out[k] = {n: sd[n].to(device) for n in names}
     return out
 
 

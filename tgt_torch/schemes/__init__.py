@@ -10,7 +10,7 @@ _LATER = ("pcqm.pretrain", "pcqm.finetune", "pcqm.gap_pred")
 def get_scheme(name: str):
     if name in _LATER:
         raise NotImplementedError(
-            f"scheme '{name}' is not ported yet (ROADMAP.md item 1k)")
+            f"scheme '{name}' is not ported yet (ROADMAP.md item 1i)")
     if name not in SCHEMES:
         raise ValueError(f"unknown scheme '{name}'; available: {list(SCHEMES)}")
     return SCHEMES[name]

@@ -4,30 +4,49 @@ tgt_tpu/schemes/base.py).
 
 A scheme resolves a user config (a published YAML) over the reference's
 defaults and builds the ``TGTConfig``. The full key set of tgt_tpu is kept,
-so every published config loads and a mistyped key still raises. Ported
-for training: the learning-rate schedule, the synthetic dataset, the train
-loader, the device batch (batch-axis padding and ``sample_mask``) and the
-edge mask. The PCQM parquet data, validation and test loaders and MC
-sampling come with ROADMAP.md items 1j and 1k.
+so every published config loads and a mistyped key still raises. Also:
+the learning-rate schedule, the datasets (synthetic, or the PCQM parquet
+files with per-rank cache ranges), the train loader (random or
+size-bucketed batches), the validation and test loaders, the device batch
+(batch-axis padding and ``sample_mask``), the edge mask and MC sampling.
 
-A task's ``loss_fn(model, batch, seed) -> (loss, aux)`` takes the model
-module (the parameters live in it) and a device batch of tensors.
+A task's ``loss_fn(model, batch, seed) -> (loss, aux)`` and
+``eval_fn(model, batch, seed) -> dict`` take the model module (the
+parameters live in it) and a device batch of tensors; every random draw
+comes from ``seed``. ``precompile_buckets`` is accepted and has no effect:
+the port runs eagerly, so there is no program to compile ahead.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from tgt_torch.core.config import Config, Lazy
 from tgt_torch.data.collate import pad_batch_dim, padded_collate
-from tgt_torch.data.loader import DataLoader, DistributedTrainSampler
+from tgt_torch.data.loader import (DataLoader, DistributedTestSampler,
+                                   DistributedTrainSampler,
+                                   SizeBucketedTrainSampler, slice_for_rank)
 from tgt_torch.data.synthetic import SyntheticDataset
 from tgt_torch.models.heads import make_model
 from tgt_torch.models.model_config import TGTConfig
 from tgt_torch.training import schedules
-from tgt_torch.training.harness import resolve_grad_accum
+from tgt_torch.training.harness import derive_seed, resolve_grad_accum
+
+
+class Subset:
+    """First-k view of a dataset (trial-run capping)."""
+
+    def __init__(self, dataset, k: int):
+        self.dataset = dataset
+        self.k = k
+
+    def __len__(self):
+        return self.k
+
+    def __getitem__(self, i):
+        return self.dataset[i]
 
 
 def default_scheme_config() -> Config:
@@ -147,6 +166,10 @@ class TGTScheme:
             self.cfg.compute_dtype = "bfloat16"
         self.command = command
         self.model_cfg = self.build_model_cfg()
+        self.nb_draw_samples = (self.cfg.prediction_samples
+                                if command == "predict"
+                                else self.cfg.evaluation_samples)
+        self.lr_scale = 1.0
         self._datasets: Dict[str, Any] = {}
 
     def default_config(self, command: str) -> Config:
@@ -199,54 +222,99 @@ class TGTScheme:
         return schedules.constant(c.max_lr)
 
     # -- datasets -------------------------------------------------------------
-    def get_dataset(self, split: str):
+    def dataset_split_name(self, split: str) -> str:
+        return {"train": self.cfg.train_split, "val": self.cfg.val_split,
+                "test": self.cfg.test_split}[split]
+
+    def extra_columns(self, split: str) -> List:
+        return []
+
+    def get_dataset(self, split: str, rank: int = 0, world_size: int = 1):
         if split in self._datasets:
             return self._datasets[split]
-        if self.cfg.dataset_source != "synthetic":
-            raise NotImplementedError(
-                f"dataset_source={self.cfg.dataset_source!r}: the PCQM "
-                f"parquet data layer is not ported yet (ROADMAP.md item 1j); "
-                f"use dataset_source: synthetic")
-        n = (self.cfg.synth_train_samples if split == "train"
-             else self.cfg.synth_val_samples)
-        ds = SyntheticDataset(num_samples=n, max_nodes=self.cfg.synth_max_nodes,
-                              seed={"train": 0, "val": 1, "test": 2}[split])
+        if self.cfg.dataset_source == "synthetic":
+            n = (self.cfg.synth_train_samples if split == "train"
+                 else self.cfg.synth_val_samples)
+            ds = SyntheticDataset(num_samples=n,
+                                  max_nodes=self.cfg.synth_max_nodes,
+                                  seed={"train": 0, "val": 1, "test": 2}[split])
+        else:
+            from tgt_torch.data.pcqm import PCQM4Mv2Dataset
+            from tgt_torch.data.structural import AddStructuralData
+            # per-rank cache range: each process loads only its sampler's
+            # contiguous slice (reference data.py:63-66); trial_run reads
+            # rows 0..k, so it needs the whole split
+            cache_range_fn = None
+            if world_size > 1 and not self.cfg.trial_run:
+                cache_range_fn = (lambda n, r=rank, w=world_size:
+                                  slice_for_rank(n, r, w))
+            ds = PCQM4Mv2Dataset(
+                split=self.dataset_split_name(split),
+                dataset_path=self.cfg.dataset_path,
+                return_idx=True,
+                cache_range_fn=cache_range_fn,
+                transforms=[AddStructuralData()],
+                additional_columns=self.extra_columns(split))
+        if self.cfg.trial_run:
+            # a trial run caps each dataset at 2 batches (reference
+            # training.py:57-70,235-240)
+            ds = Subset(ds, min(len(ds), self.cfg.batch_size * 2))
         self._datasets[split] = ds
         return ds
+
+    def _collate(self, rows):
+        return padded_collate(rows, buckets=tuple(self.cfg.buckets))
 
     def train_loader(self, epoch: int, rank: int, world_size: int):
         """Host batches of ``batch_size * accum`` molecules: the Trainer
         splits each back into ``batch_size`` micro-batches."""
-        if self.cfg.size_bucketed_batching:
-            raise NotImplementedError(
-                "size_bucketed_batching: the size-bucketed train sampler is "
-                "not ported yet (ROADMAP.md item 1j)")
-        ds = self.get_dataset("train")
+        ds = self.get_dataset("train", rank, world_size)
         bsz = self.cfg.batch_size * resolve_grad_accum(self.cfg, world_size)
-        sampler = DistributedTrainSampler(len(ds), bsz, rank=rank,
-                                          world_size=world_size,
-                                          seed=self.cfg.random_seed or 0)
+        sizes = getattr(ds, "sizes", None)
+        if self.cfg.size_bucketed_batching and sizes is not None and \
+                len(sizes) == len(ds):
+            sampler = SizeBucketedTrainSampler(
+                sizes, bsz, self.cfg.buckets, rank=rank,
+                world_size=world_size, seed=self.cfg.random_seed or 0)
+        else:
+            sampler = DistributedTrainSampler(len(ds), bsz, rank=rank,
+                                              world_size=world_size,
+                                              seed=self.cfg.random_seed or 0)
         sampler.set_epoch(epoch)
-        return DataLoader(ds, sampler,
-                          collate_fn=lambda rows: padded_collate(
-                              rows, buckets=tuple(self.cfg.buckets)))
+        return DataLoader(ds, sampler, collate_fn=self._collate)
+
+    def val_loader(self, rank: int, world_size: int):
+        return self.test_loader("val", rank, world_size)
+
+    def test_loader(self, split: str, rank: int, world_size: int):
+        """Fixed batches of ``batch_size * prediction_bmult`` molecules of
+        this rank's contiguous chunk of ``split``."""
+        ds = self.get_dataset(split if split in ("train", "val", "test")
+                              else "val", rank, world_size)
+        bsz = round(self.cfg.batch_size * self.cfg.prediction_bmult)
+        sampler = DistributedTestSampler(len(ds), bsz, rank=rank,
+                                         world_size=world_size)
+        return DataLoader(ds, sampler, collate_fn=self._collate)
 
     # -- batch plumbing ---------------------------------------------------------
     DEVICE_KEYS = ("node_features", "distance_matrix", "feature_matrix",
                    "node_mask", "target")
 
-    def device_keys(self):
+    def device_keys(self, training: bool = True):
         return self.DEVICE_KEYS
 
     def batch_num_samples(self, batch: Dict[str, np.ndarray]) -> int:
         return int(batch["node_mask"].shape[0])
 
-    def device_batch(self, batch: Dict[str, np.ndarray]
-                     ) -> Dict[str, np.ndarray]:
+    def device_batch(self, batch: Dict[str, np.ndarray],
+                     training: bool = True) -> Dict[str, np.ndarray]:
         """The keys the task reads, with the batch axis zero-padded to at
-        least ``batch_size`` and a (b,) ``sample_mask`` of the real rows."""
-        sub = {k: batch[k] for k in self.device_keys() if k in batch}
-        sub, sample_mask = pad_batch_dim(sub, max(self.cfg.batch_size,
+        least ``batch_size`` (``batch_size * prediction_bmult`` outside
+        training) and a (b,) ``sample_mask`` of the real rows."""
+        sub = {k: batch[k] for k in self.device_keys(training) if k in batch}
+        target_b = round(self.cfg.batch_size *
+                         (1 if training else self.cfg.prediction_bmult))
+        sub, sample_mask = pad_batch_dim(sub, max(target_b,
                                                   len(batch["node_mask"])))
         sub["sample_mask"] = sample_mask
         return sub
@@ -260,3 +328,46 @@ class TGTScheme:
     # -- task hooks -------------------------------------------------------------
     def loss_fn(self, model, batch: Dict[str, torch.Tensor], seed: int):
         raise NotImplementedError
+
+    def eval_fn(self, model, batch: Dict[str, torch.Tensor], seed: int):
+        raise NotImplementedError
+
+    def postprocess_eval(self, out: Dict[str, np.ndarray],
+                         host_batch: Dict[str, np.ndarray]
+                         ) -> Dict[str, np.ndarray]:
+        """Strip padded samples from per-graph outputs (host side)."""
+        n = len(host_batch["node_mask"])
+        return {k: v[:n] if v.ndim >= 1 and v.shape[0] >= n else v
+                for k, v in out.items()}
+
+    def evaluate_predictions(self, preds: Dict[str, np.ndarray]
+                             ) -> Dict[str, float]:
+        raise NotImplementedError
+
+    # -- MC sampling ------------------------------------------------------------
+    def mc_sample(self, fn: Callable[[int], Dict[str, torch.Tensor]],
+                  seed: int, num_samples: int
+                  ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """Sum ``fn(seed_k)`` in f32 over ``num_samples`` draws, the k-th
+        under ``derive_seed(seed, k)``, skipping every draw with a
+        non-finite value (reference dist_pred/scheme.py:139-167, its
+        NaN-resample loop). Returns (sums, count of the valid draws).
+        tgt_tpu's two ``mc_eval_mode`` values schedule the same draws on
+        the TPU (one program or a scan); the port runs either as a loop of
+        eager draws, with the same result."""
+        acc: Optional[Dict[str, torch.Tensor]] = None
+        valid = None
+        for k in range(num_samples):
+            out = fn(derive_seed(seed, k))
+            finite = torch.stack([torch.isfinite(v).all()
+                                  for v in out.values()]).all()
+            if acc is None:
+                acc = {n: torch.zeros_like(v, dtype=torch.float32)
+                       for n, v in out.items()}
+                valid = torch.zeros((), dtype=torch.int32,
+                                    device=finite.device)
+            # decided on the device: the host never waits on a draw
+            acc = {n: torch.where(finite, a + out[n].float(), a)
+                   for n, a in acc.items()}
+            valid = valid + finite.to(torch.int32)
+        return acc, valid

@@ -2,27 +2,44 @@
 tgt_tpu/training/harness.py).
 
 Ported: ``make_optimizer`` (adam with L2 weight decay folded into the
-gradients, adamw, sgd; value and norm clipping), ``resolve_grad_accum``, and
-a ``Trainer`` with ``init_state``, the accumulation padding of the device
-batch, ``train_step`` (micro-batch accumulation weighted by ``sample_mask``
-and the NaN-step guard) and ``train_epoch`` (delayed metric drain, NaN
-streak, step budget). The data mesh, the compile cache, checkpoints,
-validation, ``fit`` and the plateau controller come with ROADMAP.md items
-1k and 1m.
+gradients, adamw, sgd; value and norm clipping), ``resolve_grad_accum``,
+``eval_condition``, and a ``Trainer`` with ``init_state`` and
+``load_or_init`` (resume, or non-strict pretrained weights), the
+accumulation padding of the device batch, ``train_step`` (micro-batch
+accumulation weighted by ``sample_mask``, the plateau ``lr_scale``, the
+NaN-step guard), ``train_epoch`` (delayed metric drain, NaN streak, step
+budget), ``eval_epoch`` and ``fit`` (validation, best-model monitor,
+plateau stop, NaN rollback to the last checkpoint, checkpoints in
+tgt_tpu's format, history.yaml). The data mesh is ROADMAP.md item 1m; the
+XLA compile cache and ``precompile`` have no counterpart in an eager port.
 
 Where tgt_tpu jits one pure step, the port runs eagerly and updates the
 parameters and the optimizer moments in place. The guard is still decided
 on the device: a non-finite loss selects the old values with
-``torch.where``, so the step never waits for the host.
+``torch.where``, so the step never waits for the host. Every random draw
+of a step or an eval batch comes from a seed that is a pure function of
+(``random_seed``, step or batch index), so a resumed run repeats an
+uninterrupted one.
 """
 from __future__ import annotations
 
+import ast
+import os
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import yaml
 
 from tgt_torch.core.device import resolve_device
+from tgt_torch.models.convert import (jax_params_from_state_dict,
+                                      opt_state_from_jax, opt_state_to_jax,
+                                      state_dict_from_jax_params)
+from tgt_torch.training.checkpoint import (CheckpointManager, flatten_tree,
+                                           load_pretrained)
+from tgt_torch.training.progress import progbar
+from tgt_torch.training.schedules import PlateauController
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -33,6 +50,92 @@ def derive_seed(*words: int) -> int:
     state = np.random.SeedSequence([int(w) for w in words]).generate_state(
         1, np.uint64)[0]
     return int(state >> np.uint64(2))
+
+
+class StopTraining(Exception):
+    pass
+
+
+_COND_OPS = {
+    "Eq": lambda a, b: a == b, "NotEq": lambda a, b: a != b,
+    "Lt": lambda a, b: a < b, "LtE": lambda a, b: a <= b,
+    "Gt": lambda a, b: a > b, "GtE": lambda a, b: a >= b,
+    "Add": lambda a, b: a + b, "Sub": lambda a, b: a - b,
+    "Mult": lambda a, b: a * b, "Div": lambda a, b: a / b,
+    "FloorDiv": lambda a, b: a // b, "Mod": lambda a, b: a % b,
+}
+
+
+def eval_condition(expr: Optional[str], context: Dict[str, Any]) -> bool:
+    """Evaluate a config condition such as ``"epoch > 10 and epoch % 5 ==
+    0"`` against log values. The reference eval()s these with full
+    builtins (training.py:648-649); here a small AST interpreter allows
+    boolean, comparison and arithmetic operators, names bound to the
+    context and literal constants, and nothing else (no calls, attributes
+    or subscripts), so a typo fails loud and a hostile string does
+    nothing."""
+    if not expr:
+        return True
+
+    def ev(node):
+        if isinstance(node, ast.Expression):
+            return ev(node.body)
+        if isinstance(node, ast.BoolOp):
+            vals = (ev(v) for v in node.values)
+            return (all(map(bool, vals)) if isinstance(node.op, ast.And)
+                    else any(map(bool, vals)))
+        if isinstance(node, ast.UnaryOp):
+            if isinstance(node.op, ast.Not):
+                return not ev(node.operand)
+            if isinstance(node.op, ast.USub):
+                return -ev(node.operand)
+            raise ValueError(f"operator not allowed in condition: "
+                             f"{type(node.op).__name__}")
+        if isinstance(node, ast.Compare):
+            left = ev(node.left)
+            for op, rhs in zip(node.ops, node.comparators):
+                right = ev(rhs)
+                fn = _COND_OPS.get(type(op).__name__)
+                if fn is None:
+                    raise ValueError(f"comparison not allowed in condition: "
+                                     f"{type(op).__name__}")
+                if not fn(left, right):
+                    return False
+                left = right
+            return True
+        if isinstance(node, ast.BinOp):
+            fn = _COND_OPS.get(type(node.op).__name__)
+            if fn is None:
+                raise ValueError(f"operator not allowed in condition: "
+                                 f"{type(node.op).__name__}")
+            return fn(ev(node.left), ev(node.right))
+        if isinstance(node, ast.Name):
+            if node.id not in context:
+                raise NameError(f"unknown name in condition: {node.id!r}")
+            return context[node.id]
+        if isinstance(node, ast.Constant):
+            return node.value
+        raise ValueError(
+            f"syntax not allowed in condition: {type(node).__name__}")
+
+    return bool(ev(ast.parse(expr, mode="eval")))
+
+
+def model_summary(params: Dict[str, Any], path: Optional[str] = None) -> str:
+    """Parameter counts per top-level group of a params tree, as tgt_tpu
+    writes model_summary.txt (reference training.py:267-282)."""
+    lines = []
+    total = 0
+    for key, sub in params.items():
+        n = sum(int(np.size(v)) for v in flatten_tree(sub).values())
+        total += n
+        lines.append(f"{key:30s} {n/1e6:10.3f}M")
+    lines.append(f"{'TOTAL':30s} {total/1e6:10.3f}M")
+    text = "\n".join(lines)
+    if path:
+        with open(path, "w") as f:
+            f.write(text + "\n")
+    return text
 
 
 def make_optimizer(cfg) -> Tuple[Callable, Callable]:
@@ -149,10 +252,25 @@ class Trainer:
         self.device = resolve_device(device)
         self.scheme = scheme
         self.cfg = scheme.cfg
+        self.model_path = self.cfg.save_path
+        self.log_path = os.path.join(self.model_path, "logs")
+        self.ckpt = CheckpointManager(
+            self.model_path, save_backups=self.cfg.save_all_checkpoints)
         self.schedule = scheme.make_lr_schedule()
         self.opt_init, self.opt_update = make_optimizer(self.cfg)
+        # ReduceLR-on-plateau (reference training_mixins.py:170-255), on
+        # when rlr_factor is set
+        self.plateau = None
+        if self.cfg.rlr_factor:
+            self.plateau = PlateauController(
+                factor=self.cfg.rlr_factor, patience=self.cfg.rlr_patience,
+                stopping_lr=self.cfg.stopping_lr)
+        # host counters (reference state dict, training.py:246-248)
         self.epoch = 0
         self.global_step = 0
+        self.recovery_tries = 0
+        self.monitor_best = float("inf")
+        self.monitor_best_epoch = -1
         self.grad_accum = resolve_grad_accum(self.cfg, 1)
 
     # -- state and batches ------------------------------------------------
@@ -166,6 +284,48 @@ class Trainer:
             opt_state = self.opt_init(
                 {k: p.detach() for k, p in model.named_parameters()})
         return {"model": model, "opt_state": opt_state}
+
+    # -- tgt_tpu's trees of the state -----------------------------------------
+    def params_tree(self, model) -> Dict[str, Any]:
+        return jax_params_from_state_dict(model.state_dict(),
+                                          self.scheme.model_cfg)
+
+    def load_params_tree(self, model, params: Dict[str, Any]) -> None:
+        model.load_state_dict(state_dict_from_jax_params(
+            params, self.scheme.model_cfg))
+
+    def load_or_init(self, seed: Optional[int] = None) -> Dict[str, Any]:
+        """A fresh state, then the model dir's checkpoint over it (params,
+        optimizer, counters, plateau state), or else the non-strict
+        ``pretrained_weights_file`` (reference tgt_training.py:174-187)."""
+        state = self.init_state(seed)
+        model, cfg = state["model"], self.scheme.model_cfg
+        if self.ckpt.has_checkpoint():
+            params, opt_state, counters = self.ckpt.load(
+                self.params_tree(model),
+                opt_state_to_jax(state["opt_state"], cfg))
+            self.load_params_tree(model, params)
+            state["opt_state"] = opt_state_from_jax(
+                opt_state, cfg, list(state["opt_state"]["mu"]), self.device)
+            self.epoch = counters.get("epoch", 0)
+            self.global_step = counters.get("global_step", 0)
+            self.monitor_best = counters.get("monitor_best", float("inf"))
+            self.monitor_best_epoch = counters.get("monitor_best_epoch", -1)
+            self.recovery_tries = counters.get("recovery_tries", 0)
+            if self.plateau is not None and "plateau" in counters:
+                self.plateau.load_state_dict(counters["plateau"])
+                self.scheme.lr_scale = self.plateau.scale
+            print(f"Resumed from checkpoint @ epoch {self.epoch}, "
+                  f"step {self.global_step}", flush=True)
+        elif self.cfg.pretrained_weights_file:
+            params, missing, unexpected = load_pretrained(
+                self.params_tree(model), self.cfg.pretrained_weights_file)
+            self.load_params_tree(model, params)
+            print(f"Loaded pretrained weights from "
+                  f"{self.cfg.pretrained_weights_file}", flush=True)
+            print(f"missing keys: {missing[:8]}", flush=True)
+            print(f"unexpected keys: {unexpected[:8]}", flush=True)
+        return state
 
     def pad_device_batch(self, device_batch: Dict[str, np.ndarray]
                          ) -> Dict[str, np.ndarray]:
@@ -251,13 +411,15 @@ class Trainer:
                 grads)
 
     def train_step(self, state: Dict[str, Any], batch: Tensors, step: int,
-                   seed: int):
-        """One optimizer step on a device batch; updates ``state`` in place
-        and returns ``(state, metrics)``. A non-finite loss leaves the
-        parameters and the optimizer state as they were."""
+                   seed: int, lr_scale: float = 1.0):
+        """One optimizer step on a device batch at the schedule's rate
+        times ``lr_scale`` (the plateau controller's); updates ``state`` in
+        place and returns ``(state, metrics)``. A non-finite loss leaves
+        the parameters and the optimizer state as they were."""
         model = state["model"]
         loss, aux, grads = self.accumulated_grad(model, batch, seed)
-        lr = self.schedule(step)
+        # f32, as tgt_tpu multiplies them inside its step
+        lr = float(np.float32(self.schedule(step)) * np.float32(lr_scale))
         named = dict(model.named_parameters())
         with torch.no_grad():
             params = {k: p.detach() for k, p in named.items()}
@@ -310,13 +472,13 @@ class Trainer:
 
         stop_reason = None
         seed0 = getattr(self.cfg, "random_seed", 0) or 0
-        for batch in loader:
+        for batch in progbar(loader, desc=f"epoch {self.epoch + 1}"):
             n = self.scheme.batch_num_samples(batch)
             device_batch = self.to_device(
                 self.pad_device_batch(self.scheme.device_batch(batch)))
             state, metrics = self.train_step(
                 state, device_batch, self.global_step,
-                derive_seed(seed0, self.global_step))
+                derive_seed(seed0, self.global_step), self.scheme.lr_scale)
             pending.append((metrics, n))
             stop_reason = drain()
             if stop_reason:
@@ -329,3 +491,155 @@ class Trainer:
             stop_reason = drain(flush=True)
         logs = {"loss": total_loss / max(total_samples, 1e-12), "lr": last_lr}
         return state, logs, stop_reason
+
+    def eval_epoch(self, model, loader, seed: int = 0
+                   ) -> Dict[str, np.ndarray]:
+        """The scheme's ``eval_fn`` over ``loader``, batch i under
+        ``derive_seed(seed + 1000, i)`` (tgt_tpu: ``fold_in(seed + 1000,
+        i)``), padded rows stripped; outputs concatenated per key."""
+        collected: Dict[str, list] = {}
+        for i, batch in enumerate(progbar(loader, desc="eval")):
+            device_batch = self.to_device(
+                self.scheme.device_batch(batch, training=False))
+            out = self.scheme.eval_fn(model, device_batch,
+                                      derive_seed(seed + 1000, i))
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+            if "valid_samples" in out and np.all(out["valid_samples"] == 0):
+                # reference: 'All predictions were NaN'
+                # (dist_pred/scheme.py:158-159)
+                print(f"WARNING: all MC draws non-finite in eval batch {i}",
+                      flush=True)
+            out = self.scheme.postprocess_eval(out, batch)
+            for k, v in out.items():
+                collected.setdefault(k, []).append(v)
+        return {k: np.concatenate(v, axis=0) if np.ndim(v[0]) > 0
+                else np.asarray(v) for k, v in collected.items()}
+
+    # -- the whole run ----------------------------------------------------------
+    def fit(self, num_epochs: Optional[int] = None) -> Dict[str, Any]:
+        cfg = self.cfg
+        num_epochs = num_epochs or cfg.num_epochs
+        state = self.load_or_init()
+        os.makedirs(self.log_path, exist_ok=True)
+        self._quarantine_corrupted_history()
+        self.save_config()
+        model_summary(self.params_tree(state["model"]),
+                      os.path.join(self.model_path, "model_summary.txt"))
+
+        history = []
+        while self.epoch < num_epochs:
+            t0 = time.time()
+            loader = self.scheme.train_loader(self.epoch, 0, 1)
+            state, train_logs, stop_reason = self.train_epoch(state, loader)
+            if stop_reason == "nan":
+                if self.recovery_tries >= cfg.max_recovery_tries:
+                    raise RuntimeError(
+                        "NaN loss persisted past max_recovery_tries")
+                self.recovery_tries += 1
+                print(f"NaN epoch — rolling back to checkpoint "
+                      f"(try {self.recovery_tries})", flush=True)
+                tries = self.recovery_tries
+                state = self.load_or_init()
+                self.recovery_tries = max(self.recovery_tries, tries)
+                continue
+            if stop_reason == "budget":
+                self.checkpoint(state)
+                break
+            logs = {"epoch": self.epoch, "global_step": self.global_step,
+                    "train_time": time.time() - t0, **train_logs}
+
+            if (self.epoch + 1) % cfg.validation_frequency == 0 and \
+                    eval_condition(cfg.validation_condition, logs):
+                t0 = time.time()
+                preds = self.eval_epoch(state["model"],
+                                        self.scheme.val_loader(0, 1),
+                                        seed=self.epoch)
+                val_metrics = self.scheme.evaluate_predictions(preds)
+                logs.update({f"val_{k}": float(v)
+                             for k, v in val_metrics.items()})
+                logs["val_time"] = time.time() - t0
+                self.update_monitor(logs, state)
+                if self.plateau is not None and "val_loss" in logs:
+                    should_stop = self.plateau.update(
+                        logs["val_loss"], train_logs.get("lr", 0.0))
+                    self.scheme.lr_scale = self.plateau.scale
+                    logs["lr_scale"] = self.plateau.scale
+                    if should_stop:
+                        print("STOP: lr fell below stopping_lr", flush=True)
+                        self.epoch += 1
+                        self.checkpoint(state)
+                        history.append(logs)
+                        self.append_history(logs)
+                        break
+
+            self.epoch += 1
+            self.checkpoint(state)
+            history.append(logs)
+            self.append_history(logs)
+            msg = ", ".join(f"{k}={v:.5g}" if isinstance(v, float) else
+                            f"{k}={v}" for k, v in logs.items())
+            print(f"[epoch {self.epoch}] {msg}", flush=True)
+        return {"state": state, "history": history}
+
+    # -- artifacts --------------------------------------------------------------
+    def update_monitor(self, logs: Dict, state: Dict) -> None:
+        monitor = self.cfg.monitor
+        if monitor in logs:
+            v = logs[monitor]
+            if v < self.monitor_best:
+                print(f"MONITOR BEST: {monitor} improved "
+                      f"{self.monitor_best:0.5f} -> {v:0.5f}", flush=True)
+                self.monitor_best = v
+                self.monitor_best_epoch = logs["epoch"]
+                # conditional best-model saving (reference
+                # training_mixins.py:60-103)
+                if eval_condition(self.cfg.save_model_condition, logs):
+                    self.ckpt.save_best(self.params_tree(state["model"]))
+            logs[f"best_{monitor}"] = self.monitor_best
+
+    def checkpoint(self, state: Dict) -> None:
+        if self.cfg.trial_run:
+            return  # trial runs skip checkpoint io (training.py:292-293)
+        counters = {"epoch": self.epoch, "global_step": self.global_step,
+                    "monitor_best": self.monitor_best,
+                    "monitor_best_epoch": self.monitor_best_epoch,
+                    "recovery_tries": self.recovery_tries}
+        if self.plateau is not None:
+            counters["plateau"] = self.plateau.state_dict()
+        self.ckpt.save(self.params_tree(state["model"]),
+                       opt_state_to_jax(state["opt_state"],
+                                        self.scheme.model_cfg),
+                       counters, epoch=self.epoch)
+
+    def _quarantine_corrupted_history(self) -> None:
+        """Rename an unparseable history.yaml to ``.corrupted`` and go on
+        with a fresh one (reference training.py:570-582): a history cut
+        by a killed run would stay a broken YAML document."""
+        path = os.path.join(self.log_path, "history.yaml")
+        if not os.path.exists(path):
+            return
+        try:
+            with open(path) as f:
+                parsed = yaml.safe_load(f)
+            if parsed is None or isinstance(parsed, list):
+                return
+        except yaml.YAMLError:
+            pass
+        corrupted = path + ".corrupted"
+        os.replace(path, corrupted)
+        print(f"WARNING: corrupted history file moved to {corrupted}")
+
+    def append_history(self, logs: Dict) -> None:
+        path = os.path.join(self.log_path, "history.yaml")
+        with open(path, "a") as f:
+            yaml.safe_dump([{k: (float(v) if isinstance(v, (int, float,
+                                                            np.floating))
+                                 else v)
+                             for k, v in logs.items()}], f)
+
+    def save_config(self) -> None:
+        os.makedirs(self.model_path, exist_ok=True)
+        cfg_dict = {k: v for k, v in vars(self.cfg).items()
+                    if isinstance(v, (str, int, float, bool, list, type(None)))}
+        with open(os.path.join(self.model_path, "all_config.yaml"), "w") as f:
+            yaml.safe_dump(cfg_dict, f)

@@ -1,5 +1,5 @@
-"""Learning-rate schedules (counterpart of tgt_tpu/training/schedules.py;
-``PlateauController`` comes with ROADMAP.md item 1k).
+"""Learning-rate schedules and the plateau controller (counterpart of
+tgt_tpu/training/schedules.py).
 
 Each schedule maps the optimizer step (a host int) to the learning rate,
 computed in float32 as tgt_tpu computes it:
@@ -7,9 +7,11 @@ computed in float32 as tgt_tpu computes it:
   step budget down to a floor (reference training_mixins.py:276-317);
 - ``warmup_linear``: warmup only (mixins :259-273);
 - ``constant``.
+``PlateauController`` scales the schedule down when validation stalls.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -52,3 +54,38 @@ def constant(lr: float):
         return float(np.float32(lr))
 
     return schedule
+
+
+@dataclasses.dataclass
+class PlateauController:
+    """ReduceLROnPlateau (reference training_mixins.py:170-255): multiply
+    the learning rate by ``factor`` after ``patience`` epochs without a
+    better val metric; signal a stop once it falls below ``stopping_lr``."""
+
+    factor: float = 0.5
+    patience: int = 10
+    stopping_lr: float = 0.0
+    best: float = float("inf")
+    bad_epochs: int = 0
+    scale: float = 1.0
+
+    def update(self, val_metric: float, current_lr: float) -> bool:
+        """Record an epoch's val metric; True means stop training."""
+        if val_metric < self.best:
+            self.best = val_metric
+            self.bad_epochs = 0
+        else:
+            self.bad_epochs += 1
+            if self.bad_epochs > self.patience:
+                self.scale *= self.factor
+                self.bad_epochs = 0
+        return current_lr * self.scale < self.stopping_lr
+
+    def state_dict(self):
+        return {"best": self.best, "bad_epochs": self.bad_epochs,
+                "scale": self.scale}
+
+    def load_state_dict(self, d):
+        self.best = d["best"]
+        self.bad_epochs = d["bad_epochs"]
+        self.scale = d["scale"]
