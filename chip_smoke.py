@@ -17,8 +17,10 @@ Phases, each of which fails the run (non-zero exit) on error:
    version on the card at b=16, N in {24, 40, 48, 56}, edge width 256,
    16 triplet heads; gated and ungated; bf16 and f32; plus the training
    micro-batch, b=32, N=48, bf16, gated and ungated; the published eval
-   batch, b=64 (batch_size 32 x prediction_bmult 2), N=48 and 56, bf16,
-   gated; plus the F3 shapes that
+   batches, b=64 (stage 1's batch_size 32 x prediction_bmult 2, and stage
+   2's training micro-batch), N=48 and 56, and b=128 (stage 2's 64 x 2),
+   N=48, bf16, gated, each with its back-to-back device time and its
+   plain version's; plus the F3 shapes that
    no published bucket reaches (N=80 and N=128 at b=4; edge widths 128 and
    512, d = 8 and 32, at b=16, N=48; gated, bf16 and f32); and the out
    direction's pair-transposed K/V views at b=32 in bf16 and f32; with a
@@ -38,7 +40,10 @@ Phases, each of which fails the run (non-zero exit) on error:
    the out direction's pair-transposed K/V views at b=32, N=48 in bf16 and
    f32; two launches on the same inputs bitwise equal (bf16 at N=48 and the
    F3 shapes); the library time is SDPA's backward; at N=48 in bf16 also
-   the time of the wrapper's head-major copies alone.
+   the time of the wrapper's head-major copies alone. Also stage 2's
+   training micro-batch, b=64, N=48 and 56 (bucket 56 through the
+   head-major copies), bf16, gated, bitwise equal on repeat, with the
+   back-to-back device times of the kernel and its plain version.
 2c. The dense pair at dropout rate 0.3 against its plain versions with the
    same per-row seeds, on phase 2b's cases and the transposed K/V views at
    b=32: the forward and the five gradients within the tolerances above,
@@ -138,11 +143,38 @@ Phases, each of which fails the run (non-zero exit) on error:
    planted fault (the kernel's output scaled by 0.9) must fail that logits
    check; its val loss is printed beside the others. Prints wall seconds
    per command, ms per training step and molecules/s evaluated.
-8. The kernels line (six kernels, launches by path, the dense pair's
-   dropout launches and rate > 0 times, the ungated times and SDPA's at
-   b=16 and b=32, the aggregate pair's back-to-back times, body launches
-   and two routes, the dense forward at the eval batch b=64), then
-   ``{"ok": true, "device": {...}}`` as the last line.
+7b. Stage 2 of the published pipeline, in phase 7's directory, on its
+   data, its distance model and the bins50 it predicted for train and
+   valid: ``execute("train")`` with the published TGT-At pretrain yaml
+   (``global_batch_size: 64``: one micro-batch of the published 64 per
+   step, ``num_epochs: 1``), with the finetune yaml (the same, plus
+   ``bins_input_path`` and ``pretrained_weights_file``: the bins50 and the
+   pretrain checkpoint), with the gap_pred yaml (the trim of the finetune
+   checkpoint), ``execute("evaluate")`` of the gap_pred dir, then three
+   timed requests of 64 molecules through ``TwoStagePredictor.
+   from_model_dirs`` (phase 7's distance dir and the gap_pred dir, batch 16,
+   10 draws in each stage): the first, the first with its sizes reversed
+   and the draws' seeds reset (the same molecule must get the same gap:
+   input order), and another. Checks finite losses, every step applied,
+   the finetune validation, the trimmed checkpoint (no distance head, no
+   last-layer triplet), results.yaml, gaps of shape (64,) and finite, and
+   every command's and request's dense-kernel launches against the count
+   its micro-batches and draws imply (per multi micro-batch 94 + 48, per
+   multi draw 48, per gap draw 46) with no call of the plain core; then an
+   f32 ``evaluate`` of the gap_pred dir with ``predict_in_train: false``
+   through the kernel and with ``use_pallas: false``: MAEs within 1e-4
+   relative; and the f32 gaps of the first eval batch (b=128, bins sample
+   0) through both: max|diff| <= 1e-4 max|ref|, which the planted fault
+   must fail. Prints wall seconds per command, ms per finetune step (CUDA
+   events), molecules/s evaluated, and the two-stage molecules/s and p50.
+8. The kernels line (six kernels, launches by path, with the dense pair's
+   stage-2 paths ``pretrain``, ``finetune``, ``gap_pred`` and
+   ``two_stage``; the dense pair's dropout launches and rate > 0 times,
+   the ungated times and SDPA's at b=16 and b=32, the aggregate pair's
+   back-to-back times, body launches and two routes, the dense forward at
+   the eval batches b=64 and b=128 and the dense backward at stage 2's
+   micro-batch b=64), then ``{"ok": true, "device": {...}}`` as the last
+   line.
 
 Each phase prints its wall seconds. Every JSON row is also appended to
 ``chiprun_out/chip_smoke_rows.jsonl``, which the run starts empty.
@@ -172,6 +204,12 @@ FLAGSHIP_YAML = os.path.join(
 AGX2_YAML = os.path.join(
     REPO, "configs", "pcqm", "tgt_agx2_100m", "dist_pred",
     "tgt_agx2_dp_rdkit.yaml")
+# stage 2 of the published TGT-At pipeline (phase 7b)
+STAGE2_YAMLS = {name: os.path.join(REPO, "configs", "pcqm", "tgt_at_200m",
+                                   name, file)
+                for name, file in (("pretrain", "tgt_at_tp.yaml"),
+                                   ("finetune", "tgt_at_tp_rdkit.yaml"),
+                                   ("gap_pred", "tgt_at_tp_rdkit.yaml"))}
 
 # H100 SXM data-sheet peaks (dense): device memory, and the rate of the
 # operations' type (bf16 inputs: tensor cores; f32: the f32 units)
@@ -416,9 +454,16 @@ F3_CASES = [case for dtype in (torch.bfloat16, torch.float32) for case in (
     (4, 80, WIDTH, dtype, True), (4, 128, WIDTH, dtype, True),
     (16, 48, 128, dtype, True), (16, 48, 512, dtype, True))]
 CASES = KERNEL_CASES + F3_CASES
-# the published eval batch (batch_size 32 x prediction_bmult 2) that the
-# CLI's validation, evaluation and prediction run at; phase 2 only
-EVAL_CASES = [(64, n, WIDTH, torch.bfloat16, True) for n in (48, 56)]
+# the published eval batches that the CLI's validation, evaluation and
+# prediction run at: stage 1's b=64 (batch_size 32 x prediction_bmult 2)
+# and stage 2's b=128 (64 x 2); b=64 is also stage 2's training
+# micro-batch; phase 2 only
+EVAL_CASES = [(64, n, WIDTH, torch.bfloat16, True) for n in (48, 56)] + [
+    (128, 48, WIDTH, torch.bfloat16, True)]
+# the backward at stage 2's training micro-batch, b=64 (pretrain and
+# finetune: batch_size 64), at N=48 and at bucket 56 (head-major copies);
+# phase 2b only
+STAGE2_BWD_CASES = [(64, n, WIDTH, torch.bfloat16, True) for n in (48, 56)]
 
 
 # the cases the kernels line reports: b=16, N=48, bf16, gated (and ungated,
@@ -430,9 +475,11 @@ UNGATED_TRAIN = (32, 48, WIDTH, torch.bfloat16, False)
 
 def repeats(case) -> bool:
     """The cases whose kernels run twice on the same inputs, held bitwise
-    equal: every bf16 case at N=48 and every F3 case."""
+    equal: every bf16 case at N=48, every F3 case and every case of the
+    eval and stage-2 batches."""
     b, n, w, dtype, gated = case
-    return (n == 48 and w == WIDTH and dtype == torch.bfloat16) or case in F3_CASES
+    return ((n == 48 and w == WIDTH and dtype == torch.bfloat16)
+            or case in F3_CASES + EVAL_CASES + STAGE2_BWD_CASES)
 
 
 def timed(case) -> bool:
@@ -504,6 +551,8 @@ def kernel_phase(card):
                 sdpa_time(1.0, *dense_as_sdpa(*inputs[:4]))
         if n == 48 and w == WIDTH and dtype == torch.bfloat16:
             row.update(dense_routes(inputs))
+        if (n == 48 and w == WIDTH and dtype == torch.bfloat16) or \
+                case in EVAL_CASES:
             device_times(row, lambda: triplet_dense_fwd(*inputs),
                          lambda: triplet_dense_fwd_reference(*inputs),
                          None if gated else sdpa_call(
@@ -593,7 +642,7 @@ def backward_kernel_phase(card):
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
-    for case in CASES:
+    for case in CASES + STAGE2_BWD_CASES:
         b, n, w, dtype, gated = case
         inputs = core_inputs(b, n, w, 16, dtype, gated, gen)
         dva = torch.randn(inputs[0].shape, device="cuda",
@@ -620,6 +669,9 @@ def backward_kernel_phase(card):
                 sdpa_time(1.0, *dense_as_sdpa(*inputs[:4], dva))
         if n == 48 and w == WIDTH and dtype == torch.bfloat16:
             row["relayout_ms"] = relayout_ms(*inputs[:3], dva, back=3)
+        if case in STAGE2_BWD_CASES:
+            device_times(row, lambda: triplet_dense_bwd(*inputs, dva),
+                         lambda: triplet_dense_bwd_reference(*inputs, dva))
         emit(row)
         if not ok:
             fail(f"backward kernel disagrees with its plain version: "
@@ -1598,7 +1650,9 @@ def recorded_trainer():
     def evaluate(self, model, loader, seed=0):
         t0 = time.perf_counter()
         preds = eval_epoch(self, model, loader, seed)
-        rec["evals"].append((time.perf_counter() - t0, len(preds["loss"])))
+        molecules = next(len(v) for k, v in preds.items()
+                         if k != "valid_samples")
+        rec["evals"].append((time.perf_counter() - t0, molecules))
         return preds
 
     def plain_core(*args, **kwargs):
@@ -1632,11 +1686,12 @@ def scaled_dense_core(factor):
         tri.triplet_dense = saved
 
 
-def f32_eval_logits(spec: ModelSpec, cfg: dict, model_dir: str):
-    """Deterministic f32 logits of the first val batch (``batch_size *
+def f32_eval_outputs(spec: ModelSpec, cfg: dict, model_dir: str):
+    """Deterministic f32 outputs of the first val batch (``batch_size *
     prediction_bmult`` rows) from the model dir's checkpoint: through the
     kernel, through the plain path, and through the kernel scaled by
-    ``FAULT_SCALE``; with each forward's kernel launches."""
+    ``FAULT_SCALE``; with each forward's kernel launches. The distance
+    model gives its logits; the gap model its gaps, on bins sample 0."""
     from tgt_torch.models import make_model
     from tgt_torch.models.convert import (load_jax_npz,
                                           state_dict_from_jax_params)
@@ -1648,15 +1703,19 @@ def f32_eval_logits(spec: ModelSpec, cfg: dict, model_dir: str):
     host = next(iter(scheme.val_loader(0, 1)))
     batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
              for k, v in scheme.device_batch(host, training=False).items()}
-    feed = scheme._model_inputs(batch, scheme.edge_mask_of(batch), None,
-                                training=False)
+    edge_mask = scheme.edge_mask_of(batch)
+    if scheme.MODEL == "gap":
+        feed = scheme._feed_from_bins(batch, edge_mask,
+                                      batch["dist_bins"][:, 0])
+    else:
+        feed = scheme._model_inputs(batch, edge_mask, None, training=False)
     state = state_dict_from_jax_params(load_jax_npz(os.path.join(
         model_dir, "checkpoint", "model.npz")), scheme.model_cfg)
     out, launched = {}, []
     for route, use_pallas, factor in (("dense", "dense", None),
                                       ("plain", False, None),
                                       ("fault", "dense", FAULT_SCALE)):
-        model = make_model("distance", scheme.model_cfg.replace(
+        model = make_model(scheme.MODEL, scheme.model_cfg.replace(
             use_pallas=use_pallas), device="cuda")
         model.load_state_dict(state)
         reset_counts()
@@ -1665,20 +1724,48 @@ def f32_eval_logits(spec: ModelSpec, cfg: dict, model_dir: str):
         torch.cuda.synchronize()
         launched.append(spec.launches(spec.fwd))
         if not bool(torch.isfinite(out[route]).all()):
-            fail(f"non-finite f32 eval logits through the {route} path")
+            fail(f"non-finite f32 eval outputs through the {route} path")
         del model
     return out, launched
 
 
-def cli_phase(card, spec: ModelSpec):
-    """The published config through the port's CLI on PCQM-format parquet:
-    train one epoch, resume for a second, evaluate, predict, serve from the
-    model dir; every command's triplet launches against the count its
-    micro-batches and draws imply; an f32 evaluate through the kernel
-    against the plain path."""
+def f32_evaluate(spec: ModelSpec, cfg: dict, samples: int):
+    """The evaluate command in f32 with ``predict_in_train: false`` and
+    ``samples`` draws through the kernel, the plain path and the planted
+    fault: {route: (val loss, kernel launches)}."""
+    from tgt_torch.cli.execute import execute
+
+    out = {}
+    for route in ("dense", "plain", "fault"):
+        reset_counts()
+        with scaled_dense_core(FAULT_SCALE if route == "fault" else None):
+            metrics = execute("evaluate", dict(
+                cfg, mixed_precision=False, predict_in_train=False,
+                evaluation_samples=samples,
+                use_pallas=False if route == "plain" else "dense"))
+        out[route] = (metrics["val"]["loss"], spec.launches(spec.fwd))
+    return out
+
+
+@contextlib.contextmanager
+def cli_workdir():
+    """A temporary directory for phases 7 and 7b, removed after both."""
     import shutil
     import tempfile
 
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        yield root
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def cli_phase(card, spec: ModelSpec, root: str):
+    """The published config through the port's CLI on PCQM-format parquet
+    under ``root``: train one epoch, resume for a second, evaluate,
+    predict, serve from the model dir; every command's triplet launches
+    against the count its micro-batches and draws imply; an f32 evaluate
+    through the kernel against the plain path."""
     import yaml
 
     from tgt_torch.cli.execute import execute
@@ -1686,180 +1773,404 @@ def cli_phase(card, spec: ModelSpec):
     from tgt_torch.data.prepare import write_synthetic_dataset
     from tgt_torch.serving import DistancePredictor
 
-    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
-    try:
-        data = os.path.join(root, "data")
-        write_synthetic_dataset(data, num_samples=CLI_MOLECULES,
-                                max_nodes=CLI_MAX_NODES)
-        with np.load(os.path.join(data, "splits.npz")) as splits:
-            n_split = {k: len(splits[k]) for k in splits.files}
-        if (n_split["train-3d"], n_split["valid-3d"], n_split["valid"]) != \
-                (168, 24, 64):
-            fail(f"synthetic splits {n_split}")
-        cfg = load_config(spec, dataset_path=data, global_batch_size=64,
-                          save_path_prefix=os.path.join(root, "models"),
-                          num_epochs=1)
-        model_dir = os.path.join(root, "models", cfg["model_prefix"],
+    data = os.path.join(root, "data")
+    write_synthetic_dataset(data, num_samples=CLI_MOLECULES,
+                            max_nodes=CLI_MAX_NODES)
+    with np.load(os.path.join(data, "splits.npz")) as splits:
+        n_split = {k: len(splits[k]) for k in splits.files}
+    if (n_split["train-3d"], n_split["valid-3d"], n_split["valid"]) != \
+            (168, 24, 64):
+        fail(f"synthetic splits {n_split}")
+    cfg = load_config(spec, dataset_path=data, global_batch_size=64,
+                      save_path_prefix=os.path.join(root, "models"),
+                      num_epochs=1)
+    model_dir = os.path.join(root, "models", cfg["model_prefix"],
+                             cfg["model_name"])
+    per_fwd = 2 * cfg["model_height"]          # both directions
+    replay = per_fwd - 2                       # remat of the inner layers
+    eval_b = cfg["batch_size"] * cfg["prediction_bmult"]
+    steps = math.ceil(n_split["train-3d"] / cfg["global_batch_size"])
+    micro = steps * cfg["global_batch_size"] // cfg["batch_size"]
+    val_fwd = (math.ceil(n_split["valid-3d"] / eval_b)
+               * cfg["evaluation_samples"] * per_fwd)
+    epoch = {"fwd": micro * (per_fwd + replay) + val_fwd,
+             "bwd": micro * per_fwd}
+    expect = {
+        "train": epoch, "resume": epoch,
+        "evaluate": {"fwd": val_fwd, "bwd": 0},
+        "predict": {"fwd": sum(math.ceil(n_split[s] / eval_b)
+                               for s in ("train", "valid"))
+                    * cfg["prediction_samples"] * per_fwd, "bwd": 0}}
+    wall, launches, out = {}, {}, {}
+    with recorded_trainer() as rec:
+        for name, command, extra in (
+                ("train", "train", {}), ("resume", "train",
+                                         {"num_epochs": 2}),
+                ("evaluate", "evaluate", {}),
+                ("predict", "predict", {})):
+            torch.cuda.synchronize()
+            reset_counts()                  # the main path starts
+            t0 = time.time()
+            out[name] = execute(command, dict(cfg, **extra))
+            torch.cuda.synchronize()
+            wall[name] = time.time() - t0
+            launches[name] = {"fwd": spec.launches(spec.fwd),
+                              "bwd": spec.launches(spec.bwd)}
+            check_only(spec)                # the main path ends
+            if isinstance(out[name], dict):
+                out[name].pop("state", None)   # free the card
+            torch.cuda.empty_cache()
+    if launches != expect or rec["plain_core"]:
+        fail(f"CLI kernel launches {launches}, expected {expect}; "
+             f"{rec['plain_core']} plain-core calls")
+
+    # train and resume: counters, history, finite losses
+    with open(os.path.join(model_dir, "checkpoint",
+                           "training_state.json")) as f:
+        counters = json.load(f)
+    with open(os.path.join(model_dir, "logs", "history.yaml")) as f:
+        history = yaml.safe_load(f)
+    if (counters["epoch"], counters["global_step"]) != (2, 2 * steps) or \
+            [h["global_step"] for h in history] != [steps, 2 * steps]:
+        fail(f"after resume: counters {counters}, history {history}")
+    if not all(math.isfinite(h["val_loss"]) and math.isfinite(h["loss"])
+               for h in history):
+        fail(f"non-finite training or validation loss: {history}")
+    if not all(bool(m["ok"]) for _, m, _ in rec["steps"]):
+        fail("a training step was skipped as non-finite")
+    step_ms = {}
+    for e in (0, 1):
+        ends = [ev for ep, _, ev in rec["steps"] if ep == e]
+        step_ms[e] = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+
+    # evaluate and predict: results.yaml and the bins parquet
+    with open(os.path.join(model_dir, "predictions",
+                           "results.yaml")) as f:
+        results = yaml.safe_load(f)
+    if not math.isfinite(results["val"]["loss"]):
+        fail(f"results.yaml {results}")
+    eval_s, eval_mols = rec["evals"][-1]
+    bins_dir = os.path.join(model_dir, "predictions",
+                            f"bins{cfg['prediction_samples']}")
+    for split in ("train", "valid"):
+        ds = PCQM4Mv2Dataset(split, data, return_idx=True,
+                             additional_columns=[Bins(
+                                 bins_dir, cfg["prediction_samples"])])
+        for i in range(len(ds)):
+            row = ds[i]
+            n = row["num_nodes"]
+            b = row["dist_bins"]
+            if b.shape != (cfg["prediction_samples"], n, n) or \
+                    b.max() >= cfg["num_dist_bins"]:
+                fail(f"{split} row {i}: bins {b.shape} max {b.max()}")
+
+    # serve one request from the model dir
+    reset_counts()
+    pred = DistancePredictor.from_model_dir(
+        model_dir, mc_samples=cfg["evaluation_samples"], batch_size=16,
+        buckets=tuple(cfg["buckets"]))
+    probs = pred.predict(request(np.random.RandomState(7), 16))
+    served = spec.launches(spec.fwd)
+    if served != per_fwd * cfg["evaluation_samples"] or \
+            not np.isfinite(probs).all():
+        fail(f"serving from the model dir: {served} launches")
+    del pred
+
+    # f32, deterministic: the evaluate command through the kernel,
+    # through the plain path and through the kernel with a planted fault
+    # (its output scaled by 0.9), on the same checkpoint; then the logits
+    # of the first eval batch the same three ways. The fault must fail
+    # the logits check: that shows the check can see a wrong kernel.
+    f32 = f32_evaluate(spec, cfg, 2)
+    (loss, n_kernel), (ref, n_plain) = f32["dense"], f32["plain"]
+    rel = abs(loss - ref) / abs(ref)
+    rel_fault = abs(f32["fault"][0] - ref) / abs(ref)
+    logits, n_logits = f32_eval_outputs(spec, cfg, model_dir)
+    scale = float(logits["plain"].abs().max())
+    err = float((logits["dense"] - logits["plain"]).abs().max())
+    err_fault = float((logits["fault"] - logits["plain"]).abs().max())
+    row = {"cli": "tgt_torch.cli.execute", "model": os.path.relpath(
+               spec.yaml, REPO), "card": card,
+           "molecules": n_split, "wall_s": wall,
+           "ms_per_step": {f"epoch_{e + 1}": v
+                           for e, v in step_ms.items()},
+           "median_ms_per_step_epoch_2": float(np.median(step_ms[1])),
+           "molecules_per_s_evaluated": eval_mols / eval_s,
+           "evaluate_s": eval_s, "evaluated_molecules": eval_mols,
+           "checkpoint_s": rec["checkpoint_s"],
+           "load_or_init_s": rec["load_or_init_s"],
+           "history": history, "results": results,
+           "launches": launches, "expected_launches": expect,
+           "served_launches": served,
+           "val_loss_f32_kernel": loss, "val_loss_f32_plain": ref,
+           "val_loss_rel_diff": rel, "f32_launches": [n_kernel, n_plain],
+           "val_loss_f32_fault": f32["fault"][0],
+           "val_loss_rel_diff_fault": rel_fault,
+           "fault_scale": FAULT_SCALE,
+           "logits_f32_b": int(logits["plain"].shape[0]),
+           "logits_f32_max_abs_err": err,
+           "logits_f32_max_abs_err_fault": err_fault,
+           "logits_f32_max_abs_ref": scale,
+           "logits_f32_launches": n_logits}
+    emit(row)
+    if rel > 1e-4 or n_kernel != 2 * per_fwd * math.ceil(
+            n_split["valid-3d"] / eval_b) or n_plain != 0:
+        fail(f"f32 evaluate: kernel {loss} ({n_kernel} launches) "
+             f"against plain {ref} ({n_plain})")
+    if err > 1e-4 * scale or n_logits != [per_fwd, 0, per_fwd]:
+        fail(f"f32 eval logits: kernel against plain max|diff| {err}, "
+             f"max|ref| {scale}; launches {n_logits}")
+    if err_fault <= 1e-4 * scale:
+        fail(f"the logits check does not see a kernel scaled by "
+             f"{FAULT_SCALE}: max|diff| {err_fault}, max|ref| {scale}")
+    print(f"CLI on {card}: train {wall['train']:.1f} s, resume "
+          f"{wall['resume']:.1f} s, evaluate {wall['evaluate']:.1f} s, "
+          f"predict {wall['predict']:.1f} s; "
+          f"{row['median_ms_per_step_epoch_2']:.1f} ms per step, "
+          f"{row['molecules_per_s_evaluated']:.1f} molecules/s "
+          f"evaluated; f32 val loss {loss} against {ref}, with the "
+          f"planted fault {f32['fault'][0]}; f32 logits max|diff| {err} "
+          f"of max|ref| {scale}, with the fault {err_fault}", flush=True)
+    total = {k: sum(v[k] for v in launches.values())
+             for k in ("fwd", "bwd")}
+    total["fwd"] += served + n_kernel
+    return total
+
+
+
+# -- phase 7b: stage 2 of the published pipeline through the CLI -----------------
+
+SERVE_BATCH = 16    # the two-stage request's device batch, as phase 3's
+
+
+def size_group_permutation(mols) -> list:
+    """A permutation of ``mols`` that keeps each size's molecules in their
+    order and reverses the order of the sizes: the predictor's stable size
+    sort gives the same device batches, so with the same seeds the same
+    molecule gets the same gap wherever it stands in the request."""
+    sizes = [m["num_nodes"] for m in mols]
+    return [i for n in sorted(set(sizes), reverse=True)
+            for i, s in enumerate(sizes) if s == n]
+
+
+def stage2_phase(card, spec: ModelSpec, root: str):
+    """Stage 2 of the published pipeline through the port's CLI on phase
+    7's data, distance model and bins50 under ``root``: pretrain, finetune,
+    gap_pred's trim and evaluate, then requests through
+    ``TwoStagePredictor.from_model_dirs``; every command's and request's
+    triplet launches against the count its micro-batches and draws imply;
+    an f32 evaluate of the gap_pred dir through the kernel against the
+    plain path, with the planted fault."""
+    import yaml
+
+    from tgt_torch.cli.execute import execute
+    from tgt_torch.core.config import load_yaml
+    from tgt_torch.models.convert import load_jax_npz
+    from tgt_torch.serving import TwoStagePredictor
+
+    data, models = os.path.join(root, "data"), os.path.join(root, "models")
+    dist = load_config(spec)
+    dist_dir = os.path.join(models, dist["model_prefix"], dist["model_name"])
+    bins_dir = os.path.join(dist_dir, "predictions",
+                            f"bins{dist['prediction_samples']}")
+    with np.load(os.path.join(data, "splits.npz")) as splits:
+        n_split = {k: len(splits[k]) for k in splits.files}
+
+    def stage(name, **extra):
+        cfg = load_yaml(STAGE2_YAMLS[name])
+        cfg.update(dataset_path=data, save_path_prefix=models, **extra)
+        return cfg, os.path.join(models, cfg["model_prefix"],
                                  cfg["model_name"])
-        per_fwd = 2 * cfg["model_height"]          # both directions
-        replay = per_fwd - 2                       # remat of the inner layers
-        eval_b = cfg["batch_size"] * cfg["prediction_bmult"]
-        steps = math.ceil(n_split["train-3d"] / cfg["global_batch_size"])
+
+    pt, pt_dir = stage("pretrain", global_batch_size=64, num_epochs=1)
+    ft, ft_dir = stage("finetune", global_batch_size=64, num_epochs=1,
+                       bins_input_path=bins_dir,
+                       pretrained_weights_file=os.path.join(
+                           pt_dir, "checkpoint", "model.npz"))
+    gp, gp_dir = stage("gap_pred", bins_input_path=bins_dir,
+                       pretrained_weights_file=os.path.join(
+                           ft_dir, "checkpoint", "model.npz"))
+
+    # the launches each command implies: the multi model runs the triplet
+    # core in all its layers, the gap model in all but the last
+    multi_fwd = 2 * pt["model_height"]
+    gap_fwd = multi_fwd - 2
+    replay = multi_fwd - 2                      # remat of the inner layers
+    eval_b = pt["batch_size"] * pt["prediction_bmult"]
+    val_batches = math.ceil(n_split["valid"] / eval_b)
+
+    def trained(cfg, split, val_split):
+        steps = math.ceil(n_split[split] / cfg["global_batch_size"])
         micro = steps * cfg["global_batch_size"] // cfg["batch_size"]
-        val_fwd = (math.ceil(n_split["valid-3d"] / eval_b)
-                   * cfg["evaluation_samples"] * per_fwd)
-        epoch = {"fwd": micro * (per_fwd + replay) + val_fwd,
-                 "bwd": micro * per_fwd}
-        expect = {
-            "train": epoch, "resume": epoch,
-            "evaluate": {"fwd": val_fwd, "bwd": 0},
-            "predict": {"fwd": sum(math.ceil(n_split[s] / eval_b)
-                                   for s in ("train", "valid"))
-                        * cfg["prediction_samples"] * per_fwd, "bwd": 0}}
-        wall, launches, out = {}, {}, {}
-        with recorded_trainer() as rec:
-            for name, command, extra in (
-                    ("train", "train", {}), ("resume", "train",
-                                             {"num_epochs": 2}),
-                    ("evaluate", "evaluate", {}),
-                    ("predict", "predict", {})):
-                torch.cuda.synchronize()
-                reset_counts()                  # the main path starts
-                t0 = time.time()
-                out[name] = execute(command, dict(cfg, **extra))
-                torch.cuda.synchronize()
-                wall[name] = time.time() - t0
-                launches[name] = {"fwd": spec.launches(spec.fwd),
-                                  "bwd": spec.launches(spec.bwd)}
-                check_only(spec)                # the main path ends
-                if isinstance(out[name], dict):
-                    out[name].pop("state", None)   # free the card
-                torch.cuda.empty_cache()
-        if launches != expect or rec["plain_core"]:
-            fail(f"CLI kernel launches {launches}, expected {expect}; "
-                 f"{rec['plain_core']} plain-core calls")
+        val = 0
+        if 1 % cfg.get("validation_frequency", 1) == 0:   # after epoch 1
+            val = (math.ceil(n_split[val_split] / eval_b)
+                   * cfg["evaluation_samples"] * multi_fwd)
+        return {"fwd": micro * (multi_fwd + replay) + val,
+                "bwd": micro * multi_fwd}
 
-        # train and resume: counters, history, finite losses
-        with open(os.path.join(model_dir, "checkpoint",
-                               "training_state.json")) as f:
-            counters = json.load(f)
-        with open(os.path.join(model_dir, "logs", "history.yaml")) as f:
-            history = yaml.safe_load(f)
-        if (counters["epoch"], counters["global_step"]) != (2, 2 * steps) or \
-                [h["global_step"] for h in history] != [steps, 2 * steps]:
-            fail(f"after resume: counters {counters}, history {history}")
-        if not all(math.isfinite(h["val_loss"]) and math.isfinite(h["loss"])
-                   for h in history):
-            fail(f"non-finite training or validation loss: {history}")
-        if not all(bool(m["ok"]) for _, m, _ in rec["steps"]):
-            fail("a training step was skipped as non-finite")
-        step_ms = {}
-        for e in (0, 1):
-            ends = [ev for ep, _, ev in rec["steps"] if ep == e]
-            step_ms[e] = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+    mc = gp["evaluation_samples"]
+    expect = {"pretrain": trained(pt, "train-3d", "valid-3d"),
+              "finetune": trained(ft, "train", "valid"),
+              "gap_pred": {"fwd": 0, "bwd": 0},
+              "evaluate": {"fwd": val_batches * mc * gap_fwd, "bwd": 0}}
+    wall, launches, steps_of = {}, {}, {}
+    with recorded_trainer() as rec:
+        for name, command, cfg in (("pretrain", "train", pt),
+                                   ("finetune", "train", ft),
+                                   ("gap_pred", "train", gp),
+                                   ("evaluate", "evaluate", gp)):
+            first = len(rec["steps"])
+            torch.cuda.synchronize()
+            reset_counts()                      # the main path starts
+            t0 = time.time()
+            out = execute(command, cfg)
+            torch.cuda.synchronize()
+            wall[name] = time.time() - t0
+            launches[name] = {"fwd": spec.launches(spec.fwd),
+                              "bwd": spec.launches(spec.bwd)}
+            check_only(spec)                    # the main path ends
+            steps_of[name] = rec["steps"][first:]
+            del out
+            torch.cuda.empty_cache()
+    if launches != expect or rec["plain_core"]:
+        fail(f"stage-2 kernel launches {launches}, expected {expect}; "
+             f"{rec['plain_core']} plain-core calls")
 
-        # evaluate and predict: results.yaml and the bins parquet
-        with open(os.path.join(model_dir, "predictions",
-                               "results.yaml")) as f:
-            results = yaml.safe_load(f)
-        if not math.isfinite(results["val"]["loss"]):
-            fail(f"results.yaml {results}")
-        eval_s, eval_mols = rec["evals"][-1]
-        bins_dir = os.path.join(model_dir, "predictions",
-                                f"bins{cfg['prediction_samples']}")
-        for split in ("train", "valid"):
-            ds = PCQM4Mv2Dataset(split, data, return_idx=True,
-                                 additional_columns=[Bins(
-                                     bins_dir, cfg["prediction_samples"])])
-            for i in range(len(ds)):
-                row = ds[i]
-                n = row["num_nodes"]
-                b = row["dist_bins"]
-                if b.shape != (cfg["prediction_samples"], n, n) or \
-                        b.max() >= cfg["num_dist_bins"]:
-                    fail(f"{split} row {i}: bins {b.shape} max {b.max()}")
+    # pretrain and finetune: finite losses, every step applied
+    histories = {}
+    for name, d in (("pretrain", pt_dir), ("finetune", ft_dir)):
+        with open(os.path.join(d, "logs", "history.yaml")) as f:
+            histories[name] = yaml.safe_load(f)
+        losses = [float(m["loss"]) for _, m, _ in steps_of[name]]
+        if not steps_of[name] or not all(
+                bool(m["ok"]) for _, m, _ in steps_of[name]) or \
+                not all(math.isfinite(x) for x in losses):
+            fail(f"{name}: a non-finite or skipped step: {losses}")
+        if len(histories[name]) != 1 or not all(
+                math.isfinite(v) for k, v in histories[name][0].items()
+                if k.endswith("loss")):
+            fail(f"{name} history {histories[name]}")
+    if "val_loss" not in histories["finetune"][0]:
+        fail("finetune did not validate")
+    ends = [ev for _, _, ev in steps_of["finetune"]]
+    ft_step_ms = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
 
-        # serve one request from the model dir
-        reset_counts()
-        pred = DistancePredictor.from_model_dir(
-            model_dir, mc_samples=cfg["evaluation_samples"], batch_size=16,
-            buckets=tuple(cfg["buckets"]))
-        probs = pred.predict(request(np.random.RandomState(7), 16))
-        served = spec.launches(spec.fwd)
-        if served != per_fwd * cfg["evaluation_samples"] or \
-                not np.isfinite(probs).all():
-            fail(f"serving from the model dir: {served} launches")
-        del pred
+    # gap_pred: the trimmed checkpoint and results.yaml
+    if sorted(os.listdir(os.path.join(gp_dir, "checkpoint"))) != \
+            ["model.npz"]:
+        fail("gap_pred's train did not write the trimmed checkpoint alone")
+    trimmed = load_jax_npz(os.path.join(gp_dir, "checkpoint", "model.npz"))
+    if "pred" not in trimmed or "dist_pred" in trimmed or \
+            "tria" in trimmed["encoder"]["last"]:
+        fail(f"trimmed checkpoint keys {sorted(trimmed)}")
+    with open(os.path.join(gp_dir, "predictions", "results.yaml")) as f:
+        results = yaml.safe_load(f)
+    if not math.isfinite(results["val"]["loss"]):
+        fail(f"gap_pred results.yaml {results}")
+    eval_s, eval_mols = rec["evals"][-1]
 
-        # f32, deterministic: the evaluate command through the kernel,
-        # through the plain path and through the kernel with a planted fault
-        # (its output scaled by 0.9), on the same checkpoint; then the logits
-        # of the first eval batch the same three ways. The fault must fail
-        # the logits check: that shows the check can see a wrong kernel.
-        f32 = {}
-        for route in ("dense", "plain", "fault"):
-            reset_counts()
-            with scaled_dense_core(FAULT_SCALE if route == "fault" else None):
-                metrics = execute("evaluate", dict(
-                    cfg, mixed_precision=False, predict_in_train=False,
-                    evaluation_samples=2,
-                    use_pallas=False if route == "plain" else "dense"))
-            f32[route] = (metrics["val"]["loss"], spec.launches(spec.fwd))
-        (loss, n_kernel), (ref, n_plain) = f32["dense"], f32["plain"]
-        rel = abs(loss - ref) / abs(ref)
-        rel_fault = abs(f32["fault"][0] - ref) / abs(ref)
-        logits, n_logits = f32_eval_logits(spec, cfg, model_dir)
-        scale = float(logits["plain"].abs().max())
-        err = float((logits["dense"] - logits["plain"]).abs().max())
-        err_fault = float((logits["fault"] - logits["plain"]).abs().max())
-        row = {"cli": "tgt_torch.cli.execute", "model": os.path.relpath(
-                   spec.yaml, REPO), "card": card,
-               "molecules": n_split, "wall_s": wall,
-               "ms_per_step": {f"epoch_{e + 1}": v
-                               for e, v in step_ms.items()},
-               "median_ms_per_step_epoch_2": float(np.median(step_ms[1])),
-               "molecules_per_s_evaluated": eval_mols / eval_s,
-               "evaluate_s": eval_s, "evaluated_molecules": eval_mols,
-               "checkpoint_s": rec["checkpoint_s"],
-               "load_or_init_s": rec["load_or_init_s"],
-               "history": history, "results": results,
-               "launches": launches, "expected_launches": expect,
-               "served_launches": served,
-               "val_loss_f32_kernel": loss, "val_loss_f32_plain": ref,
-               "val_loss_rel_diff": rel, "f32_launches": [n_kernel, n_plain],
-               "val_loss_f32_fault": f32["fault"][0],
-               "val_loss_rel_diff_fault": rel_fault,
-               "fault_scale": FAULT_SCALE,
-               "logits_f32_b": int(logits["plain"].shape[0]),
-               "logits_f32_max_abs_err": err,
-               "logits_f32_max_abs_err_fault": err_fault,
-               "logits_f32_max_abs_ref": scale,
-               "logits_f32_launches": n_logits}
-        emit(row)
-        if rel > 1e-4 or n_kernel != 2 * per_fwd * math.ceil(
-                n_split["valid-3d"] / eval_b) or n_plain != 0:
-            fail(f"f32 evaluate: kernel {loss} ({n_kernel} launches) "
-                 f"against plain {ref} ({n_plain})")
-        if err > 1e-4 * scale or n_logits != [per_fwd, 0, per_fwd]:
-            fail(f"f32 eval logits: kernel against plain max|diff| {err}, "
-                 f"max|ref| {scale}; launches {n_logits}")
-        if err_fault <= 1e-4 * scale:
-            fail(f"the logits check does not see a kernel scaled by "
-                 f"{FAULT_SCALE}: max|diff| {err_fault}, max|ref| {scale}")
-        print(f"CLI on {card}: train {wall['train']:.1f} s, resume "
-              f"{wall['resume']:.1f} s, evaluate {wall['evaluate']:.1f} s, "
-              f"predict {wall['predict']:.1f} s; "
-              f"{row['median_ms_per_step_epoch_2']:.1f} ms per step, "
-              f"{row['molecules_per_s_evaluated']:.1f} molecules/s "
-              f"evaluated; f32 val loss {loss} against {ref}, with the "
-              f"planted fault {f32['fault'][0]}; f32 logits max|diff| {err} "
-              f"of max|ref| {scale}, with the fault {err_fault}", flush=True)
-        total = {k: sum(v[k] for v in launches.values())
-                 for k in ("fwd", "bwd")}
-        total["fwd"] += served + n_kernel
-        return total
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    # the two-stage request: molecules in, gaps out, on the card
+    two = TwoStagePredictor.from_model_dirs(
+        dist_dir, gp_dir, mc_samples=mc, batch_size=SERVE_BATCH,
+        buckets=tuple(gp["buckets"]))
+    rs = np.random.RandomState(11)
+    two.predict(request(rs, SERVE_BATCH))      # warm-up
+    first = request(rs)
+    perm = size_group_permutation(first)
+    requests = [("first", first, True),
+                ("first, sizes reversed", [first[i] for i in perm], True),
+                ("second", request(rs), False)]
+    n_batches = math.ceil(len(first) / SERVE_BATCH)
+    per_request = n_batches * mc * (multi_fwd + gap_fwd)
+    torch.cuda.synchronize()
+    reset_counts()                              # the main path starts
+    lat, gaps = [], []
+    for name, mols, reseed in requests:
+        if reseed:                              # the same draws' seeds
+            two.distance._seeds.manual_seed(1)
+            two.gap._seeds.manual_seed(2)
+        before = spec.launches(spec.fwd)
+        t0 = time.perf_counter()
+        out = two.predict(mols)
+        lat.append(time.perf_counter() - t0)
+        launched = spec.launches(spec.fwd) - before
+        if launched != per_request:
+            fail(f"two-stage request {name}: {launched} kernel launches, "
+                 f"expected {per_request}")
+        if out.shape != (len(mols),) or not np.isfinite(out).all():
+            fail(f"two-stage request {name}: gaps {out.shape}")
+        gaps.append(out)
+    served = spec.launches(spec.fwd)            # the main path ends
+    check_only(spec)
+    order_err = float(np.abs(gaps[1] - gaps[0][perm]).max())
+    if order_err > 1e-5 * float(np.abs(gaps[0]).max()):
+        fail(f"two-stage gaps out of input order: max|diff| {order_err}")
+    del two
+
+    # f32, deterministic: the gap_pred dir's evaluate through the kernel,
+    # the plain path and the planted fault; then the gaps of the first eval
+    # batch the same three ways, which the fault must fail
+    f32 = f32_evaluate(spec, gp, 2)
+    (mae, n_kernel), (ref, n_plain) = f32["dense"], f32["plain"]
+    rel = abs(mae - ref) / abs(ref)
+    gap32, n_gap32 = f32_eval_outputs(spec, gp, gp_dir)
+    scale = float(gap32["plain"].abs().max())
+    err = float((gap32["dense"] - gap32["plain"]).abs().max())
+    err_fault = float((gap32["fault"] - gap32["plain"]).abs().max())
+    p50 = float(np.median(lat))
+    row = {"stage2": "tgt_torch.cli.execute + TwoStagePredictor",
+           "models": {k: os.path.relpath(v, REPO)
+                      for k, v in STAGE2_YAMLS.items()},
+           "card": card, "molecules": n_split, "wall_s": wall,
+           "ms_per_finetune_step": ft_step_ms,
+           "median_ms_per_finetune_step": float(np.median(ft_step_ms)),
+           "step_ms": {k: [a.elapsed_time(b) for a, b in zip(
+               [e for _, _, e in v], [e for _, _, e in v][1:])]
+               for k, v in steps_of.items() if v},
+           "evaluate_s": eval_s, "evaluated_molecules": eval_mols,
+           "molecules_per_s_evaluated": eval_mols / eval_s,
+           "checkpoint_s": rec["checkpoint_s"],
+           "load_or_init_s": rec["load_or_init_s"],
+           "history": histories, "results": results,
+           "launches": launches, "expected_launches": expect,
+           "two_stage_request_s": lat, "two_stage_p50_s": p50,
+           "two_stage_molecules_per_s": len(first) / p50,
+           "two_stage_launches": served,
+           "two_stage_launches_per_request": per_request,
+           "two_stage_order_max_abs_diff": order_err,
+           "gap_mae_f32_kernel": mae, "gap_mae_f32_plain": ref,
+           "gap_mae_rel_diff": rel, "f32_launches": [n_kernel, n_plain],
+           "gap_mae_f32_fault": f32["fault"][0],
+           "gaps_f32_b": int(gap32["plain"].shape[0]),
+           "gaps_f32_max_abs_err": err,
+           "gaps_f32_max_abs_err_fault": err_fault,
+           "gaps_f32_max_abs_ref": scale,
+           "gaps_f32_launches": n_gap32, "fault_scale": FAULT_SCALE}
+    emit(row)
+    if rel > 1e-4 or n_kernel != 2 * gap_fwd * val_batches or n_plain != 0:
+        fail(f"f32 gap_pred evaluate: kernel {mae} ({n_kernel} launches) "
+             f"against plain {ref} ({n_plain})")
+    if err > 1e-4 * scale or n_gap32 != [gap_fwd, 0, gap_fwd]:
+        fail(f"f32 gaps: kernel against plain max|diff| {err}, max|ref| "
+             f"{scale}; launches {n_gap32}")
+    if err_fault <= 1e-4 * scale:
+        fail(f"the gaps check does not see a kernel scaled by "
+             f"{FAULT_SCALE}: max|diff| {err_fault}, max|ref| {scale}")
+    print(f"stage 2 on {card}: pretrain {wall['pretrain']:.1f} s, finetune "
+          f"{wall['finetune']:.1f} s, trim {wall['gap_pred']:.1f} s, "
+          f"evaluate {wall['evaluate']:.1f} s; "
+          f"{row['median_ms_per_finetune_step']:.1f} ms per finetune step, "
+          f"{row['molecules_per_s_evaluated']:.1f} molecules/s evaluated; "
+          f"two-stage {row['two_stage_molecules_per_s']:.2f} molecules/s "
+          f"served, p50 {p50:.2f} s; f32 MAE {mae} against {ref}, f32 "
+          f"gaps max|diff| {err} of max|ref| {scale}, with the fault "
+          f"{err_fault}", flush=True)
+    total = {k: {"fwd": v["fwd"], "bwd": v["bwd"]}
+             for k, v in launches.items() if k != "evaluate"}
+    total["gap_pred"]["fwd"] += launches["evaluate"]["fwd"] + n_kernel
+    total["two_stage"] = {"fwd": served, "bwd": 0}
+    return total
 
 
 def main() -> int:
@@ -1935,7 +2246,9 @@ def main() -> int:
         del weights
     if not all(served.values()):
         fail(f"a served path never launched its triplet kernel: {served}")
-    cli = phase("7 TGT-At CLI", cli_phase, card, at)
+    with cli_workdir() as root:
+        cli = phase("7 TGT-At CLI", cli_phase, card, at, root)
+        stage2 = phase("7b TGT-At stage 2", stage2_phase, card, at, root)
 
     def entry(name, source, replaces, by_path, row, ungated=None,
               ungated_train=None):
@@ -1961,6 +2274,13 @@ def main() -> int:
                                 "bound_by", "library_ms")}})
         return out
 
+    def shapes(rows, cases):
+        """A kernel's rows at the eval and stage-2 batches."""
+        return {f"b{c[0]}_n{c[1]}": {k: rows[c].get(k) for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "device_ms", "plain_device_ms", "route", "bitwise_equal")}
+            for c in cases}
+
     def with_device(out, rows, **extra):
         """The back-to-back device times at b=16 and b=32 (N=48, bf16) of
         the kernel, its plain version and its library call."""
@@ -1977,19 +2297,20 @@ def main() -> int:
             "triplet_dense_fwd", td.KERNEL_SOURCE, td.REPLACES,
             {"serving": served[at.name], "training": trained[at.name]["fwd"],
              "serving_dropout": d_serve, "training_dropout": d_train["fwd"],
-             "cli": cli["fwd"]},
+             "cli": cli["fwd"],
+             **{k: v["fwd"] for k, v in stage2.items()}},
             dense[FLAGSHIP], dense[UNGATED], dense[UNGATED_TRAIN]),
             drop["fwd"], {"serving": d_serve, "training": d_train["fwd"]}),
-            eval_b64={f"n{case[1]}": {k: dense[case].get(k) for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "device_ms",
-                "route")} for case in EVAL_CASES}),
-        with_dropout(entry(
+            eval_batches=shapes(dense, EVAL_CASES)),
+        dict(with_dropout(entry(
             "triplet_dense_bwd", td.BWD_KERNEL_SOURCE, td.BWD_REPLACES,
             {"training": trained[at.name]["bwd"],
-             "training_dropout": d_train["bwd"], "cli": cli["bwd"]},
+             "training_dropout": d_train["bwd"], "cli": cli["bwd"],
+             **{k: v["bwd"] for k, v in stage2.items()}},
             dense_bwd[FLAGSHIP], dense_bwd[UNGATED],
             dense_bwd[UNGATED_TRAIN]),
             drop["bwd"], {"training": d_train["bwd"]}),
+            stage2_micro_batch=shapes(dense_bwd, STAGE2_BWD_CASES)),
         with_device(entry(
             "triplet_aggregate_fwd", ta.KERNEL_SOURCE, ta.REPLACES,
             {"serving": served[agx2.name],

@@ -2,9 +2,9 @@
 tgt_tpu's (CPU, float32, tiny widths, PCQM-format parquet written by the
 port's ``write_synthetic_dataset``).
 
-- the config grammar of ``tests/test_cli.py``; every published dist_pred
-  yaml resolves to tgt_tpu's model config, the other schemes raise naming
-  ROADMAP item 1i; a world size above 1 raises naming 1m;
+- the config grammar of ``tests/test_cli.py``; every published yaml, of
+  all four schemes, resolves to tgt_tpu's model, model config and keys; a
+  world size above 1 raises naming 1m;
 - ``python -m tgt_torch.cli.run_training <published yaml> ... --device
   cpu``, then ``do_evaluations`` and ``make_predictions`` on its model
   dir: the artifacts ``test_cli.py`` asserts, the bins parquet read back
@@ -118,18 +118,24 @@ PUBLISHED = sorted(glob.glob(str(REPO / "configs/pcqm/**/*.yaml"),
 def test_published_configs(path):
     with open(path) as f:
         cfg = yaml.safe_load(f)
-    if cfg["scheme"] != "pcqm.dist_pred":
-        with pytest.raises(NotImplementedError, match="1i"):
-            get_scheme(cfg["scheme"])
-        return
+    keys = {"pcqm.dist_pred": ("save_pred_dir", "coords_input"),
+            "pcqm.pretrain": ("coords_noise", "dist_loss_weight"),
+            "pcqm.finetune": ("bins_input_path", "pretrained_weights_file",
+                              "dist_loss_weight", "bins_shift_half"),
+            "pcqm.gap_pred": ("bins_input_path", "pretrained_weights_file",
+                              "bins_zero_diag")}[cfg["scheme"]]
     for command in ("train", "evaluate", "predict"):
         ours = get_scheme(cfg["scheme"])(cfg, command=command)
         ref = jax_get_scheme(cfg["scheme"])(cfg, command=command)
+        assert ours.MODEL == ref.MODEL
         assert dataclasses.asdict(ours.model_cfg) == \
             dataclasses.asdict(ref.model_cfg)
         for key in ("train_split", "val_split", "predict_on", "save_path",
-                    "save_pred_dir", "precompile_buckets"):
+                    "precompile_buckets", "num_dist_bins",
+                    "range_dist_bins") + keys:
             assert getattr(ours.cfg, key) == getattr(ref.cfg, key), key
+        assert sorted(vars(ours.cfg)) == sorted(vars(ref.cfg)), \
+            set(vars(ours.cfg)) ^ set(vars(ref.cfg))
         assert ours.nb_draw_samples == ref.nb_draw_samples
 
 

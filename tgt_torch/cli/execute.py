@@ -12,13 +12,14 @@ Grammar as the reference (lib/training/execute.py:33-52):
 - ``--device`` names the device; without it the commands run on the card.
 
 Commands (reference execute.py:25-29):
-    train    -> Trainer.fit (resumes from the model dir's checkpoint)
-    predict  -> the scheme's predictions under <save_path>/predictions
+    train    -> Trainer.fit (resumes from the model dir's checkpoint);
+                gap_pred only trims the finetuned checkpoint
+    predict  -> the scheme's predictions under <save_path>/predictions:
+                dist_pred's bins directory, else ``{split}_000.npz`` per
+                split (and results.yaml for finetune and gap_pred)
     evaluate -> metrics of the predict_on splits -> predictions/results.yaml
 
-One process on one device: a world size above 1 is ROADMAP.md item 1m,
-and the schemes other than ``pcqm.dist_pred`` (with gap_pred's checkpoint
-trim) are item 1i.
+One process on one device: a world size above 1 is ROADMAP.md item 1m.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import os
 import sys
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import yaml
 
 from tgt_torch.core.config import load_yaml, parse_cli_overrides, save_yaml
@@ -79,14 +81,37 @@ def execute_train(scheme, trainer, config) -> Dict:
     os.makedirs(trainer.model_path, exist_ok=True)
     # the user config, for model-dir reruns (reference training.py:255-265)
     save_yaml(config, os.path.join(trainer.model_path, DEFAULT_CONFIG_FILE))
+    if scheme.NAME == "gap_pred":
+        # gap_pred's training only trims the finetuned checkpoint
+        # (reference gap_pred/scheme.py:144-154)
+        out = os.path.join(trainer.ckpt.ckpt_dir, "model.npz")
+        missing, unexpected = scheme.trim_checkpoint(
+            scheme.cfg.pretrained_weights_file, out, device=trainer.device)
+        print(f"trimmed checkpoint saved to {out}")
+        print(f"missing: {missing[:6]}\nunexpected (dropped): "
+              f"{unexpected[:6]}")
+        return {}
     return trainer.fit()
 
 
 def execute_predict(scheme, trainer) -> Dict:
     model = _load_eval_model(scheme, trainer)
-    scheme.predict_and_save(model, base_path=os.path.join(
-        trainer.model_path, "predictions"), device=trainer.device)
-    return {}
+    pred_path = os.path.join(trainer.model_path, "predictions")
+    if scheme.NAME == "dist_pred":
+        scheme.predict_and_save(model, base_path=pred_path,
+                                device=trainer.device)
+        return {}
+    os.makedirs(pred_path, exist_ok=True)
+    results = {}
+    for split in scheme.cfg.predict_on:
+        preds = trainer.eval_epoch(model, scheme.test_loader(split, 0, 1))
+        out_file = os.path.join(pred_path, f"{split}_000.npz")
+        np.savez(out_file, **preds)
+        print(f"saved {split} predictions to {out_file}")
+        results[split] = preds
+    if scheme.NAME in ("finetune", "gap_pred"):
+        _write_results(scheme, trainer, results)
+    return results
 
 
 def execute_evaluate(scheme, trainer) -> Dict:
@@ -101,7 +126,11 @@ def _write_results(scheme, trainer, preds_by_split) -> Dict:
     pred_path = os.path.join(trainer.model_path, "predictions")
     metrics_all = {}
     for split, preds in preds_by_split.items():
-        metrics = scheme.evaluate_predictions(preds)
+        if scheme.NAME == "gap_pred":
+            metrics = scheme.evaluate_predictions(
+                preds, dataset_name=split, predictions_path=pred_path)
+        else:
+            metrics = scheme.evaluate_predictions(preds)
         metrics_all[split] = {k: float(v) for k, v in metrics.items()}
         print(f"[{split}] " + ", ".join(f"{k}={v:.6f}"
                                         for k, v in metrics_all[split].items()))

@@ -1,4 +1,6 @@
-from tgt_torch.models.heads import DistanceModel, make_model
+from tgt_torch.models.heads import (DistanceModel, GapModel, MultiModel,
+                                     make_model)
 from tgt_torch.models.model_config import TGTConfig
 
-__all__ = ["DistanceModel", "TGTConfig", "make_model"]
+__all__ = ["DistanceModel", "GapModel", "MultiModel", "TGTConfig",
+           "make_model"]

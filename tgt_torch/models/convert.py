@@ -11,7 +11,8 @@ params tree of tgt_tpu maps onto them one for one:
 - the Gaussian 3D embedding's names follow ``_M3D_GAUSSIAN_MAP``.
 
 ``jax_params_from_state_dict`` inverts the map (restacking the inner
-layers under ``encoder/layers``), and ``opt_state_to_jax`` /
+layers under ``encoder/layers``; the task model, or its kind, tells each
+module's kind), and ``opt_state_to_jax`` /
 ``opt_state_from_jax`` do the same for the optimizer state ``{mu, nu,
 count}`` (tgt_tpu/training/harness.py:131-136), so that a checkpoint of
 either package loads strictly in the other.
@@ -22,7 +23,7 @@ flat ``.npz`` that ``save_pytree`` writes (keys
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping
+from typing import Any, Dict, List, Mapping, Union
 
 import numpy as np
 import torch
@@ -111,15 +112,28 @@ def _put_leaf(tree: Dict[str, Any], path: List[str], value) -> None:
     tree[path[-1]] = value
 
 
+def _modules_of(model: Union[str, nn.Module],
+                cfg: TGTConfig) -> Dict[str, nn.Module]:
+    """Named modules of ``model``, or of the task model of that kind
+    ('distance', 'gap', 'multi') built on the meta device."""
+    if isinstance(model, nn.Module):
+        return dict(model.named_modules())
+    from tgt_torch.models.heads import MODELS
+    return dict(MODELS[model](cfg, device="meta").named_modules())
+
+
 def jax_params_from_state_dict(state_dict: Mapping[str, torch.Tensor],
-                               cfg: TGTConfig) -> Dict[str, Any]:
+                               cfg: TGTConfig,
+                               model: Union[str, nn.Module] = "distance"
+                               ) -> Dict[str, Any]:
     """The port's state_dict (or any dict keyed by its parameter names,
     such as Adam's moments) -> tgt_tpu's params tree of numpy arrays: the
     inverse of ``state_dict_from_jax_params``. The kind of each module
-    (Linear, LayerNorm, Embedding) comes from the distance model built on
-    the meta device."""
-    from tgt_torch.models.heads import DistanceModel
-    modules = dict(DistanceModel(cfg, device="meta").named_modules())
+    (Linear, LayerNorm, Embedding) comes from ``model``: the task model
+    itself, or its kind, built on the meta device. The kinds differ in
+    the last layer (the distance model's QK-only edge update, the gap
+    model's node-only layer)."""
+    modules = _modules_of(model, cfg)
     m3d = {v: k for k, v in _M3D_GAUSSIAN_MAP.items()}
     h = cfg.model_height
     out: Dict[str, Any] = {}
@@ -155,11 +169,14 @@ def jax_params_from_state_dict(state_dict: Mapping[str, torch.Tensor],
     return out
 
 
-def opt_state_to_jax(opt_state: Mapping[str, Any],
-                     cfg: TGTConfig) -> Dict[str, Any]:
+def opt_state_to_jax(opt_state: Mapping[str, Any], cfg: TGTConfig,
+                     model: Union[str, nn.Module] = "distance"
+                     ) -> Dict[str, Any]:
     """The port's optimizer state ``{mu, nu, count}`` (moments keyed by
-    parameter name) -> tgt_tpu's tree of numpy arrays."""
-    out = {k: jax_params_from_state_dict(v, cfg)
+    parameter name) of ``model`` (as in ``jax_params_from_state_dict``) ->
+    tgt_tpu's tree of numpy arrays."""
+    modules = _modules_of(model, cfg)
+    out = {k: jax_params_from_state_dict(v, cfg, modules[""])
            for k, v in opt_state.items() if k != "count"}
     out["count"] = np.asarray(int(opt_state["count"]), np.int32)
     return out

@@ -2,19 +2,24 @@
 ``scheme: pcqm.<name>`` strings to scheme classes)."""
 from tgt_torch.schemes.base import TGTScheme, default_scheme_config
 from tgt_torch.schemes.dist_pred import DistPredScheme
+from tgt_torch.schemes.finetune import FinetuneScheme
+from tgt_torch.schemes.gap_pred import GapPredScheme
+from tgt_torch.schemes.pretrain import PretrainScheme
 
-SCHEMES = {"pcqm.dist_pred": DistPredScheme}
-_LATER = ("pcqm.pretrain", "pcqm.finetune", "pcqm.gap_pred")
+SCHEMES = {
+    "pcqm.dist_pred": DistPredScheme,
+    "pcqm.pretrain": PretrainScheme,
+    "pcqm.finetune": FinetuneScheme,
+    "pcqm.gap_pred": GapPredScheme,
+}
 
 
 def get_scheme(name: str):
-    if name in _LATER:
-        raise NotImplementedError(
-            f"scheme '{name}' is not ported yet (ROADMAP.md item 1i)")
     if name not in SCHEMES:
         raise ValueError(f"unknown scheme '{name}'; available: {list(SCHEMES)}")
     return SCHEMES[name]
 
 
-__all__ = ["TGTScheme", "default_scheme_config", "DistPredScheme", "SCHEMES",
+__all__ = ["TGTScheme", "default_scheme_config", "DistPredScheme",
+           "PretrainScheme", "FinetuneScheme", "GapPredScheme", "SCHEMES",
            "get_scheme"]

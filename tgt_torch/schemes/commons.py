@@ -1,8 +1,10 @@
 """Shared task math of the PCQM schemes (counterpart of
-tgt_tpu/schemes/commons.py). Ported: ``coords2dist``, ``add_coords_noise``,
-``discrete_dist`` and ``discrete_dist_loss``; ``bins2dist`` and
-``masked_l1`` come with the gap schemes (ROADMAP.md item 1i)."""
+tgt_tpu/schemes/commons.py): ``coords2dist``, ``add_coords_noise``,
+``discrete_dist``, ``discrete_dist_loss``, ``bins2dist`` and
+``masked_l1``."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -50,3 +52,31 @@ def discrete_dist_loss(dist_logits: torch.Tensor, dist_targ: torch.Tensor,
     if reduce:
         return (xent * m).sum() / (m.sum() + 1e-9)
     return (xent * m).sum(dim=1) / (m.sum(dim=1) + 1e-9)
+
+
+def bins2dist(bins: torch.Tensor, num_bins: int, range_bins: float,
+              shift_half: bool = True, zero_diag: bool = True) -> torch.Tensor:
+    """Packed upper-triangle bins -> symmetric f32 distance matrix
+    (reference commons.py:72-82): (bin [+0.5]) * range/(B-1), then d + d^T
+    and a zero diagonal. ``bins`` (..., N, N) holds bin ids in its strict
+    upper triangle."""
+    bin_size = range_bins / (num_bins - 1)
+    d = bins.float()
+    if shift_half:
+        d = d + 0.5
+    d = d * bin_size
+    d = d + d.transpose(-2, -1)
+    if zero_diag:
+        n = d.shape[-1]
+        d = d * (1.0 - torch.eye(n, dtype=d.dtype, device=d.device))
+    return d
+
+
+def masked_l1(pred: torch.Tensor, target: torch.Tensor,
+              sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean |pred - target| over the valid samples (the L1 gap loss)."""
+    err = torch.abs(pred - target)
+    if sample_mask is None:
+        return err.mean()
+    m = sample_mask.to(err.dtype)
+    return (err * m).sum() / (m.sum() + 1e-9)

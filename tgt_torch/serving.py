@@ -1,29 +1,36 @@
-"""Batch inference / serving API (counterpart of tgt_tpu/serving.py).
+"""Batch inference / serving API (counterpart of tgt_tpu/serving.py): the
+published two-stage inference, on the CUDA card unless the caller passes
+``device="cpu"``, with size-sorted bucketed batching and MC-dropout
+averaging.
 
-Ported: ``DistancePredictor`` — interatomic distance-bin probabilities with
-size-sorted bucketed batching and MC-dropout averaging, the first stage of
-the published two-stage inference. Runs on the CUDA card unless the caller
-passes ``device="cpu"``.
+- ``DistancePredictor``: interatomic distance-bin probabilities, and the
+  per-draw argmax bins samples, from coordinates (stage 1);
+- ``GapPredictor``: the HOMO-LUMO gap from bins samples (draw i decodes
+  stored sample i % S on the device), distances or coordinates (stage 2);
+- ``TwoStagePredictor``: both stages as one served object.
 
-    pred = DistancePredictor.from_model_dir("models/.../dist_pred",
+    two = TwoStagePredictor.from_model_dirs("models/.../dist_pred_dir",
+                                            "models/.../gap_pred_dir",
                                             mc_samples=10)
+    gaps = two.predict(list_of_molecule_dicts)        # (M,) eV
+    pred = DistancePredictor.from_model_dir("models/.../dist_pred_dir")
     probs = pred.predict(list_of_molecule_dicts)    # (M, Nmax, Nmax, bins)
     bins = pred.predict_bins(list_of_molecule_dicts)  # (M, S, Nmax, Nmax)
 
 Molecule dict schema (dataset rows before the structural transform):
 num_nodes, edges (m, 2), node_features (n, 9), edge_features (m, 3), plus
-dist_input (n, n) | coords (n, 3) | rdkit_coords (n, 3).
+dist_input (n, n) | coords (n, 3) | rdkit_coords (n, 3) | dist_bins
+(S, n, n).
 
 tgt_tpu's TPU-only machinery is not ported: the persistent compile cache,
 the dense kernels' data mesh, ``warmup`` with its relay probe (PyTorch runs
 eagerly: nothing to precompile), and the vmap scheduling of MC draws (the
-port runs the draws in a loop). ``GapPredictor`` and ``TwoStagePredictor``
-come later (ROADMAP.md).
+port runs the draws in a loop).
 """
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -37,7 +44,7 @@ from tgt_torch.models.convert import load_jax_npz, state_dict_from_jax_params
 from tgt_torch.models.heads import make_model
 from tgt_torch.models.model_config import TGTConfig
 from tgt_torch.schemes import get_scheme
-from tgt_torch.schemes.commons import coords2dist
+from tgt_torch.schemes.commons import bins2dist, coords2dist
 
 _FEED_KEYS = ("node_features", "distance_matrix", "feature_matrix",
               "node_mask", "edge_mask")
@@ -201,3 +208,108 @@ class DistancePredictor(_BasePredictor):
         input order preserved."""
         return self._run(self._prepare_rows(molecules), self._bins_forward,
                          (2, 3))
+
+
+class GapPredictor(_BasePredictor):
+    """HOMO-LUMO gap from predicted-distance bins, distances or coordinates.
+
+    Bins follow the published MC protocol (reference
+    finetune/scheme.py:103-137): MC-dropout draw i reads stored bins sample
+    i % S and decodes it to distances on the device (``bins2dist``: +0.5,
+    symmetrised, zero diagonal); the gap is the mean of all draws."""
+
+    MODEL = "gap"
+    NODE_AXES = ()      # one gap per molecule
+
+    def __init__(self, *a, bins_meta: Optional[Dict] = None, **kw):
+        super().__init__(*a, **kw)
+        self.bins_meta = bins_meta    # {num_bins, range_bins} for bins input
+
+    def _feed_of(self, batch):
+        feed = {k: self._tensor(batch[k]) for k in _FEED_KEYS}
+        if "dist_input" in batch:
+            feed["dist_input"] = self._tensor(batch["dist_input"]).float()
+        elif "dist_bins" in batch and self.bins_meta:
+            bins = batch["dist_bins"]
+            if bins.ndim == 3:        # (b, n, n): one stored sample
+                bins = bins[:, None]
+            feed["dist_bins"] = self._tensor(bins)    # (b, S, n, n)
+        elif "coords" in batch:
+            feed["dist_input"] = coords2dist(self._tensor(batch["coords"]).float())
+        elif self.cfg.embed_3d_type != "none":
+            raise ValueError("model expects 3D input: provide dist_input, "
+                             "dist_bins (with bins_meta) or coords")
+        return feed
+
+    def _mc_forward(self, feed, seeds: List[int]) -> torch.Tensor:
+        """Mean gap over the draws, draw i on bins sample i % S."""
+        bins = feed.pop("dist_bins", None)
+        total = 0.0
+        for i, seed in enumerate(seeds):
+            f = feed
+            if bins is not None:
+                f = dict(feed, dist_input=bins2dist(
+                    bins[:, i % bins.shape[1]], self.bins_meta["num_bins"],
+                    self.bins_meta["range_bins"]))
+            total = total + self.model(f, deterministic=False,
+                                       seed=seed).float()
+        return total / len(seeds)
+
+    def predict(self, molecules: List[Dict]) -> np.ndarray:
+        """MC-averaged gaps (M,) float32, input order preserved."""
+        return self._run(self._prepare_rows(molecules), self._mc_forward,
+                         self.NODE_AXES)
+
+
+class TwoStagePredictor:
+    """The published inference protocol as one served object: molecule
+    (+ RDKit coordinates) -> the distance predictor's S per-draw
+    symmetrised argmax bins samples (reference dist_pred/scheme.py:181-205)
+    -> the gap predictor, draw i on sample i % S decoded on the device
+    (finetune/scheme.py:103-137).
+
+        two = TwoStagePredictor.from_model_dirs(dist_dir, gap_dir)
+        gaps = two.predict(list_of_molecule_dicts)   # eV
+    """
+
+    def __init__(self, distance: DistancePredictor, gap: GapPredictor,
+                 num_bins: Optional[int] = None, range_bins: float = 8.0):
+        self.distance = distance
+        self.gap = gap
+        self.num_bins = num_bins or distance.cfg.num_dist_bins
+        self.range_bins = range_bins
+        if gap.bins_meta is None:
+            gap.bins_meta = {"num_bins": self.num_bins,
+                             "range_bins": self.range_bins}
+
+    @classmethod
+    def from_model_dirs(cls, dist_dir: str, gap_dir: str,
+                        range_bins: Optional[float] = None,
+                        **kw) -> "TwoStagePredictor":
+        """Both stages from their model dirs; ``kw`` goes to both
+        ``from_model_dir`` calls. ``range_bins`` defaults to the distance
+        model's trained ``range_dist_bins``: a model trained with another
+        bin range would otherwise decode scaled distances."""
+        distance = DistancePredictor.from_model_dir(dist_dir, **kw)
+        if range_bins is None:
+            range_bins = float(distance.scheme_cfg.range_dist_bins)
+        return cls(distance, GapPredictor.from_model_dir(gap_dir, **kw),
+                   range_bins=range_bins)
+
+    def predict(self, molecules: List[Dict]) -> np.ndarray:
+        """Gaps (M,) float32, input order preserved."""
+        # the structural transform runs once; both stages take its rows
+        rows = self.distance._prepare_rows(molecules)
+        if not rows:
+            return np.zeros((0,), np.float32)
+        bins = self.distance.predict_bins(rows)       # (M, S, Nmax, Nmax)
+        gap_rows = []
+        for row, b in zip(rows, bins):
+            n = int(row["num_nodes"])
+            g = {k: v for k, v in row.items()
+                 if k not in ("coords", "rdkit_coords", "dist_input")}
+            # bins2dist reads the strict upper triangle (the packed
+            # on-disk convention) and symmetrises
+            g["dist_bins"] = np.triu(b[:, :n, :n], k=1).astype(np.float32)
+            gap_rows.append(g)
+        return self.gap.predict(gap_rows)

@@ -288,7 +288,7 @@ class Trainer:
     # -- tgt_tpu's trees of the state -----------------------------------------
     def params_tree(self, model) -> Dict[str, Any]:
         return jax_params_from_state_dict(model.state_dict(),
-                                          self.scheme.model_cfg)
+                                          self.scheme.model_cfg, model)
 
     def load_params_tree(self, model, params: Dict[str, Any]) -> None:
         model.load_state_dict(state_dict_from_jax_params(
@@ -303,7 +303,7 @@ class Trainer:
         if self.ckpt.has_checkpoint():
             params, opt_state, counters = self.ckpt.load(
                 self.params_tree(model),
-                opt_state_to_jax(state["opt_state"], cfg))
+                opt_state_to_jax(state["opt_state"], cfg, model))
             self.load_params_tree(model, params)
             state["opt_state"] = opt_state_from_jax(
                 opt_state, cfg, list(state["opt_state"]["mu"]), self.device)
@@ -529,6 +529,8 @@ class Trainer:
         history = []
         while self.epoch < num_epochs:
             t0 = time.time()
+            # finetune picks its bins sample by the epoch, a resumed one too
+            self.scheme.current_epoch = self.epoch
             loader = self.scheme.train_loader(self.epoch, 0, 1)
             state, train_logs, stop_reason = self.train_epoch(state, loader)
             if stop_reason == "nan":
@@ -608,7 +610,7 @@ class Trainer:
             counters["plateau"] = self.plateau.state_dict()
         self.ckpt.save(self.params_tree(state["model"]),
                        opt_state_to_jax(state["opt_state"],
-                                        self.scheme.model_cfg),
+                                        self.scheme.model_cfg, state["model"]),
                        counters, epoch=self.epoch)
 
     def _quarantine_corrupted_history(self) -> None:
