@@ -62,7 +62,11 @@ Phases, each of which fails the run (non-zero exit) on error:
    also their back-to-back device times (``device_ms``), the body and the
    panel route timed in turns on the same inputs, which must agree within
    the bf16 tolerance, and the body's device time at the partition
-   ``agg_fwd_blocks`` picks and at its neighbours.
+   ``agg_fwd_blocks`` picks and at its neighbours. Also stage 2's
+   training micro-batch, b=64, at N=48 and bucket 56, and its eval batch,
+   b=128, N=48, bf16, each with the back-to-back device times of the
+   kernel, its plain version and the einsum, as at bucket 56, b=16 (the
+   8-head blocks).
 2e. The aggregate backward against plain: dA and dV on the same cases with
    a random cotangent, the transposed V included; each call takes the route
    ``agg_bwd_route`` names (bf16: the tensor-core body; f32: the panel
@@ -70,7 +74,8 @@ Phases, each of which fails the run (non-zero exit) on error:
    einsums of dA and dV. At N=48 in bf16 (b=16 and b=32): the back-to-back
    device times of the kernel, its plain version and the einsums, and the
    body and the panel route timed in turns on the same inputs, which must
-   agree within the bf16 tolerance.
+   agree within the bf16 tolerance; the same device times at stage 2's
+   micro-batch, b=64, N=48 and 56.
 2f, 2g. The legacy pair (``use_pallas: true``) against its plain versions
    on phase 2's cases, both directions stacked on the head axis (2 x 16
    heads, head-major), ungated with the constant gate 30.0; tolerances,
@@ -124,6 +129,22 @@ Phases, each of which fails the run (non-zero exit) on error:
    over the run; every bf16 forward and backward launch of the served and
    trained paths through the bodies (``body_launches``), and the f32
    forwards of 6b through the panel route.
+4r. The remat policies and IndivConfig at full width and depth: the
+   flagship TGT-At config trains 3 optimizer steps of one micro-batch of
+   32 (N up to 48, bf16) under each ``remat_policy`` (``none``, ``dots``,
+   ``tri_a``, ``proj``, ``tri_va``), in two passes over the policies (the
+   second in reverse order), each from the same weights: ms per step
+   (CUDA events), peak memory (``torch.cuda.max_memory_allocated``) and
+   launches (per micro-batch 94 + 48, and 48 + 48 under ``tri_va``, whose
+   replay takes the saved kernel output); then one f32 micro-batch per
+   policy under deterministic algorithms, whose loss and gradients must
+   equal ``none``'s to 1e-6 of each gradient's max|ref| (``none`` is also
+   run without them, which shows the embedding backward's run-to-run
+   spread). Then one served forward (16 molecules at N=48, one draw) of
+   an IndivConfig model at full width and depth whose layers alternate
+   the attention and aggregate variants, every fourth without a triplet
+   sub-layer: each kernel launched twice per layer that carries it, the
+   aggregate ones through the body.
 7. The CLI at full width and depth, in a temporary directory: the port's
    ``write_synthetic_dataset`` writes 256 molecules of up to 48 atoms in
    the PCQM4Mv2 parquet format (train-3d 168, valid-3d 24, valid 64);
@@ -165,11 +186,24 @@ Phases, each of which fails the run (non-zero exit) on error:
    through the kernel and with ``use_pallas: false``: MAEs within 1e-4
    relative; and the f32 gaps of the first eval batch (b=128, bins sample
    0) through both: max|diff| <= 1e-4 max|ref|, which the planted fault
-   must fail. Prints wall seconds per command, ms per finetune step (CUDA
-   events), molecules/s evaluated, and the two-stage molecules/s and p50.
+   must fail, and the same for the edge stream after the gap model's last
+   triplet sub-layer (a forward hook), the closer output. Prints wall
+   seconds per command, ms per finetune step (CUDA events), molecules/s
+   evaluated, and the two-stage molecules/s and p50.
+7x, 7bx. Phases 7 and 7b for TGT-Agx2, in the same directory on the same
+   parquet: the published rdkit chain of ``configs/pcqm/tgt_agx2_100m/``
+   (dist_pred, pretrain, finetune, gap_pred) with ``use_pallas: dense``
+   set by the caller, through the aggregate kernels: per forward 48
+   launches (44 for the gap model, whose last layer has no triplet
+   sub-layer), per training micro-batch 48 + 44 forward and 48 backward,
+   every bf16 launch through the bodies; the planted fault scales the
+   aggregate kernel's output.
 8. The kernels line (six kernels, launches by path, with the dense pair's
    stage-2 paths ``pretrain``, ``finetune``, ``gap_pred`` and
-   ``two_stage``; the dense pair's dropout launches and rate > 0 times,
+   ``two_stage``, its ``remat_<policy>`` training and the IndivConfig
+   forward, and the aggregate pair's ``cli`` and stage-2 paths; the
+   aggregate pair's rows at bucket 56 and stage 2's shapes; the dense
+   pair's dropout launches and rate > 0 times,
    the ungated times and SDPA's at b=16 and b=32, the aggregate pair's
    back-to-back times, body launches and two routes, the dense forward at
    the eval batches b=64 and b=128 and the dense backward at stage 2's
@@ -204,12 +238,15 @@ FLAGSHIP_YAML = os.path.join(
 AGX2_YAML = os.path.join(
     REPO, "configs", "pcqm", "tgt_agx2_100m", "dist_pred",
     "tgt_agx2_dp_rdkit.yaml")
-# stage 2 of the published TGT-At pipeline (phase 7b)
-STAGE2_YAMLS = {name: os.path.join(REPO, "configs", "pcqm", "tgt_at_200m",
-                                   name, file)
-                for name, file in (("pretrain", "tgt_at_tp.yaml"),
-                                   ("finetune", "tgt_at_tp_rdkit.yaml"),
-                                   ("gap_pred", "tgt_at_tp_rdkit.yaml"))}
+
+
+def stage2_yamls(family: str, prefix: str) -> dict:
+    """Stage 2 of a family's published rdkit chain: pretrain, finetune and
+    gap_pred (phases 7b and 7bx)."""
+    return {name: os.path.join(REPO, "configs", "pcqm", family, name, file)
+            for name, file in (("pretrain", f"{prefix}_tp.yaml"),
+                               ("finetune", f"{prefix}_tp_rdkit.yaml"),
+                               ("gap_pred", f"{prefix}_tp_rdkit.yaml"))}
 
 # H100 SXM data-sheet peaks (dense): device memory, and the rate of the
 # operations' type (bf16 inputs: tensor cores; f32: the f32 units)
@@ -827,6 +864,16 @@ AGG_CASES = [(16, n, WIDTH, dtype, False) for n in (24, 40, 48, 56)
                  (b, n, w, dtype, False) for b, n, w, dtype, _ in F3_CASES]
 
 
+# stage 2's training micro-batch, b=64 (batch_size 64), at N=48 and bucket
+# 56, for both phases, and its eval batch, b=128 (64 x prediction_bmult 2),
+# N=48, for the forward: bf16, each with its back-to-back device times
+AGG_STAGE2_CASES = [(64, n, WIDTH, torch.bfloat16, False) for n in (48, 56)]
+AGG_EVAL_CASES = [(128, 48, WIDTH, torch.bfloat16, False)]
+# the shapes whose back-to-back device times the kernels line reports by
+# shape: bucket 56 at b=16 (the forward's 8-head blocks) and stage 2's
+AGG_DEVICE_SHAPES = {(16, 56), (64, 48), (64, 56), (128, 48)}
+
+
 def dtype_name(dtype):
     return str(dtype).replace("torch.", "")
 
@@ -876,13 +923,15 @@ def agg_fwd_partitions(a, v, ref, tol):
 
 
 def aggregate_kernel_phase(card):
-    """Phase 2d; returns the rows at (16, 48, bf16) and (32, 48, bf16)."""
+    """Phase 2d; returns the rows at (16, 48, bf16) and (32, 48, bf16) by
+    b, and the bf16 rows of ``AGG_DEVICE_SHAPES`` by (b, N)."""
     from tgt_torch.ops.kernels.triplet_aggregate import (
         agg_fwd_route, triplet_aggregate_fwd, triplet_aggregate_fwd_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    rows = {}
-    for b, n, w, dtype, transposed in AGG_CASES:
+    rows, by_shape = {}, {}
+    for b, n, w, dtype, transposed in (AGG_CASES + AGG_STAGE2_CASES
+                                       + AGG_EVAL_CASES):
         a, v = agg_inputs(b, n, w, 16, dtype, gen)
         if transposed:
             v = v.transpose(1, 2)   # the out direction's view, read in place
@@ -910,8 +959,8 @@ def aggregate_kernel_phase(card):
                "ok": ok, "bitwise_equal": same, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": library_ms, "card": card}
-        if n == 48 and w == WIDTH and dtype == torch.bfloat16 and \
-                not transposed:
+        if n == 48 and b in (16, 32) and w == WIDTH and \
+                dtype == torch.bfloat16 and not transposed:
             row.update(agg_fwd_routes(a, v, tol),
                        partitions_device_ms=agg_fwd_partitions(a, v, ref, tol))
             device_times(row, lambda: triplet_aggregate_fwd(a, v),
@@ -919,6 +968,11 @@ def aggregate_kernel_phase(card):
                          lambda: torch.einsum("bikh,bjkdh->bjidh", a, v))
             ok &= row["routes_agree"]
             rows[b] = row
+        if (b, n) in AGG_DEVICE_SHAPES and dtype == torch.bfloat16:
+            device_times(row, lambda: triplet_aggregate_fwd(a, v),
+                         lambda: triplet_aggregate_fwd_reference(a, v),
+                         lambda: torch.einsum("bikh,bjkdh->bjidh", a, v))
+            by_shape[b, n] = row
         emit(row)
         if not ok:
             fail(f"aggregate kernel disagrees with its plain version or took "
@@ -926,7 +980,7 @@ def aggregate_kernel_phase(card):
         if not same:
             fail(f"two aggregate forward launches differ: {row}")
         del a, v, out, ref
-    return rows
+    return rows, by_shape
 
 
 def agg_bwd_routes(a, v, dva, tol):
@@ -952,13 +1006,14 @@ def agg_bwd_routes(a, v, dva, tol):
 
 
 def aggregate_backward_phase(card):
-    """Phase 2e; returns the rows at (16, 48, bf16) and (32, 48, bf16)."""
+    """Phase 2e; returns the rows at (16, 48, bf16) and (32, 48, bf16) by
+    b, and those at stage 2's micro-batch by (b, N)."""
     from tgt_torch.ops.kernels.triplet_aggregate import (
         agg_bwd_route, triplet_aggregate_bwd, triplet_aggregate_bwd_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    rows = {}
-    for b, n, w, dtype, transposed in AGG_CASES:
+    rows, by_shape = {}, {}
+    for b, n, w, dtype, transposed in AGG_CASES + AGG_STAGE2_CASES:
         a, v = agg_inputs(b, n, w, 16, dtype, gen)
         if transposed:
             v = v.transpose(1, 2)
@@ -993,8 +1048,8 @@ def aggregate_backward_phase(card):
                "bitwise_equal": same, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": library_ms, "card": card}
-        if n == 48 and w == WIDTH and dtype == torch.bfloat16 and \
-                not transposed:
+        if n == 48 and b in (16, 32) and w == WIDTH and \
+                dtype == torch.bfloat16 and not transposed:
             row.update(agg_bwd_routes(a, v, dva,
                                       [t for _, t in errs.values()]))
             device_times(row, lambda: triplet_aggregate_bwd(a, v, dva),
@@ -1002,6 +1057,11 @@ def aggregate_backward_phase(card):
                          einsums)
             ok &= row["routes_agree"]
             rows[b] = row
+        if (b, n, w, dtype, transposed) in AGG_STAGE2_CASES:
+            device_times(row, lambda: triplet_aggregate_bwd(a, v, dva),
+                         lambda: triplet_aggregate_bwd_reference(a, v, dva),
+                         einsums)
+            by_shape[b, n] = row
         emit(row)
         if not ok:
             fail(f"aggregate backward disagrees with its plain version or "
@@ -1009,7 +1069,7 @@ def aggregate_backward_phase(card):
         if not same:
             fail(f"two aggregate backward launches differ: {row}")
         del a, v, dva, got, ref, again
-    return rows
+    return rows, by_shape
 
 
 # -- phases 2f and 2g: the legacy pair against plain -------------------------
@@ -1226,7 +1286,9 @@ class ModelSpec(NamedTuple):
     direction; 1: the legacy pair serves both directions in one launch), and
     the backward and forward wrappers' counters of the calls that must all
     take their tensor-core bodies (``body_launches`` of the aggregate pair),
-    if any."""
+    if any; the family's stage-2 yamls, and the name in
+    ``tgt_torch.ops.triplet`` of the differentiable kernel core that the
+    planted fault scales."""
     name: str
     yaml: str
     overrides: dict
@@ -1236,9 +1298,33 @@ class ModelSpec(NamedTuple):
     per_layer: int = 2
     body_counter: str = ""
     fwd_body_counter: str = ""
+    stage2: dict = {}
+    core: str = "triplet_dense"
 
     def launches(self, wrapper) -> int:
         return getattr(wrapper, self.counter)
+
+    def per_forward(self, cfg) -> int:
+        """Triplet launches of one forward of a model whose every layer
+        application runs the triplet sub-layer."""
+        return self.per_layer * cfg["model_height"] * cfg.get(
+            "layer_multiplier", 1)
+
+    def per_layer_applied(self, cfg) -> int:
+        """Launches of one layer's ``layer_multiplier`` applications: the
+        last layer's, which remat does not replay (and which the gap model
+        has without a triplet sub-layer)."""
+        return self.per_layer * cfg.get("layer_multiplier", 1)
+
+    def body_counts(self) -> dict:
+        """The forward and backward body launches, where the path counts
+        them."""
+        out = {}
+        if self.fwd_body_counter:
+            out["fwd_body"] = getattr(self.fwd, self.fwd_body_counter)
+        if self.body_counter:
+            out["bwd_body"] = getattr(self.bwd, self.body_counter)
+        return out
 
 
 def kernel_counters():
@@ -1448,13 +1534,15 @@ def serving_phase(card, spec: ModelSpec):
 
 # -- phase 4: training ----------------------------------------------------------
 
-def training_scheme(spec: ModelSpec):
+def training_scheme(spec: ModelSpec, **extra):
     """A config for training on synthetic molecules of up to 48 atoms, 64
-    molecules per optimizer step: accumulation 2 of 32."""
+    molecules per optimizer step: accumulation 2 of 32 (``extra`` overrides
+    any of it)."""
     from tgt_torch.schemes import get_scheme
 
-    raw = load_config(spec, dataset_source="synthetic", synth_max_nodes=48,
-                      synth_train_samples=256, global_batch_size=64)
+    raw = load_config(spec, **dict(dict(
+        dataset_source="synthetic", synth_max_nodes=48,
+        synth_train_samples=256, global_batch_size=64), **extra))
     return get_scheme(raw["scheme"])(raw, command="train")
 
 
@@ -1610,6 +1698,243 @@ def gradient_phase(card, spec: ModelSpec, weights):
     if not min(tri.values()) > 0:
         fail("a triplet projection got no gradient through the kernels")
 
+# -- phase 4r: the remat policies, and an IndivConfig model ------------------------
+
+REMAT_STEPS = 3     # optimizer steps of one micro-batch of 32 per policy
+REMAT_GRAD_TOL = 1e-6
+
+
+def remat_step(spec: ModelSpec, policy: str, weights: dict):
+    """``REMAT_STEPS`` optimizer steps of the training micro-batch (b=32,
+    molecules of up to 48 atoms, bf16) under ``policy`` from ``weights``:
+    ms per step (CUDA events), peak memory and launches."""
+    from tgt_torch.training import Trainer
+
+    scheme = training_scheme(spec, remat_policy=policy, global_batch_size=32,
+                             synth_train_samples=32 * REMAT_STEPS)
+    trainer = Trainer(scheme, device="cuda")
+    state = trainer.init_state(seed=0)
+    state["model"].load_state_dict(weights)
+    ends, train_step = [], trainer.train_step
+
+    def recorded(*args, **kwargs):
+        out = train_step(*args, **kwargs)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        ends.append((out[1], end))
+        return out
+
+    trainer.train_step = recorded
+    loader = scheme.train_loader(0, 0, 1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    reset_counts()                                  # the main path starts
+    start.record()
+    state, logs, stop = trainer.train_epoch(state, loader)
+    torch.cuda.synchronize()
+    launches = {"fwd": spec.launches(spec.fwd),
+                "bwd": spec.launches(spec.bwd)}     # the main path ends
+    check_only(spec)
+    events = [start] + [e for _, e in ends]
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    out = {"steps": len(ends), "stop": stop,
+           "losses": [float(m["loss"]) for m, _ in ends],
+           "ok": [bool(m["ok"]) for m, _ in ends], "step_ms": step_ms,
+           "median_step_ms_after_first": float(np.median(step_ms[1:])),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches}
+    del trainer, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_gradients(spec: ModelSpec, policy: str, weights: dict, feed,
+                    deterministic: bool = True):
+    """Loss and gradients (on the host) of one f32 micro-batch under
+    ``policy``, dropout on (seed 7), through the kernels; with
+    ``deterministic``, under ``torch.use_deterministic_algorithms`` (the
+    embedding backward's sums are otherwise summed in a varying order)."""
+    from tgt_torch.models.heads import DistanceModel
+
+    scheme = training_scheme(spec, remat_policy=policy)
+    model = DistanceModel(scheme.model_cfg.replace(compute_dtype="float32"),
+                          device="cuda")
+    model.load_state_dict(weights)
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    try:
+        loss, _ = scheme.loss_fn(model, feed, seed=7)
+        names, params = zip(*model.named_parameters())
+        grads = torch.autograd.grad(loss, params)
+    finally:
+        torch.use_deterministic_algorithms(before, warn_only=True)
+    return loss.detach().cpu(), {k: g.cpu() for k, g in zip(names, grads)}
+
+
+def grad_diff(got, ref):
+    """(worst |diff| / max|ref| over the gradients, that gradient's name,
+    bitwise equal) of two (loss, gradients) pairs."""
+    worst, worst_of = 0.0, None
+    bitwise = torch.equal(got[0], ref[0])
+    for k, r in ref[1].items():
+        scale = float(r.abs().max())
+        err = float((got[1][k] - r).abs().max())
+        rel = err / scale if scale > 0 else err
+        if rel > worst:
+            worst, worst_of = rel, k
+        bitwise &= torch.equal(got[1][k], r)
+    return worst, worst_of, bitwise
+
+
+def remat_policy_phase(card, spec: ModelSpec):
+    """Phase 4r: each remat policy trains the flagship config at full width
+    and depth (``REMAT_STEPS`` steps of b=32, N up to 48, bf16) from the
+    same weights, in two passes over the policies (the second in reverse
+    order: the host's noise shows between them): ms per step, peak memory,
+    launches (``tri_va``: the replay launches no forward kernel; the others
+    replay the 23 inner layers). Then one f32 micro-batch per policy, under
+    deterministic algorithms, whose loss and gradients must equal
+    ``none``'s to ``REMAT_GRAD_TOL`` of each gradient's max|ref| (and are
+    expected bitwise equal); ``none`` also runs once without them, which
+    shows how far two runs differ there. Returns {policy: launches}."""
+    from tgt_torch.models import make_model
+    from tgt_torch.ops.remat import REMAT_POLICIES
+
+    scheme = training_scheme(spec)
+    weights = make_model("distance", scheme.model_cfg, device="cuda",
+                         seed=0).state_dict()
+    host = next(iter(scheme.train_loader(1, 0, 1)))
+    host = {k: v[:scheme.cfg.batch_size] for k, v in host.items()}
+    feed = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+            for k, v in scheme.device_batch(host).items()}
+    raw = load_config(spec)
+    per_micro = spec.per_forward(raw)
+    replay = per_micro - spec.per_layer_applied(raw)
+    passes = {policy: [] for policy in REMAT_POLICIES}
+    for order in (REMAT_POLICIES, REMAT_POLICIES[::-1]):
+        for policy in order:
+            passes[policy].append(remat_step(spec, policy, weights))
+    ref = remat_gradients(spec, "none", weights, feed)
+    noise = grad_diff(remat_gradients(spec, "none", weights, feed, False),
+                      ref)
+    launches = {}
+    for policy in REMAT_POLICIES:
+        # only tri_va's saved kernel output spares the replay its launches
+        expect = {"fwd": REMAT_STEPS * (per_micro + (
+                      0 if policy == "tri_va" else replay)),
+                  "bwd": REMAT_STEPS * per_micro}
+        got = remat_gradients(spec, policy, weights, feed)
+        worst, worst_of, bitwise = grad_diff(got, ref)
+        runs = passes[policy]
+        row = {"policy": policy, "path": spec.name, "card": card,
+               "steps": [r["steps"] for r in runs],
+               "step_ms": [r["step_ms"] for r in runs],
+               "median_step_ms_after_first": [
+                   r["median_step_ms_after_first"] for r in runs],
+               "peak_mem_gb": [r["peak_mem_gb"] for r in runs],
+               "losses": runs[0]["losses"],
+               "launches": [r["launches"] for r in runs],
+               "expected_launches": expect,
+               "names_nothing_on_kernel_path": policy == "tri_a",
+               "f32_loss": float(got[0]), "f32_loss_none": float(ref[0]),
+               "f32_worst_grad_err_over_max_ref": worst,
+               "f32_worst_grad": worst_of,
+               "f32_bitwise_equal_to_none": bitwise}
+        if policy == "none":
+            row.update(f32_nondeterministic_none_worst=noise[0],
+                       f32_nondeterministic_none_worst_grad=noise[1],
+                       f32_nondeterministic_none_bitwise=noise[2])
+        emit(row)
+        for r in runs:
+            if r["steps"] != REMAT_STEPS or r["stop"] is not None or \
+                    not all(r["ok"]) or not all(map(math.isfinite,
+                                                    r["losses"])):
+                fail(f"remat_policy {policy} did not train: {r}")
+            if r["launches"] != expect:
+                fail(f"remat_policy {policy}: launches {r['launches']}, "
+                     f"expected {expect}")
+        if not worst <= REMAT_GRAD_TOL or abs(float(got[0]) - float(
+                ref[0])) > REMAT_GRAD_TOL * abs(float(ref[0])):
+            fail(f"remat_policy {policy}: f32 loss or gradients differ from "
+                 f"none's: {row}")
+        launches[policy] = {k: sum(r["launches"][k] for r in runs)
+                            for k in ("fwd", "bwd")}
+    return launches
+
+
+# layers of the IndivConfig model: attention in the even layers, aggregate
+# in the odd ones, and every fourth layer without a triplet sub-layer
+INDIV_TYPES = tuple("attention" if i % 2 == 0 else "aggregate"
+                    for i in range(24))
+INDIV_HEADS = tuple(0 if i % 4 == 3 else 16 for i in range(24))
+
+
+def indiv_serving_phase(card, spec: ModelSpec):
+    """Phase 4r's IndivConfig model: the flagship config at full width and
+    depth with per-layer ``triplet_type`` and ``triplet_heads``
+    (``INDIV_TYPES``, ``INDIV_HEADS``), ``use_pallas: dense``, one served
+    forward of 16 molecules at N=48 (bf16, one MC draw): each kernel
+    launched twice per layer that carries it, every aggregate launch
+    through its body. Returns {kernel: launches}."""
+    from tgt_torch.models import make_model
+    from tgt_torch.ops.kernels import triplet_aggregate as ta
+    from tgt_torch.ops.kernels import triplet_dense as td
+    from tgt_torch.schemes import get_scheme
+    from tgt_torch.serving import DistancePredictor
+
+    raw = load_config(spec, triplet_type=list(INDIV_TYPES),
+                      triplet_heads=list(INDIV_HEADS), use_pallas="dense")
+    scheme = get_scheme(raw["scheme"])(raw, command="evaluate")
+    cfg = scheme.model_cfg
+    if not cfg.has_indiv:
+        fail("the per-layer lists did not reach the model config")
+    model = make_model("distance", cfg, device="cuda", seed=0)
+    pred = DistancePredictor(model, cfg, mc_samples=1, batch_size=16,
+                             buckets=tuple(scheme.cfg.buckets), seed=0,
+                             device="cuda")
+    rs = np.random.RandomState(5)
+    mols = [random_molecule(rs, int(n)) for n in rs.randint(41, 49, size=16)]
+    pred.predict(mols)                      # warm-up
+    torch.cuda.synchronize()
+    reset_counts()                          # the main path starts
+    probs = pred.predict(mols)
+    torch.cuda.synchronize()
+    launches = {"triplet_dense_fwd": td.triplet_dense_fwd.launches,
+                "triplet_aggregate_fwd": ta.triplet_aggregate_fwd.launches,
+                "triplet_aggregate_fwd_body":
+                    ta.triplet_aggregate_fwd.body_launches}
+    expect = {
+        "triplet_dense_fwd": 2 * sum(
+            t == "attention" and h > 0
+            for t, h in zip(INDIV_TYPES, INDIV_HEADS)),
+        "triplet_aggregate_fwd": 2 * sum(
+            t == "aggregate" and h > 0
+            for t, h in zip(INDIV_TYPES, INDIV_HEADS))}
+    expect["triplet_aggregate_fwd_body"] = expect["triplet_aggregate_fwd"]
+    others = {f"{w.__name__}.{a}": getattr(w, a)
+              for w, a in kernel_counters() if getattr(w, a)
+              and (w.__name__, a) not in (
+                  ("triplet_dense_fwd", "launches"),
+                  ("triplet_aggregate_fwd", "launches"),
+                  ("triplet_aggregate_fwd", "body_launches"))}
+    n_params = sum(p.numel() for p in model.parameters())
+    row = {"indiv_config": "DistancePredictor.predict", "card": card,
+           "model": os.path.relpath(spec.yaml, REPO), "params": n_params,
+           "triplet_type": list(INDIV_TYPES),
+           "triplet_heads": list(INDIV_HEADS), "molecules": len(mols),
+           "launches": launches, "expected_launches": expect,
+           "other_launches": others}
+    emit(row)
+    if launches != expect or others:
+        fail(f"IndivConfig forward launches {launches}, expected {expect}; "
+             f"others {others}")
+    if probs.shape[0] != 16 or not np.isfinite(probs).all():
+        fail(f"IndivConfig forward: probabilities {probs.shape}")
+    return launches
+
+
 # -- phase 7: the CLI -------------------------------------------------------------
 
 CLI_MOLECULES, CLI_MAX_NODES = 256, 48
@@ -1621,14 +1946,16 @@ def recorded_trainer():
     """Record, for every ``Trainer`` the CLI makes, a CUDA event at the end
     of each training step, the wall seconds and molecules of each
     evaluation pass and the wall seconds of each checkpoint write and
-    load; count the calls of the triplet layer's plain core."""
+    load; count the calls of the triplet layers' plain cores (attention
+    and aggregate)."""
     import tgt_torch.ops.triplet as tri
     from tgt_torch.training import Trainer
 
     rec = {"steps": [], "evals": [], "plain_core": 0, "checkpoint_s": [],
            "load_or_init_s": []}
-    train_step, eval_epoch, plain = (Trainer.train_step, Trainer.eval_epoch,
-                                     tri._plain_core)
+    train_step, eval_epoch = Trainer.train_step, Trainer.eval_epoch
+    plain = {name: getattr(tri, name)
+             for name in ("_plain_core", "triplet_aggregate_fwd_reference")}
     checkpoint, load_or_init = Trainer.checkpoint, Trainer.load_or_init
 
     def timed(fn, key):
@@ -1655,35 +1982,41 @@ def recorded_trainer():
         rec["evals"].append((time.perf_counter() - t0, molecules))
         return preds
 
-    def plain_core(*args, **kwargs):
-        rec["plain_core"] += 1
-        return plain(*args, **kwargs)
+    def counted(core):
+        def plain_core(*args, **kwargs):
+            rec["plain_core"] += 1
+            return core(*args, **kwargs)
+        return plain_core
 
     Trainer.train_step, Trainer.eval_epoch = step, evaluate
     Trainer.checkpoint = timed(checkpoint, "checkpoint_s")
     Trainer.load_or_init = timed(load_or_init, "load_or_init_s")
-    tri._plain_core = plain_core
+    for name, core in plain.items():
+        setattr(tri, name, counted(core))
     try:
         yield rec
     finally:
         Trainer.train_step, Trainer.eval_epoch = train_step, eval_epoch
         Trainer.checkpoint, Trainer.load_or_init = checkpoint, load_or_init
-        tri._plain_core = plain
+        for name, core in plain.items():
+            setattr(tri, name, core)
 
 
 @contextlib.contextmanager
-def scaled_dense_core(factor):
-    """A planted fault: TripletAttention's dense kernel with its output
-    scaled by ``factor`` (None leaves the kernel as it is)."""
+def scaled_core(spec: ModelSpec, factor):
+    """A planted fault: the path's kernel core (``spec.core``: the dense
+    attention pair of TripletAttention, or TripletAggregate's aggregate
+    pair) with its output scaled by ``factor`` (None leaves it as it
+    is)."""
     import tgt_torch.ops.triplet as tri
 
-    saved = tri.triplet_dense
+    saved = getattr(tri, spec.core)
     if factor is not None:
-        tri.triplet_dense = lambda *a, **k: saved(*a, **k) * factor
+        setattr(tri, spec.core, lambda *a, **k: saved(*a, **k) * factor)
     try:
         yield
     finally:
-        tri.triplet_dense = saved
+        setattr(tri, spec.core, saved)
 
 
 def f32_eval_outputs(spec: ModelSpec, cfg: dict, model_dir: str):
@@ -1691,7 +2024,12 @@ def f32_eval_outputs(spec: ModelSpec, cfg: dict, model_dir: str):
     prediction_bmult`` rows) from the model dir's checkpoint: through the
     kernel, through the plain path, and through the kernel scaled by
     ``FAULT_SCALE``; with each forward's kernel launches. The distance
-    model gives its logits; the gap model its gaps, on bins sample 0."""
+    model gives its logits; the gap model its gaps, on bins sample 0, and
+    the edge stream after its last triplet sub-layer (the output of the
+    last application of layer H-2, read by a forward hook: the gap sees
+    the triplet layers only through the attention's edge bias and a mean
+    over nodes). Returns ({route: output}, {route: edge stream} or {},
+    launches)."""
     from tgt_torch.models import make_model
     from tgt_torch.models.convert import (load_jax_npz,
                                           state_dict_from_jax_params)
@@ -1711,22 +2049,29 @@ def f32_eval_outputs(spec: ModelSpec, cfg: dict, model_dir: str):
         feed = scheme._model_inputs(batch, edge_mask, None, training=False)
     state = state_dict_from_jax_params(load_jax_npz(os.path.join(
         model_dir, "checkpoint", "model.npz")), scheme.model_cfg)
-    out, launched = {}, []
+    out, edge, launched = {}, {}, []
     for route, use_pallas, factor in (("dense", "dense", None),
                                       ("plain", False, None),
                                       ("fault", "dense", FAULT_SCALE)):
         model = make_model(scheme.MODEL, scheme.model_cfg.replace(
             use_pallas=use_pallas), device="cuda")
         model.load_state_dict(state)
+        hook = None
+        if scheme.MODEL == "gap":
+            hook = model.encoder.TGT_layers[-2].register_forward_hook(
+                lambda mod, args, g, route=route: edge.__setitem__(
+                    route, g.e.float()))
         reset_counts()
-        with torch.inference_mode(), scaled_dense_core(factor):
+        with torch.inference_mode(), scaled_core(spec, factor):
             out[route] = model(feed, deterministic=True).float()
         torch.cuda.synchronize()
         launched.append(spec.launches(spec.fwd))
         if not bool(torch.isfinite(out[route]).all()):
             fail(f"non-finite f32 eval outputs through the {route} path")
+        if hook is not None:
+            hook.remove()
         del model
-    return out, launched
+    return out, edge, launched
 
 
 def f32_evaluate(spec: ModelSpec, cfg: dict, samples: int):
@@ -1738,7 +2083,7 @@ def f32_evaluate(spec: ModelSpec, cfg: dict, samples: int):
     out = {}
     for route in ("dense", "plain", "fault"):
         reset_counts()
-        with scaled_dense_core(FAULT_SCALE if route == "fault" else None):
+        with scaled_core(spec, FAULT_SCALE if route == "fault" else None):
             metrics = execute("evaluate", dict(
                 cfg, mixed_precision=False, predict_in_train=False,
                 evaluation_samples=samples,
@@ -1760,12 +2105,23 @@ def cli_workdir():
         shutil.rmtree(root, ignore_errors=True)
 
 
+def check_bodies(spec: ModelSpec, launched: dict, where: str) -> dict:
+    """Every bf16 launch of the path took its tensor-core body, where the
+    path counts them; returns the body counts."""
+    bodies = spec.body_counts()
+    for key, n in bodies.items():
+        if n != launched[key.split("_")[0]]:
+            fail(f"{where}: {n} of {launched[key.split('_')[0]]} "
+                 f"{key.split('_')[0]} launches took the body")
+    return bodies
+
+
 def cli_phase(card, spec: ModelSpec, root: str):
     """The published config through the port's CLI on PCQM-format parquet
-    under ``root``: train one epoch, resume for a second, evaluate,
-    predict, serve from the model dir; every command's triplet launches
-    against the count its micro-batches and draws imply; an f32 evaluate
-    through the kernel against the plain path."""
+    under ``root`` (written by the first call): train one epoch, resume for
+    a second, evaluate, predict, serve from the model dir; every command's
+    triplet launches against the count its micro-batches and draws imply;
+    an f32 evaluate through the kernel against the plain path."""
     import yaml
 
     from tgt_torch.cli.execute import execute
@@ -1774,8 +2130,9 @@ def cli_phase(card, spec: ModelSpec, root: str):
     from tgt_torch.serving import DistancePredictor
 
     data = os.path.join(root, "data")
-    write_synthetic_dataset(data, num_samples=CLI_MOLECULES,
-                            max_nodes=CLI_MAX_NODES)
+    if not os.path.exists(os.path.join(data, "splits.npz")):
+        write_synthetic_dataset(data, num_samples=CLI_MOLECULES,
+                                max_nodes=CLI_MAX_NODES)
     with np.load(os.path.join(data, "splits.npz")) as splits:
         n_split = {k: len(splits[k]) for k in splits.files}
     if (n_split["train-3d"], n_split["valid-3d"], n_split["valid"]) != \
@@ -1786,8 +2143,8 @@ def cli_phase(card, spec: ModelSpec, root: str):
                       num_epochs=1)
     model_dir = os.path.join(root, "models", cfg["model_prefix"],
                              cfg["model_name"])
-    per_fwd = 2 * cfg["model_height"]          # both directions
-    replay = per_fwd - 2                       # remat of the inner layers
+    per_fwd = spec.per_forward(cfg)            # both directions
+    replay = per_fwd - spec.per_layer_applied(cfg)   # remat: inner layers
     eval_b = cfg["batch_size"] * cfg["prediction_bmult"]
     steps = math.ceil(n_split["train-3d"] / cfg["global_batch_size"])
     micro = steps * cfg["global_batch_size"] // cfg["batch_size"]
@@ -1801,7 +2158,7 @@ def cli_phase(card, spec: ModelSpec, root: str):
         "predict": {"fwd": sum(math.ceil(n_split[s] / eval_b)
                                for s in ("train", "valid"))
                     * cfg["prediction_samples"] * per_fwd, "bwd": 0}}
-    wall, launches, out = {}, {}, {}
+    wall, launches, out, bodies = {}, {}, {}, {}
     with recorded_trainer() as rec:
         for name, command, extra in (
                 ("train", "train", {}), ("resume", "train",
@@ -1816,6 +2173,7 @@ def cli_phase(card, spec: ModelSpec, root: str):
             wall[name] = time.time() - t0
             launches[name] = {"fwd": spec.launches(spec.fwd),
                               "bwd": spec.launches(spec.bwd)}
+            bodies[name] = check_bodies(spec, launches[name], name)
             check_only(spec)                # the main path ends
             if isinstance(out[name], dict):
                 out[name].pop("state", None)   # free the card
@@ -1874,6 +2232,8 @@ def cli_phase(card, spec: ModelSpec, root: str):
     if served != per_fwd * cfg["evaluation_samples"] or \
             not np.isfinite(probs).all():
         fail(f"serving from the model dir: {served} launches")
+    bodies["served"] = check_bodies(spec, {"fwd": served, "bwd": 0},
+                                    "served")
     del pred
 
     # f32, deterministic: the evaluate command through the kernel,
@@ -1885,12 +2245,12 @@ def cli_phase(card, spec: ModelSpec, root: str):
     (loss, n_kernel), (ref, n_plain) = f32["dense"], f32["plain"]
     rel = abs(loss - ref) / abs(ref)
     rel_fault = abs(f32["fault"][0] - ref) / abs(ref)
-    logits, n_logits = f32_eval_outputs(spec, cfg, model_dir)
+    logits, _, n_logits = f32_eval_outputs(spec, cfg, model_dir)
     scale = float(logits["plain"].abs().max())
     err = float((logits["dense"] - logits["plain"]).abs().max())
     err_fault = float((logits["fault"] - logits["plain"]).abs().max())
-    row = {"cli": "tgt_torch.cli.execute", "model": os.path.relpath(
-               spec.yaml, REPO), "card": card,
+    row = {"cli": "tgt_torch.cli.execute", "path": spec.name,
+           "model": os.path.relpath(spec.yaml, REPO), "card": card,
            "molecules": n_split, "wall_s": wall,
            "ms_per_step": {f"epoch_{e + 1}": v
                            for e, v in step_ms.items()},
@@ -1901,7 +2261,7 @@ def cli_phase(card, spec: ModelSpec, root: str):
            "load_or_init_s": rec["load_or_init_s"],
            "history": history, "results": results,
            "launches": launches, "expected_launches": expect,
-           "served_launches": served,
+           "body_launches": bodies, "served_launches": served,
            "val_loss_f32_kernel": loss, "val_loss_f32_plain": ref,
            "val_loss_rel_diff": rel, "f32_launches": [n_kernel, n_plain],
            "val_loss_f32_fault": f32["fault"][0],
@@ -1923,9 +2283,7 @@ def cli_phase(card, spec: ModelSpec, root: str):
     if err_fault <= 1e-4 * scale:
         fail(f"the logits check does not see a kernel scaled by "
              f"{FAULT_SCALE}: max|diff| {err_fault}, max|ref| {scale}")
-    print(f"CLI on {card}: train {wall['train']:.1f} s, resume "
-          f"{wall['resume']:.1f} s, evaluate {wall['evaluate']:.1f} s, "
-          f"predict {wall['predict']:.1f} s; "
+    print(f"CLI ({spec.name}) on {card}: wall {wall}; "
           f"{row['median_ms_per_step_epoch_2']:.1f} ms per step, "
           f"{row['molecules_per_s_evaluated']:.1f} molecules/s "
           f"evaluated; f32 val loss {loss} against {ref}, with the "
@@ -1934,6 +2292,8 @@ def cli_phase(card, spec: ModelSpec, root: str):
     total = {k: sum(v[k] for v in launches.values())
              for k in ("fwd", "bwd")}
     total["fwd"] += served + n_kernel
+    for key in spec.body_counts():      # the f32 checks take no body
+        total[key] = sum(b[key] for b in bodies.values())
     return total
 
 
@@ -1977,7 +2337,8 @@ def stage2_phase(card, spec: ModelSpec, root: str):
         n_split = {k: len(splits[k]) for k in splits.files}
 
     def stage(name, **extra):
-        cfg = load_yaml(STAGE2_YAMLS[name])
+        cfg = load_yaml(spec.stage2[name])
+        cfg.update(spec.overrides)
         cfg.update(dataset_path=data, save_path_prefix=models, **extra)
         return cfg, os.path.join(models, cfg["model_prefix"],
                                  cfg["model_name"])
@@ -1993,9 +2354,9 @@ def stage2_phase(card, spec: ModelSpec, root: str):
 
     # the launches each command implies: the multi model runs the triplet
     # core in all its layers, the gap model in all but the last
-    multi_fwd = 2 * pt["model_height"]
-    gap_fwd = multi_fwd - 2
-    replay = multi_fwd - 2                      # remat of the inner layers
+    multi_fwd = spec.per_forward(pt)
+    gap_fwd = multi_fwd - spec.per_layer_applied(pt)
+    replay = gap_fwd                            # remat of the inner layers
     eval_b = pt["batch_size"] * pt["prediction_bmult"]
     val_batches = math.ceil(n_split["valid"] / eval_b)
 
@@ -2014,7 +2375,7 @@ def stage2_phase(card, spec: ModelSpec, root: str):
               "finetune": trained(ft, "train", "valid"),
               "gap_pred": {"fwd": 0, "bwd": 0},
               "evaluate": {"fwd": val_batches * mc * gap_fwd, "bwd": 0}}
-    wall, launches, steps_of = {}, {}, {}
+    wall, launches, steps_of, bodies = {}, {}, {}, {}
     with recorded_trainer() as rec:
         for name, command, cfg in (("pretrain", "train", pt),
                                    ("finetune", "train", ft),
@@ -2029,6 +2390,7 @@ def stage2_phase(card, spec: ModelSpec, root: str):
             wall[name] = time.time() - t0
             launches[name] = {"fwd": spec.launches(spec.fwd),
                               "bwd": spec.launches(spec.bwd)}
+            bodies[name] = check_bodies(spec, launches[name], name)
             check_only(spec)                    # the main path ends
             steps_of[name] = rec["steps"][first:]
             del out
@@ -2102,6 +2464,8 @@ def stage2_phase(card, spec: ModelSpec, root: str):
             fail(f"two-stage request {name}: gaps {out.shape}")
         gaps.append(out)
     served = spec.launches(spec.fwd)            # the main path ends
+    bodies["two_stage"] = check_bodies(spec, {"fwd": served, "bwd": 0},
+                                       "two-stage")
     check_only(spec)
     order_err = float(np.abs(gaps[1] - gaps[0][perm]).max())
     if order_err > 1e-5 * float(np.abs(gaps[0]).max()):
@@ -2114,14 +2478,19 @@ def stage2_phase(card, spec: ModelSpec, root: str):
     f32 = f32_evaluate(spec, gp, 2)
     (mae, n_kernel), (ref, n_plain) = f32["dense"], f32["plain"]
     rel = abs(mae - ref) / abs(ref)
-    gap32, n_gap32 = f32_eval_outputs(spec, gp, gp_dir)
+    gap32, edge32, n_gap32 = f32_eval_outputs(spec, gp, gp_dir)
     scale = float(gap32["plain"].abs().max())
     err = float((gap32["dense"] - gap32["plain"]).abs().max())
     err_fault = float((gap32["fault"] - gap32["plain"]).abs().max())
+    # the closer check: the edge stream after the last triplet sub-layer
+    e_scale = float(edge32["plain"].abs().max())
+    e_err = float((edge32["dense"] - edge32["plain"]).abs().max())
+    e_err_fault = float((edge32["fault"] - edge32["plain"]).abs().max())
     p50 = float(np.median(lat))
     row = {"stage2": "tgt_torch.cli.execute + TwoStagePredictor",
+           "path": spec.name,
            "models": {k: os.path.relpath(v, REPO)
-                      for k, v in STAGE2_YAMLS.items()},
+                      for k, v in spec.stage2.items()},
            "card": card, "molecules": n_split, "wall_s": wall,
            "ms_per_finetune_step": ft_step_ms,
            "median_ms_per_finetune_step": float(np.median(ft_step_ms)),
@@ -2134,6 +2503,7 @@ def stage2_phase(card, spec: ModelSpec, root: str):
            "load_or_init_s": rec["load_or_init_s"],
            "history": histories, "results": results,
            "launches": launches, "expected_launches": expect,
+           "body_launches": bodies,
            "two_stage_request_s": lat, "two_stage_p50_s": p50,
            "two_stage_molecules_per_s": len(first) / p50,
            "two_stage_launches": served,
@@ -2146,7 +2516,12 @@ def stage2_phase(card, spec: ModelSpec, root: str):
            "gaps_f32_max_abs_err": err,
            "gaps_f32_max_abs_err_fault": err_fault,
            "gaps_f32_max_abs_ref": scale,
-           "gaps_f32_launches": n_gap32, "fault_scale": FAULT_SCALE}
+           "gaps_f32_launches": n_gap32, "fault_scale": FAULT_SCALE,
+           "gaps_fault_margin": err_fault / (1e-4 * scale),
+           "edge_f32_max_abs_err": e_err,
+           "edge_f32_max_abs_err_fault": e_err_fault,
+           "edge_f32_max_abs_ref": e_scale,
+           "edge_fault_margin": e_err_fault / (1e-4 * e_scale)}
     emit(row)
     if rel > 1e-4 or n_kernel != 2 * gap_fwd * val_batches or n_plain != 0:
         fail(f"f32 gap_pred evaluate: kernel {mae} ({n_kernel} launches) "
@@ -2157,7 +2532,12 @@ def stage2_phase(card, spec: ModelSpec, root: str):
     if err_fault <= 1e-4 * scale:
         fail(f"the gaps check does not see a kernel scaled by "
              f"{FAULT_SCALE}: max|diff| {err_fault}, max|ref| {scale}")
-    print(f"stage 2 on {card}: pretrain {wall['pretrain']:.1f} s, finetune "
+    if e_err > 1e-4 * e_scale or e_err_fault <= 1e-4 * e_scale:
+        fail(f"f32 edge stream after the last triplet sub-layer: kernel "
+             f"against plain max|diff| {e_err}, with the fault "
+             f"{e_err_fault}, max|ref| {e_scale}")
+    print(f"stage 2 ({spec.name}) on {card}: pretrain "
+          f"{wall['pretrain']:.1f} s, finetune "
           f"{wall['finetune']:.1f} s, trim {wall['gap_pred']:.1f} s, "
           f"evaluate {wall['evaluate']:.1f} s; "
           f"{row['median_ms_per_finetune_step']:.1f} ms per finetune step, "
@@ -2165,11 +2545,14 @@ def stage2_phase(card, spec: ModelSpec, root: str):
           f"two-stage {row['two_stage_molecules_per_s']:.2f} molecules/s "
           f"served, p50 {p50:.2f} s; f32 MAE {mae} against {ref}, f32 "
           f"gaps max|diff| {err} of max|ref| {scale}, with the fault "
-          f"{err_fault}", flush=True)
-    total = {k: {"fwd": v["fwd"], "bwd": v["bwd"]}
-             for k, v in launches.items() if k != "evaluate"}
+          f"{err_fault}; edge stream {e_err} of {e_scale}, with the fault "
+          f"{e_err_fault}", flush=True)
+    total = {k: dict(v, **bodies[k]) for k, v in launches.items()
+             if k != "evaluate"}
     total["gap_pred"]["fwd"] += launches["evaluate"]["fwd"] + n_kernel
-    total["two_stage"] = {"fwd": served, "bwd": 0}
+    for key, n in bodies["evaluate"].items():   # the f32 checks take none
+        total["gap_pred"][key] += n
+    total["two_stage"] = {"fwd": served, "bwd": 0, **bodies["two_stage"]}
     return total
 
 
@@ -2208,7 +2591,8 @@ def main() -> int:
         fail(f"a tensor-core body spills registers: {spilled}")
 
     at = ModelSpec("TGT-At", FLAGSHIP_YAML, {}, td.triplet_dense_fwd,
-                   td.triplet_dense_bwd)
+                   td.triplet_dense_bwd,
+                   stage2=stage2_yamls("tgt_at_200m", "tgt_at"))
     # Path D: the yaml's own node and edge activation-dropout rate on the
     # triplet weights (no published config sets triplet_dropout)
     at_d = ModelSpec("TGT-At Path D", FLAGSHIP_YAML, {"triplet_dropout": 0.1},
@@ -2221,15 +2605,18 @@ def main() -> int:
     agx2 = ModelSpec("TGT-Agx2", AGX2_YAML, {"use_pallas": "dense"},
                      ta.triplet_aggregate_fwd, ta.triplet_aggregate_bwd,
                      body_counter="body_launches",
-                     fwd_body_counter="body_launches")
+                     fwd_body_counter="body_launches",
+                     stage2=stage2_yamls("tgt_agx2_100m", "tgt_agx2"),
+                     core="triplet_aggregate_core")
 
     dense = phase("2 attention fwd kernel", kernel_phase, card)
     dense_bwd = phase("2b attention bwd kernel", backward_kernel_phase, card)
     drop = phase("2c attention kernels at rate > 0", dropout_kernel_phase,
                  card)
-    agg = phase("2d aggregate fwd kernel", aggregate_kernel_phase, card)
-    agg_bwd = phase("2e aggregate bwd kernel", aggregate_backward_phase,
-                    card)
+    agg, agg_shapes = phase("2d aggregate fwd kernel",
+                            aggregate_kernel_phase, card)
+    agg_bwd, agg_bwd_shapes = phase("2e aggregate bwd kernel",
+                                    aggregate_backward_phase, card)
     legacy = phase("2f legacy fwd kernel", legacy_forward_phase, card)
     legacy_bwd = phase("2g legacy bwd kernel", legacy_backward_phase, card)
 
@@ -2246,9 +2633,15 @@ def main() -> int:
         del weights
     if not all(served.values()):
         fail(f"a served path never launched its triplet kernel: {served}")
+    remat = phase("4r TGT-At remat policies", remat_policy_phase, card, at)
+    indiv = phase("4r TGT-At IndivConfig serving", indiv_serving_phase, card,
+                  at)
     with cli_workdir() as root:
         cli = phase("7 TGT-At CLI", cli_phase, card, at, root)
         stage2 = phase("7b TGT-At stage 2", stage2_phase, card, at, root)
+        cli_x = phase("7x TGT-Agx2 CLI", cli_phase, card, agx2, root)
+        stage2_x = phase("7bx TGT-Agx2 stage 2", stage2_phase, card, agx2,
+                         root)
 
     def entry(name, source, replaces, by_path, row, ungated=None,
               ungated_train=None):
@@ -2281,13 +2674,19 @@ def main() -> int:
             "device_ms", "plain_device_ms", "route", "bitwise_equal")}
             for c in cases}
 
-    def with_device(out, rows, **extra):
+    def with_device(out, rows, by_shape, **extra):
         """The back-to-back device times at b=16 and b=32 (N=48, bf16) of
-        the kernel, its plain version and its library call."""
+        the kernel, its plain version and its library call, and the rows
+        at bucket 56 and stage 2's shapes."""
         out.update(extra, device_ms={
             f"b{b}": {k: row[k] for k in (
                 "device_ms", "plain_device_ms", "library_device_ms")}
-            for b, row in rows.items()})
+            for b, row in rows.items()}, shapes={
+            f"b{b}_n{n}": {k: row.get(k) for k in (
+                "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "device_ms", "plain_device_ms",
+                "library_device_ms", "route", "bitwise_equal")}
+            for (b, n), row in sorted(by_shape.items())})
         return out
 
     d_serve, d_train = served[at_d.name], trained[at_d.name]
@@ -2298,7 +2697,9 @@ def main() -> int:
             {"serving": served[at.name], "training": trained[at.name]["fwd"],
              "serving_dropout": d_serve, "training_dropout": d_train["fwd"],
              "cli": cli["fwd"],
-             **{k: v["fwd"] for k, v in stage2.items()}},
+             **{k: v["fwd"] for k, v in stage2.items()},
+             **{f"remat_{k}": v["fwd"] for k, v in remat.items()},
+             "indiv": indiv["triplet_dense_fwd"]},
             dense[FLAGSHIP], dense[UNGATED], dense[UNGATED_TRAIN]),
             drop["fwd"], {"serving": d_serve, "training": d_train["fwd"]}),
             eval_batches=shapes(dense, EVAL_CASES)),
@@ -2306,7 +2707,8 @@ def main() -> int:
             "triplet_dense_bwd", td.BWD_KERNEL_SOURCE, td.BWD_REPLACES,
             {"training": trained[at.name]["bwd"],
              "training_dropout": d_train["bwd"], "cli": cli["bwd"],
-             **{k: v["bwd"] for k, v in stage2.items()}},
+             **{k: v["bwd"] for k, v in stage2.items()},
+             **{f"remat_{k}": v["bwd"] for k, v in remat.items()}},
             dense_bwd[FLAGSHIP], dense_bwd[UNGATED],
             dense_bwd[UNGATED_TRAIN]),
             drop["bwd"], {"training": d_train["bwd"]}),
@@ -2314,16 +2716,25 @@ def main() -> int:
         with_device(entry(
             "triplet_aggregate_fwd", ta.KERNEL_SOURCE, ta.REPLACES,
             {"serving": served[agx2.name],
-             "training": trained[agx2.name]["fwd"]}, agg[16]), agg,
-            # the serving phase fails unless all its launches took the body
-            body_launches=served[agx2.name] + trained[agx2.name]["fwd_body"],
+             "training": trained[agx2.name]["fwd"], "cli": cli_x["fwd"],
+             **{k: v["fwd"] for k, v in stage2_x.items()},
+             "indiv": indiv["triplet_aggregate_fwd"]}, agg[16]), agg,
+            agg_shapes,
+            # every phase of the path fails unless all its bf16 launches
+            # took the body; the f32 checks take the panel route
+            body_launches=served[agx2.name] + trained[agx2.name]["fwd_body"]
+            + cli_x["fwd_body"] + sum(v["fwd_body"] for v in stage2_x.values())
+            + indiv["triplet_aggregate_fwd_body"],
             panel_route={f"b{b}": {k: row[k] for k in (
                 "ms_body", "ms_panel_route", "device_ms_panel_route")}
                 for b, row in agg.items()}),
         with_device(entry(
             "triplet_aggregate_bwd", ta.BWD_KERNEL_SOURCE, ta.BWD_REPLACES,
-            {"training": trained[agx2.name]["bwd"]}, agg_bwd[16]), agg_bwd,
-            body_launches=trained[agx2.name]["bwd_body"],
+            {"training": trained[agx2.name]["bwd"], "cli": cli_x["bwd"],
+             **{k: v["bwd"] for k, v in stage2_x.items()}}, agg_bwd[16]),
+            agg_bwd, agg_bwd_shapes,
+            body_launches=trained[agx2.name]["bwd_body"] + cli_x["bwd_body"]
+            + sum(v["bwd_body"] for v in stage2_x.values()),
             panel_route={f"b{b}": {k: row[k] for k in (
                 "ms_body", "ms_panel_route", "device_ms_panel_route")}
                 for b, row in agg_bwd.items()}),

@@ -302,6 +302,7 @@ class TestImportRule:
         code = ("import sys, tgt_torch, tgt_torch.serving, "
                 "tgt_torch.ops.kernels.triplet_dense, "
                 "tgt_torch.ops.kernels.triplet_attention, tgt_torch.profiling, "
+                "tgt_torch.ops.remat, "
                 "tgt_torch.training, "
                 "tgt_torch.training.harness, tgt_torch.data.loader, "
                 "tgt_torch.data.synthetic, tgt_torch.schemes.dist_pred, "

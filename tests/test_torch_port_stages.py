@@ -11,6 +11,8 @@ layers, node 16, edge 8, 4 heads, 2 triplet heads, as
   converter and templates;
 - ``trim_checkpoint``: the same missing and unexpected lists and the same
   trimmed arrays;
+- these three for both published families: TGT-At, and TGT-Agx2 (the
+  aggregate variant with ``layer_multiplier=2``);
 - each new scheme's ``loss_fn`` and ``eval_fn`` on the same host batch
   (dropout rates 0; pretrain's coordinate noise injected into both);
   gap_pred's ``evaluate_predictions`` and its raising ``loss_fn``.
@@ -44,6 +46,10 @@ torch.set_num_threads(1)
 
 COMMON = dict(model_height=2, node_width=16, edge_width=8, num_heads=4,
               triplet_heads=2, triplet_type="attention")
+# the two published families: TGT-At, and TGT-Agx2 (the aggregate variant,
+# each layer applied twice)
+FAMILIES = {"attention": {},
+            "aggregate": dict(triplet_type="aggregate", layer_multiplier=2)}
 SCHEME = dict(COMMON, dataset_source="synthetic", synth_train_samples=8,
               synth_val_samples=8, synth_max_nodes=10, batch_size=4,
               buckets=[12], num_dist_bins=16, range_dist_bins=8.0,
@@ -111,11 +117,12 @@ def model_batch(b, n, seed):
     }
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kind", ["gap", "multi"])
-def test_model_forward_matches_tgt_tpu(kind, dtype):
+def both_forwards(kind, dtype, family):
+    """The port's and tgt_tpu's deterministic outputs of ``kind`` on the
+    same weights and batch, each as a tuple."""
     kw = dict(COMMON, num_dist_bins=16, compute_dtype=dtype,
-              use_pallas="dense", dense_min_nodes=0, dense_min_exact_nodes=0)
+              use_pallas="dense", dense_min_nodes=0, dense_min_exact_nodes=0,
+              **FAMILIES[family])
     cfg, jcfg = TGTConfig(**kw), JaxTGTConfig(**kw)
     model = make_model(kind, cfg, device="cpu", seed=1).requires_grad_(False)
     params = jax_params_from_state_dict(model.state_dict(), cfg, kind)
@@ -126,6 +133,18 @@ def test_model_forward_matches_tgt_tpu(kind, dtype):
     got = model({k: torch.from_numpy(v) for k, v in batch.items()})
     if kind == "gap":
         got, ref = (got,), (ref,)
+    return got, ref
+
+
+# TGT-Agx2's bf16 multi model is held against f32 instead (the next test):
+# its distance logits after 4 layer applications carry 1.7-2.1% of bf16
+# noise in each package, so the two differ by ~1% of max|ref|
+@pytest.mark.parametrize("kind,dtype,family", [
+    (kind, dtype, family) for family in FAMILIES
+    for dtype in ("float32", "bfloat16") for kind in ("gap", "multi")
+    if (kind, dtype, family) != ("multi", "bfloat16", "aggregate")])
+def test_model_forward_matches_tgt_tpu(kind, dtype, family):
+    got, ref = both_forwards(kind, dtype, family)
     assert len(got) == len(ref)
     tol = 1e-5 if dtype == "float32" else 1e-2
     for g, r in zip(got, ref):
@@ -135,6 +154,23 @@ def test_model_forward_matches_tgt_tpu(kind, dtype):
         assert np.abs(g - r).max() <= tol * np.abs(r).max(), \
             (np.abs(g - r).max(), np.abs(r).max())
     assert got[0].shape == (3,)
+
+
+def test_agx2_multi_bf16_rounds_no_worse_than_tgt_tpu():
+    """TGT-Agx2's multi model in bf16: the gaps within 1e-2 of max|ref| of
+    tgt_tpu's, and the distance logits no farther from the f32 logits (the
+    two packages' f32 logits agree to 1e-5, above) than tgt_tpu's bf16
+    logits are: each package rounds its own way (PyTorch after every op,
+    XLA at the end of each fusion), so that after 4 layer applications
+    the two bf16 results differ by about 1% of max|ref|."""
+    got, ref = both_forwards("multi", "bfloat16", "aggregate")
+    got32, _ = both_forwards("multi", "float32", "aggregate")
+    gap, jgap = got[0].float().numpy(), np.asarray(ref[0].astype(jnp.float32))
+    assert np.abs(gap - jgap).max() <= 1e-2 * np.abs(jgap).max()
+    f32 = got32[1].numpy()
+    err = np.abs(got[1].float().numpy() - f32).max()
+    jerr = np.abs(np.asarray(ref[1].astype(jnp.float32)) - f32).max()
+    assert np.isfinite(err) and 0 < err <= jerr, (err, jerr)
 
 
 def test_gap_head_bias_and_last_layer():
@@ -165,9 +201,10 @@ def jax_template(kind, jcfg, seed):
                         .astype(x.dtype), shapes)
 
 
+@pytest.mark.parametrize("family", FAMILIES)
 @pytest.mark.parametrize("kind", ["gap", "multi"])
-def test_weight_bridge_round_trips(kind):
-    kw = dict(COMMON, num_dist_bins=16)
+def test_weight_bridge_round_trips(kind, family):
+    kw = dict(COMMON, num_dist_bins=16, **FAMILIES[family])
     cfg, jcfg = TGTConfig(**kw), JaxTGTConfig(**kw)
     params = jax_template(kind, jcfg, seed=3)
     # tgt_tpu's tree -> the port -> tgt_tpu's tree, by kind and by module
@@ -196,8 +233,9 @@ def test_weight_bridge_round_trips(kind):
         2 * flat(params)["encoder/last/update/lin_QKV/w"])
 
 
-def test_trim_checkpoint_matches_tgt_tpu(tmp_path):
-    over = dict(SCHEME, scheme="pcqm.gap_pred")
+@pytest.mark.parametrize("family", FAMILIES)
+def test_trim_checkpoint_matches_tgt_tpu(tmp_path, family):
+    over = dict(SCHEME, scheme="pcqm.gap_pred", **FAMILIES[family])
     scheme = get_scheme("pcqm.gap_pred")(over, command="train")
     jscheme = jax_get_scheme("pcqm.gap_pred")(dict(over, use_mesh=False),
                                               command="train")

@@ -15,7 +15,9 @@ PCQM-format parquet written by the port's ``write_synthetic_dataset``):
 - ``evaluate`` of the gap_pred dir in both packages gives the same MAE
   within 1e-5 relative;
 - finetune: 1 + 1 epochs equal 2 in every bit, and both read bins sample
-  ``epoch % S``.
+  ``epoch % S``;
+- all of it for both published families: TGT-At, and TGT-Agx2 (the
+  aggregate variant with ``layer_multiplier=2``).
 """
 import functools
 import json
@@ -52,11 +54,18 @@ COMMON = dict(
     num_dist_bins=16, range_dist_bins=8)
 
 
-def stage_configs(root, data):
+# the two published families: TGT-At, and TGT-Agx2 (the aggregate variant,
+# each layer applied twice)
+FAMILIES = {"attention": {},
+            "aggregate": dict(triplet_type="aggregate", layer_multiplier=2)}
+
+
+def stage_configs(root, data, family="attention"):
     models = os.path.join(root, "models")
     dirs = {k: os.path.join(models, k) for k in ("dp", "pt", "ft", "gp")}
     bins = os.path.join(dirs["dp"], "predictions", "bins3")
-    common = dict(COMMON, save_path_prefix=models, dataset_path=data)
+    common = dict(COMMON, save_path_prefix=models, dataset_path=data,
+                  **FAMILIES[family])
     return dirs, bins, {
         "dp": dict(common, scheme="pcqm.dist_pred", model_name="dp",
                    coords_input="rdkit"),
@@ -82,12 +91,12 @@ def cli(command, cfg, path):
     main(command, [str(path), "--device", "cpu"])
 
 
-@pytest.fixture(scope="module")
-def chain(tmp_path_factory):
-    root = tmp_path_factory.mktemp("chain")
+@pytest.fixture(scope="module", params=list(FAMILIES))
+def chain(tmp_path_factory, request):
+    root = tmp_path_factory.mktemp(f"chain_{request.param}")
     data = str(root / "data")
     write_synthetic_dataset(data, num_samples=24, max_nodes=10, seed=3)
-    dirs, bins, cfgs = stage_configs(str(root), data)
+    dirs, bins, cfgs = stage_configs(str(root), data, request.param)
     for name, command in (("dp", "train"), ("dp", "predict"),
                           ("pt", "train"), ("ft", "train"), ("gp", "train"),
                           ("gp", "evaluate"), ("gp", "predict")):

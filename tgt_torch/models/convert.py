@@ -7,12 +7,14 @@ params tree of tgt_tpu maps onto them one for one:
 - LayerNorm ``{'scale', 'bias'}`` -> ``.weight``, ``.bias``
 - Embedding ``{'w'}``            -> ``.weight``
 - ``encoder.layers`` (inner layers stacked on a leading axis) ->
-  ``encoder.TGT_layers.{0..h-2}``; ``encoder.last`` -> ``TGT_layers.{h-1}``
+  ``encoder.TGT_layers.{0..h-2}``; ``encoder.last`` -> ``TGT_layers.{h-1}``;
+  under IndivConfig ``encoder.indiv`` (a tuple of one params dict per
+  layer, which may differ in structure) -> ``TGT_layers.{i}``
 - the Gaussian 3D embedding's names follow ``_M3D_GAUSSIAN_MAP``.
 
 ``jax_params_from_state_dict`` inverts the map (restacking the inner
-layers under ``encoder/layers``; the task model, or its kind, tells each
-module's kind), and ``opt_state_to_jax`` /
+layers under ``encoder/layers``, or the tuple ``encoder/indiv``; the task
+model, or its kind, tells each module's kind), and ``opt_state_to_jax`` /
 ``opt_state_from_jax`` do the same for the optimizer state ``{mu, nu,
 count}`` (tgt_tpu/training/harness.py:131-136), so that a checkpoint of
 either package loads strictly in the other.
@@ -86,11 +88,14 @@ def state_dict_from_jax_params(params: Mapping[str, Any],
                 else:
                     _put_module(out, "input_embed", {name: s})
         elif top == "encoder":
-            if "indiv" in sub:
-                raise NotImplementedError(
-                    "per-layer IndivConfig is not ported yet (ROADMAP.md "
-                    "item 1f)")
             h = cfg.model_height
+            if "indiv" in sub:
+                layers = sub["indiv"]
+                if isinstance(layers, Mapping):      # read from an npz
+                    layers = [layers[str(i)] for i in range(h)]
+                for i, layer in enumerate(layers):
+                    _put_module(out, f"encoder.TGT_layers.{i}", layer)
+                continue
             if "layers" in sub:
                 for i in range(h - 1):
                     _put_module(out, f"encoder.TGT_layers.{i}",
@@ -137,7 +142,9 @@ def jax_params_from_state_dict(state_dict: Mapping[str, torch.Tensor],
     m3d = {v: k for k, v in _M3D_GAUSSIAN_MAP.items()}
     h = cfg.model_height
     out: Dict[str, Any] = {}
-    layers: List[Dict[str, Any]] = [{} for _ in range(h - 1)]
+    # stacked: the inner layers; IndivConfig: every layer, kept apart
+    n_layers = h if cfg.has_indiv else h - 1
+    layers: List[Dict[str, Any]] = [{} for _ in range(n_layers)]
     for key, t in state_dict.items():
         a = t.detach().cpu().numpy()
         name, attr = key.rsplit(".", 1)
@@ -155,7 +162,7 @@ def jax_params_from_state_dict(state_dict: Mapping[str, torch.Tensor],
         tree = out
         if parts[:2] == ["encoder", "TGT_layers"]:
             i, parts = int(parts[2]), parts[3:]
-            if i < h - 1:
+            if i < n_layers:
                 tree = layers[i]
             else:
                 parts = ["encoder", "last"] + parts
@@ -164,7 +171,9 @@ def jax_params_from_state_dict(state_dict: Mapping[str, torch.Tensor],
             parts = parts[:2] + [m3d[".".join(parts[2:])]]
         path = parts + ([leaf[0]] if leaf[0] is not None else [])
         _put_leaf(tree, path, leaf[1])
-    if h > 1:
+    if cfg.has_indiv:
+        out.setdefault("encoder", {})["indiv"] = tuple(layers)
+    elif h > 1:
         out.setdefault("encoder", {})["layers"] = _stack(layers)
     return out
 

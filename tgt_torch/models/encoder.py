@@ -17,15 +17,25 @@ per-layer seeds, drawn in layer order; each layer application gets its own
 ``torch.Generator`` on the device and draws its dropout masks from it in
 forward order.
 
+Per-layer configs (IndivConfig, tgt_tpu/models/encoder.py:262-296): layer
+i is built from ``cfg.layer_cfg(i)``, so layers may differ in triplet
+variant, heads, activation and rates; its drop-path rate is
+``cfg.drop_path_rate(i)``.
+
 ``cfg.remat`` (tgt_tpu: ``jax.checkpoint`` around the scanned inner layers,
 tgt_tpu/models/encoder.py:238-258) wraps each of the first
 ``model_height - 1`` layer applications in ``torch.utils.checkpoint``; the
-last layer keeps its activations. The backward replays a layer's forward,
-and ``checkpoint`` replays only the global RNG, not an explicit generator:
-so each layer's generator is created and seeded inside the checkpointed
-function, and the replay draws the same dropout, source-dropout and
-drop-path masks as the forward did. Only ``remat_policy: none`` (full
-recompute) is ported.
+last layer keeps its activations. Under IndivConfig every layer is
+wrapped, as tgt_tpu's unrolled path wraps them. ``cfg.remat_policy`` says
+what the checkpoint saves besides the layer's inputs (``ops/remat.py``: a
+selective-checkpoint policy for ``dots``; for the named policies a cache
+per checkpointed call, entered inside the checkpointed function, so that
+the replay takes back what the forward named). The backward replays a layer's
+forward, and ``checkpoint`` replays only the global RNG, not an explicit
+generator: so each layer's generator is created and seeded inside the
+checkpointed function, and the replay draws the same dropout,
+source-dropout and drop-path masks as the forward did. No policy saves the
+output of a random op.
 """
 from __future__ import annotations
 
@@ -38,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 from tgt_torch.core.graph import Graph
 from tgt_torch.models.model_config import TGTConfig
 from tgt_torch.ops.attention import EdgeUpdate, EGTAttention
+from tgt_torch.ops import remat as remat_policies
 from tgt_torch.ops.common import drop_path
 from tgt_torch.ops.ffn import FFN
 from tgt_torch.ops.triplet import get_triplet_module
@@ -108,12 +119,10 @@ class TGTLayer(nn.Module):
 class TGTEncoder(nn.Module):
     def __init__(self, cfg: TGTConfig, device=None):
         super().__init__()
-        if cfg.has_indiv:
-            raise NotImplementedError(
-                "per-layer IndivConfig is not ported yet (ROADMAP.md item 1f)")
         self.cfg = cfg
+        remat_policies.context_fn(cfg.remat_policy)   # raises if unknown
         self.TGT_layers = nn.ModuleList(
-            TGTLayer(cfg, *cfg.layer_updates(i), device=device)
+            TGTLayer(cfg.layer_cfg(i), *cfg.layer_updates(i), device=device)
             for i in range(cfg.model_height))
 
     def forward(self, g: Graph, *, deterministic: bool = True,
@@ -128,33 +137,37 @@ class TGTEncoder(nn.Module):
                 0, 2**62, (cfg.model_height * reps,),
                 generator=torch.Generator().manual_seed(seed)).tolist()
         remat = cfg.remat and torch.is_grad_enabled()
-        if remat and cfg.remat_policy != "none":
-            raise NotImplementedError(
-                f"remat_policy={cfg.remat_policy!r} is not ported yet "
-                f"(ROADMAP.md item 1f); only 'none' (full recompute) is")
-        last = len(self.TGT_layers) - 1
+        # tgt_tpu's unrolled (IndivConfig) path remats every layer
+        n_remat = len(self.TGT_layers) - (not cfg.has_indiv)
+        context_fn = remat_policies.context_fn(cfg.remat_policy)
+        policy = {} if context_fn is None else {"context_fn": context_fn}
         for i, layer in enumerate(self.TGT_layers):
             args = (layer, g, cfg.drop_path_rate(i), deterministic,
                     None if seeds is None else seeds[i * reps:(i + 1) * reps])
-            if remat and i < last:
+            if remat and i < n_remat:
                 # the layer draws only from the generators it creates, so
                 # the global RNG state needs no replay
-                g = checkpoint(_apply_layer, *args, use_reentrant=False,
-                               preserve_rng_state=False)
+                g = checkpoint(_apply_layer, *args,
+                               remat_policies.cache_for(cfg.remat_policy),
+                               use_reentrant=False, preserve_rng_state=False,
+                               **policy)
             else:
                 g = _apply_layer(*args)
         return g
 
 
 def _apply_layer(layer: TGTLayer, g: Graph, drop_path_rate: float,
-                 deterministic: bool, seeds: Optional[Sequence[int]]) -> Graph:
+                 deterministic: bool, seeds: Optional[Sequence[int]],
+                 cache: Optional[remat_policies.RematCache] = None) -> Graph:
     """``layer_multiplier`` applications of one layer, each with a generator
-    made here from its seed (so that a remat replay draws the same masks)."""
-    for m in range(layer.cfg.layer_multiplier):
-        gen = None
-        if seeds is not None:
-            gen = torch.Generator(device=g.e.device)
-            gen.manual_seed(seeds[m])
-        g = layer(g, drop_path_rate=drop_path_rate,
-                  deterministic=deterministic, generator=gen)
+    made here from its seed (so that a remat replay draws the same masks);
+    the values the remat policy names go to ``cache``."""
+    with remat_policies.policy_scope(cache):
+        for m in range(layer.cfg.layer_multiplier):
+            gen = None
+            if seeds is not None:
+                gen = torch.Generator(device=g.e.device)
+                gen.manual_seed(seeds[m])
+            g = layer(g, drop_path_rate=drop_path_rate,
+                      deterministic=deterministic, generator=gen)
     return g

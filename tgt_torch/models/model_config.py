@@ -3,8 +3,9 @@ tgt_tpu/models/model_config.py, field for field, so a config parsed by
 either package compares equal).
 
 Per-layer config arrays (the reference's TGT_Encoder.IndivConfig): any field
-in INDIV_FIELDS may be a tuple of length ``model_height``. The port parses
-them; its encoder does not run them yet (ROADMAP.md).
+in INDIV_FIELDS may be a tuple of length ``model_height``; layer i is built
+from ``layer_cfg(i)``. Widths stay uniform (the residual streams must line
+up, as in the reference).
 """
 from __future__ import annotations
 
@@ -51,10 +52,17 @@ class TGTConfig:
     num_dist_bins: int = 256
     # execution
     compute_dtype: str = "float32"    # 'float32' | 'bfloat16'
-    # remat: the encoder recomputes the inner layers in the backward
-    # (torch.utils.checkpoint) when gradients are on; of remat_policy only
-    # 'none' (full recompute) is ported. use_scan is tgt_tpu's compile knob
-    # and has no effect in the port's Python layer loop.
+    # remat: the encoder recomputes the inner layers (every layer under
+    # IndivConfig) in the backward (torch.utils.checkpoint) when gradients
+    # are on. What the checkpoint saves besides its inputs (ops/remat.py):
+    #   'none'   - nothing (full recompute, least memory)
+    #   'dots'   - every matrix product's output
+    #   'tri_a'  - the plain path's N^3 gated triplet weights
+    #   'proj'   - the N^2 triplet projections q, k, v, bias, gate
+    #   'tri_va' - 'proj' and the dense kernel's output (its replay then
+    #              launches no forward kernel)
+    # use_scan is tgt_tpu's compile knob and has no effect in the port's
+    # Python layer loop.
     remat: bool = False
     remat_policy: str = "none"
     use_scan: bool = True
@@ -81,6 +89,20 @@ class TGTConfig:
     def has_indiv(self) -> bool:
         """True if any field carries a per-layer tuple (IndivConfig)."""
         return any(isinstance(getattr(self, f), tuple) for f in INDIV_FIELDS)
+
+    def layer_cfg(self, i: int) -> "TGTConfig":
+        """Scalar config of layer i: each per-layer tuple gives its i-th
+        entry (reference get_layer_kwargs, encoder.py:51-56)."""
+        kw = {}
+        for f in INDIV_FIELDS:
+            v = getattr(self, f)
+            if isinstance(v, tuple):
+                if len(v) != self.model_height:
+                    raise ValueError(
+                        f"IndivConfig field {f} has {len(v)} entries for "
+                        f"{self.model_height} layers")
+                kw[f] = v[i]
+        return self.replace(**kw) if kw else self
 
     def drop_path_rate(self, i: int) -> float:
         """Linear stochastic-depth ramp (reference: encoder.py:57-58) —

@@ -46,6 +46,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from tgt_torch.ops import remat
 from tgt_torch.ops.kernels._build import load_library
 from tgt_torch.ops.kernels.triplet_bwd_panel import (j_chunks, pad_head_dim,
                                                      padded_head_dim, sm_count)
@@ -144,7 +145,9 @@ def triplet_dense_fwd_reference(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, bias: torch.Tensor,
                                 gate: Optional[torch.Tensor] = None,
                                 seed: Optional[torch.Tensor] = None,
-                                rate: float = 0.0) -> torch.Tensor:
+                                rate: float = 0.0,
+                                weights_name: Optional[str] = None
+                                ) -> torch.Tensor:
     """Plain version: the einsum form of ``tgt_tpu/ops/triplet.py:353-364``
     without ``lin_O``, computed in float32 and returned in the input dtype,
     rounded where ``_fwd_kernel`` rounds (``triplet_dense.py:243-252``).
@@ -159,12 +162,15 @@ def triplet_dense_fwd_reference(q: torch.Tensor, k: torch.Tensor,
     (``ops/triplet.py``) takes this function at rate 0, and the plain path
     still matches tgt_tpu's jnp path to 1e-5
     (``tests/test_torch_port_triplet.py``). It materialises the (b, j, h,
-    i, k) logits."""
+    i, k) logits. ``weights_name`` marks the weights for selective remat
+    (the plain path's ``tri_a``, ``tgt_tpu/ops/triplet.py:363``)."""
     s = _logits(q, k, bias)
     e = torch.exp(s - s.amax(-1, keepdim=True).detach())
     a = e if gate is None else e * _gate(gate)
     if rate > 0.0:
         a = a * dropout_mask(seed, q.shape[1], q.shape[-1], rate)
+    if weights_name is not None:
+        a = remat.checkpoint_name(a, weights_name)
     dt = q.dtype
     va = torch.einsum("bjhik,bjkdh->bjidh", a.to(dt).float(), v.float())
     recip = 1.0 / e.sum(-1).clamp_min(1e-30)              # (b, j, h, i)
@@ -579,13 +585,17 @@ class TripletDenseCore(torch.autograd.Function):
     backward :func:`triplet_dense_bwd`, as ``_dense_core`` with its
     ``defvjp`` (``tgt_tpu/ops/pallas/triplet_dense.py:363-445``). Only the
     inputs and the seed are kept for the backward, which recomputes the
-    logits and the keep mask; ``seed`` and ``rate`` get no gradient."""
+    logits and the keep mask; ``seed`` and ``rate`` get no gradient. The
+    output is the value the ``tri_va`` remat policy names
+    (``tgt_tpu/ops/pallas/triplet_dense.py:768``): under that policy a
+    replay takes the forward's output and launches no kernel."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, gate, seed, rate):
         ctx.save_for_backward(q, k, v, bias, gate, seed)
         ctx.rate = rate
-        return triplet_dense_fwd(q, k, v, bias, gate, seed, rate)
+        return remat.saved_output("tri_va", lambda: triplet_dense_fwd(
+            q, k, v, bias, gate, seed, rate))
 
     @staticmethod
     def backward(ctx, dva):

@@ -34,6 +34,11 @@ out-heads ``[:, h:]`` and contracted straight out of each direction's
 (b, j, i, d, h) output; one transpose of axes 1 and 2 at the end restores
 (b, i, j, W).
 
+The attention variants name their values for selective remat where
+tgt_tpu does (``ops/remat.py``): q, k, v, bias and gate ``tri_proj`` and
+the plain path's weights ``tri_a``; the dense core names its output
+``tri_va``. The aggregate variants name nothing, as in tgt_tpu.
+
 The registry accepts the reference's ``tiangular_update`` typo.
 """
 from __future__ import annotations
@@ -46,6 +51,7 @@ import torch
 from torch import nn
 
 from tgt_torch.ops.common import dropout, layernorm, linear, siglin
+from tgt_torch.ops.remat import checkpoint_name
 from tgt_torch.ops.kernels.triplet_aggregate import (
     triplet_aggregate_core, triplet_aggregate_fwd_reference)
 from tgt_torch.ops.kernels.triplet_attention import triplet_attention_fused
@@ -89,7 +95,8 @@ class TripletAttention(nn.Module):
         # the routing of tgt_tpu/ops/triplet.py:274-371
         rate = 0.0 if deterministic else float(attention_dropout)
         seeds = {"in": None, "out": None}
-        if use_pallas == "dense":
+        dense = use_pallas == "dense"
+        if dense:
             core = triplet_dense
             if rate > 0.0:
                 seeds = dropout_seeds(e.shape[0], generator, e.device)
@@ -121,6 +128,12 @@ class TripletAttention(nn.Module):
             q = q * scale
             eg = linear(getattr(self, f"{self.bias_name}_{which}"), e_ln)
             e_b, g_b = eg.chunk(2, dim=-1) if self.gated else (eg, None)
+            # the projections are named for selective remat where tgt_tpu
+            # names them: on the plain path before the pair transpose and
+            # the mask (triplet.py:333-343), on the dense path after them
+            # (ops/pallas/triplet_dense.py:744-749)
+            if not dense:
+                q, k, v, e_b, g_b = _name_projections(q, k, v, e_b, g_b)
             m = mask
             if transpose_pair:
                 k = k.transpose(1, 2)
@@ -130,6 +143,8 @@ class TripletAttention(nn.Module):
                 m = mask.transpose(1, 2)
             bias = e_b + m
             gate = None if g_b is None else g_b + m
+            if dense:
+                q, k, v, bias, gate = _name_projections(q, k, v, bias, gate)
             va = core(q, k, v, bias, gate, seed=seeds[which],
                       rate=rate)                        # (b, j, i, d, h)
             return torch.einsum("bjidh,dhw->bjiw", va, w_dir)
@@ -139,14 +154,24 @@ class TripletAttention(nn.Module):
         return out_t.transpose(1, 2) + self.lin_O.bias.to(e.dtype)
 
 
+def _name_projections(q, k, v, bias, gate):
+    """q, k, v, bias and gate marked ``tri_proj`` for selective remat."""
+    q, k, v, bias = (checkpoint_name(t, "tri_proj") for t in (q, k, v, bias))
+    return q, k, v, bias, None if gate is None else checkpoint_name(
+        gate, "tri_proj")
+
+
 def _plain_core(q, k, v, bias, gate, seed=None, rate=0.0, generator=None):
     """The plain path's core: at rate 0 the dense kernel's plain version; at
     rate > 0 the same with PyTorch's dropout on the gated (b, j, h, i, k)
     weights, drawn from ``generator`` (``seed`` is unused: the masks match
-    tgt_tpu's jnp path in distribution only)."""
+    tgt_tpu's jnp path in distribution only). The weights are named
+    ``tri_a`` for selective remat (tgt_tpu/ops/triplet.py:363)."""
     if rate == 0.0:
-        return triplet_dense_fwd_reference(q, k, v, bias, gate)
+        return triplet_dense_fwd_reference(q, k, v, bias, gate,
+                                           weights_name="tri_a")
     a = dropout(dense_weights(q, k, bias, gate), rate, False, generator)
+    a = checkpoint_name(a, "tri_a")
     return torch.einsum("bjhik,bjkdh->bjidh", a, v.float()).to(q.dtype)
 
 

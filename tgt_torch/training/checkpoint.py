@@ -1,11 +1,12 @@
 """Checkpoints in tgt_tpu's on-disk format (counterpart of
 tgt_tpu/training/checkpoint.py): either package resumes the other's.
 
-A checkpoint part is one ``.npz`` of a nested dict of arrays, its leaves
-keyed by their '/'-joined paths (``encoder/layers/tria/lin_QKV_in/w``),
-written to a temporary file and renamed into place. The trees are
-tgt_tpu's params and optimizer state; ``tgt_torch.models.convert`` maps
-them to and from the port's module. Layout (reference training.py:284-320):
+A checkpoint part is one ``.npz`` of a nested dict of arrays (and tuples:
+IndivConfig's layers), its leaves keyed by their '/'-joined paths
+(``encoder/layers/tria/lin_QKV_in/w``), written to a temporary file and
+renamed into place. The trees are tgt_tpu's params and optimizer state;
+``tgt_torch.models.convert`` maps them to and from the port's module.
+Layout (reference training.py:284-320):
 
   <model_path>/checkpoint/{model,optimizer}.npz + training_state.json
   <model_path>/all_checkpoints/epoch_{E}/model.npz   (optional backups)
@@ -21,14 +22,22 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 
 
+def _children(tree: Any):
+    """(key, child) pairs in ``jax.tree_util``'s order: a dict's keys
+    sorted, a tuple's (IndivConfig's ``encoder/indiv``) by index."""
+    if isinstance(tree, Mapping):
+        return sorted(tree.items())
+    return [(str(i), v) for i, v in enumerate(tree)]
+
+
 def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, Any]:
-    """Nested dicts -> {'/'-joined path: leaf}, keys sorted at each level as
-    ``jax.tree_util`` orders them."""
-    if not isinstance(tree, Mapping):
+    """Nested dicts and tuples -> {'/'-joined path: leaf}, in the order
+    ``jax.tree_util`` flattens them."""
+    if not isinstance(tree, (Mapping, tuple)):
         return {prefix: tree}
     flat: Dict[str, Any] = {}
-    for k, v in sorted(tree.items()):
-        flat.update(flatten_tree(v, f"{prefix}/{k}" if prefix else str(k)))
+    for k, v in _children(tree):
+        flat.update(flatten_tree(v, f"{prefix}/{k}" if prefix else k))
     return flat
 
 
@@ -53,9 +62,13 @@ def save_pytree(tree: Any, path: str) -> None:
 
 
 def _unflatten_like(template: Any, leaves: Dict[str, Any], prefix: str = ""):
-    if isinstance(template, Mapping):
-        return {k: _unflatten_like(v, leaves, f"{prefix}/{k}" if prefix
-                                   else str(k)) for k, v in template.items()}
+    if isinstance(template, (Mapping, tuple)):
+        children = {k: _unflatten_like(v, leaves, f"{prefix}/{k}" if prefix
+                                       else k)
+                    for k, v in _children(template)}
+        if isinstance(template, tuple):
+            return tuple(children.values())
+        return {k: children[str(k)] for k in template}
     return leaves[prefix]
 
 
