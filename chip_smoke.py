@@ -198,9 +198,39 @@ Phases, each of which fails the run (non-zero exit) on error:
    sub-layer), per training micro-batch 48 + 44 forward and 48 backward,
    every bf16 launch through the bodies; the planted fault scales the
    aggregate kernel's output.
+7p. The real-data runbook on a PCQM4Mv2 stand-in, in phase 7's directory:
+   256 molecules of the port's synthetic generator (4-48 atoms; 192 train,
+   32 valid, 32 test-dev, and 8 test-challenge that must be left out) go
+   through stand-ins of what the preparation takes from ogb and rdkit (an
+   SDF supplier carrying each train molecule's DFT coordinates, two with
+   explicit hydrogens, ``smiles2graph``, the OGB dataset with its split and
+   targets, ``Chem`` and ``AllChem``); ``build_pcqm_records`` (with the
+   port's ``_mol2graph``) and ``write_dataset`` write records.parquet,
+   dft_coords.parquet and splits.npz (train-3d 144, valid-3d 48, from
+   ``train3d_split``), ``build_rdkit_coords`` rdkit_coords.parquet (four
+   molecules take the 2D fallback, one has no conformers, one a leading
+   dummy atom). Every row read back through the port's ``PCQM4Mv2Dataset``
+   must equal its source molecule after the structural transform, with its
+   target and coordinates; ``structural.backend()`` must be "native", and
+   the native transform bitwise equal to numpy on all 256 molecules (median
+   microseconds per molecule of each, beside the host CPU's model). Then
+   ``execute("train")`` of the published TGT-At yaml on the prepared
+   directory (``global_batch_size: 64``, one epoch: 3 steps) and
+   ``execute("evaluate")``: finite losses, every step applied, and the
+   dense launches exact (per training micro-batch 94 + 48, per draw 48, no
+   plain core); ms per step from CUDA events beside a ``StepTimer``
+   summary. Then the distance model at seed 0 (101,160,258 parameters) is
+   saved as a reference ``model_state.pt``, converted by ``python -m
+   tgt_torch.models.convert`` in a subprocess, and served from a model dir
+   around the ``.npz`` by ``DistancePredictor.from_model_dir``: one
+   16-molecule request and one deterministic forward, bitwise equal to the
+   in-memory model's with the same seeds, 48 launches per draw. A served
+   forward at b=16, N=48 under ``tgt_torch.utils.profiling.trace`` must
+   write a Chrome trace under ``chiprun_out/trace_7p/`` that names the
+   dense forward kernel; ``flops_estimate`` of one forward is printed.
 8. The kernels line (six kernels, launches by path, with the dense pair's
-   stage-2 paths ``pretrain``, ``finetune``, ``gap_pred`` and
-   ``two_stage``, its ``remat_<policy>`` training and the IndivConfig
+   ``prep`` path (phase 7p), its stage-2 paths ``pretrain``, ``finetune``,
+   ``gap_pred`` and ``two_stage``, its ``remat_<policy>`` training and the IndivConfig
    forward, and the aggregate pair's ``cli`` and stage-2 paths; the
    aggregate pair's rows at bucket 56 and stage 2's shapes; the dense
    pair's dropout launches and rate > 0 times,
@@ -2556,6 +2586,540 @@ def stage2_phase(card, spec: ModelSpec, root: str):
     return total
 
 
+# -- phase 7p: the real-data runbook on a PCQM4Mv2 stand-in ---------------------
+
+PREP_SPLITS = {"train": 192, "valid": 32, "test-dev": 32,
+               "test-challenge": 8}
+PREP_FALLBACK = (5, 77, 200, 230)   # embedding fails: 2D coordinates
+PREP_NO_CONFS = (31,)               # MMFF returns nothing: 2D as well
+PREP_DUMMY = 42                     # a leading dummy atom: zero coordinates
+PREP_WITH_HS = (3, 150)             # SDF molecules with explicit hydrogens
+PREP_CONFS = 4                      # conformers per molecule
+# name fragments of the dense forward kernel's functions in a trace
+DENSE_FWD_KERNELS = ("tfwd::", "triplet_dense_fwd_kernel")
+
+
+class StandInMol:
+    """An RDKit molecule's stand-in: atoms (atomic number, OGB features),
+    bonds (begin, end, OGB features) and conformers by id."""
+
+    class Atom(NamedTuple):
+        z: int
+        feats: list
+
+        def GetAtomicNum(self):
+            return self.z
+
+    class Bond(NamedTuple):
+        i: int
+        j: int
+        feats: list
+
+        def GetBeginAtomIdx(self):
+            return self.i
+
+        def GetEndAtomIdx(self):
+            return self.j
+
+    class Conf(NamedTuple):
+        coords: np.ndarray
+
+        def GetPositions(self):
+            return self.coords
+
+    def __init__(self, key, atoms, bonds, confs):
+        self.key, self.atoms, self.bonds, self.confs = key, atoms, bonds, confs
+
+    def GetAtoms(self):
+        return list(self.atoms)
+
+    def GetBonds(self):
+        return list(self.bonds)
+
+    def GetNumAtoms(self):
+        return len(self.atoms)
+
+    def GetAtomWithIdx(self, i):
+        return self.atoms[i]
+
+    def GetConformer(self, id=0):
+        return self.confs[id]
+
+    def without_hs(self):
+        """A copy without its hydrogens (all at the end), their bonds and
+        their coordinate rows."""
+        keep = sum(a.z != 1 for a in self.atoms)
+        return StandInMol(self.key, self.atoms[:keep],
+                          [b for b in self.bonds if max(b.i, b.j) < keep],
+                          {c: self.Conf(v.coords[:keep])
+                           for c, v in self.confs.items()})
+
+
+def standin_molecules(seed: int = 0) -> list:
+    """The stand-in's molecules by OGB index, from the port's synthetic
+    generator, 4-48 atoms."""
+    from tgt_torch.data.synthetic import make_molecule
+
+    rs = np.random.RandomState(seed)
+    return [make_molecule(rs, int(rs.randint(4, CLI_MAX_NODES + 1)))
+            for _ in range(sum(PREP_SPLITS.values()))]
+
+
+def standin_mol(key: int, m: dict, with_conf: bool) -> StandInMol:
+    """Molecule ``m`` as an RDKit stand-in: carbon atoms (atom 0 of
+    ``PREP_DUMMY`` a dummy), each bond once, its DFT coordinates as
+    conformer 0; ``PREP_WITH_HS`` carry two hydrogens at the end."""
+    n = m["num_nodes"]
+    half = len(m["edges"]) // 2
+    atoms = [StandInMol.Atom(0 if key == PREP_DUMMY and i == 0 else 6,
+                             m["node_features"][i].tolist())
+             for i in range(n)]
+    bonds = [StandInMol.Bond(int(i), int(j), f.tolist()) for (i, j), f in
+             zip(m["edges"][:half], m["edge_features"][:half])]
+    coords = m["dft_coords"].astype(np.float64)
+    if key in PREP_WITH_HS:
+        atoms += [StandInMol.Atom(1, [0] * 9)] * 2
+        bonds += [StandInMol.Bond(0, n, [0] * 3),
+                  StandInMol.Bond(0, n + 1, [0] * 3)]
+        coords = np.concatenate([coords, np.full((2, 3), 9.0)])
+    return StandInMol(key, atoms, bonds,
+                      {0: StandInMol.Conf(coords)} if with_conf else {})
+
+
+def standin_conformers(key: int, n: int):
+    """The stand-in's MMFF results and conformers of molecule ``key`` with
+    ``n`` atoms (hydrogens included), and the one to keep: conformer 0 has
+    the lowest energy but did not converge, so by tuple order the converged
+    one of lowest energy wins."""
+    rs = np.random.RandomState(1000 + key)
+    best = key % (PREP_CONFS - 1) + 1
+    results = [(1, -100.0)] + [(0, 1.0 + float(rs.rand()))
+                               for _ in range(PREP_CONFS - 1)]
+    results[best] = (0, 0.5)
+    return results, [rs.randn(n, 3) * 1.5 for _ in range(PREP_CONFS)], best
+
+
+def standin_2d(n: int) -> np.ndarray:
+    return np.stack([np.arange(n), -np.arange(n), np.zeros(n)], 1) * 1.5
+
+
+def standin_toolkits(mols: list):
+    """Stand-ins of what the preparation takes from ogb and rdkit: the OGB
+    dataset (SMILES 'mol<i>', targets hidden for test-dev and
+    test-challenge), the SDF supplier of the train molecules with their DFT
+    coordinates, ``smiles2graph``, ``Chem``, ``AllChem`` and
+    ``ogb.utils.features``."""
+    import types
+
+    split, lo = {}, 0
+    for name, k in PREP_SPLITS.items():
+        split[name] = np.arange(lo, lo + k)
+        lo += k
+    hidden = PREP_SPLITS["train"] + PREP_SPLITS["valid"]
+
+    class OGB:
+        def get_idx_split(self):
+            return split
+
+        def __getitem__(self, i):
+            return (f"mol{i}", float("nan") if i >= hidden
+                    else mols[i]["target"])
+
+    class Supplier:
+        def __init__(self):
+            self.mols = [standin_mol(i, mols[i], True)
+                         for i in range(PREP_SPLITS["train"])]
+
+        def __len__(self):
+            return len(self.mols)
+
+        def __getitem__(self, i):
+            return self.mols[i]
+
+        def __iter__(self):
+            return iter(self.mols)
+
+    def smiles2graph(smiles):
+        m = mols[int(smiles[3:])]
+        return {"num_nodes": m["num_nodes"],
+                "edge_index": np.ascontiguousarray(m["edges"].T),
+                "node_feat": m["node_features"].astype(np.int64),
+                "edge_feat": m["edge_features"].astype(np.int64)}
+
+    def add_hs(mol):
+        return StandInMol(mol.key, mol.atoms + [StandInMol.Atom(1, [0] * 9)]
+                          * 2, mol.bonds, dict(mol.confs))
+
+    def embed(mol, numConfs, numThreads):
+        if mol.key in PREP_FALLBACK:
+            raise RuntimeError("embedding failed")
+        _, coords, _ = standin_conformers(mol.key, mol.GetNumAtoms())
+        for c in range(numConfs):
+            mol.confs[c] = StandInMol.Conf(coords[c])
+
+    def optimize(mol, numThreads):
+        if mol.key in PREP_NO_CONFS:
+            return []
+        return standin_conformers(mol.key, mol.GetNumAtoms())[0]
+
+    def compute_2d(mol):
+        mol.confs[0] = StandInMol.Conf(standin_2d(mol.GetNumAtoms()))
+
+    chem = types.SimpleNamespace(
+        RemoveAllHs=StandInMol.without_hs, RemoveHs=StandInMol.without_hs,
+        AddHs=add_hs, MolFromSmiles=lambda s: standin_mol(
+            int(s[3:]), mols[int(s[3:])], False))
+    allchem = types.SimpleNamespace(
+        EmbedMultipleConfs=embed, MMFFOptimizeMoleculeConfs=optimize,
+        Compute2DCoords=compute_2d)
+    features = types.ModuleType("ogb.utils.features")
+    features.atom_to_feature_vector = lambda atom: list(atom.feats)
+    features.bond_to_feature_vector = lambda bond: list(bond.feats)
+    return OGB(), Supplier(), smiles2graph, chem, allchem, features
+
+
+@contextlib.contextmanager
+def standin_modules(features):
+    """The stand-in ``ogb.utils.features`` in sys.modules, for
+    ``_mol2graph``, which imports it; sys.modules is restored after."""
+    import types
+
+    names = ("ogb", "ogb.utils", "ogb.utils.features")
+    saved = {name: sys.modules.get(name) for name in names}
+    ogb, utils = types.ModuleType("ogb"), types.ModuleType("ogb.utils")
+    ogb.utils, utils.features = utils, features
+    sys.modules.update(zip(names, (ogb, utils, features)))
+    try:
+        yield
+    finally:
+        for name, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = mod
+
+
+def standin_rdkit_coords(key: int, m: dict) -> np.ndarray:
+    """The coordinates the conformer preparation must give molecule
+    ``key``."""
+    n = m["num_nodes"]
+    if key == PREP_DUMMY:
+        return np.zeros((n, 3), np.float32)
+    if key in PREP_FALLBACK + PREP_NO_CONFS:
+        return standin_2d(n).astype(np.float32)
+    _, coords, best = standin_conformers(key, n + 2)
+    return coords[best][:n].astype(np.float32)
+
+
+def cpu_model() -> str:
+    """The host CPU: the model name /proc/cpuinfo gives, or its vendor,
+    family and model numbers, or the machine type; and the CPU count."""
+    import platform
+
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    name = fields.get("model name") or " ".join(
+        f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model",
+                                     "CPU implementer", "CPU part")
+        if fields.get(k)) or platform.processor() or platform.machine()
+    return f"{name}, {os.cpu_count()} CPUs"
+
+
+def native_transform_check(card, mols: list) -> dict:
+    """The structural transform runs the native library, bitwise equal to
+    its numpy version on every molecule; the median microseconds per
+    molecule of each (host numbers, with the CPU model beside them)."""
+    from tgt_torch.data import structural
+
+    if structural.backend() != "native":
+        fail(f"the structural transform runs {structural.backend()}")
+    times = {"native": [], "numpy": []}
+    for i, m in enumerate(mols):
+        args = (m["num_nodes"], m["edges"], m["node_features"],
+                m["edge_features"])
+        out = {}
+        for name, fn in (("native", structural.preprocess_graph),
+                         ("numpy", structural.preprocess_graph_numpy)):
+            t0 = time.perf_counter()
+            out[name] = fn(*args)
+            times[name].append(time.perf_counter() - t0)
+        for a, b in zip(out["native"], out["numpy"]):
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                fail(f"molecule {i}: the native structural transform "
+                     f"differs from numpy")
+    cpu = cpu_model()
+    us = {k: float(np.median(v)) * 1e6 for k, v in times.items()}
+    print(f"native structural transform on {cpu} (card {card}): median "
+          f"{us['native']:.2f} us per molecule, numpy {us['numpy']:.2f} us, "
+          f"{len(mols)} molecules, bitwise equal", flush=True)
+    return {"backend": "native", "cpu": cpu, "molecules": len(mols),
+            "median_us_native": us["native"], "median_us_numpy": us["numpy"],
+            "bitwise_equal": True}
+
+
+def prepared_rows_check(data: str, mols: list) -> None:
+    """Every row read back through the port's dataset equals its source
+    molecule after the structural transform, with its target and its DFT
+    and RDKit coordinates."""
+    from tgt_torch.data.pcqm import Coords, PCQM4Mv2Dataset
+    from tgt_torch.data.structural import AddStructuralData
+
+    hidden = PREP_SPLITS["train"] + PREP_SPLITS["valid"]
+    for split, cols in (("train", ("dft", "rdkit")), ("valid", ("rdkit",)),
+                        ("test-dev", ("rdkit",))):
+        ds = PCQM4Mv2Dataset(split, data, return_idx=True,
+                             additional_columns=[Coords(c) for c in cols],
+                             transforms=[AddStructuralData()])
+        if len(ds) != PREP_SPLITS[split]:
+            fail(f"prepared {split}: {len(ds)} rows")
+        for r in range(len(ds)):
+            row = ds[r]
+            i = int(row["idx"])
+            m = mols[i]
+            want = AddStructuralData()({k: m[k] for k in (
+                "num_nodes", "edges", "node_features", "edge_features")})
+            for k in ("node_features", "distance_matrix", "feature_matrix"):
+                if not np.array_equal(row[k], want[k]):
+                    fail(f"prepared row {i}: {k} differs from the source")
+            if split == "train" and not np.array_equal(
+                    row["dft_coords"], m["dft_coords"]):
+                fail(f"prepared row {i}: DFT coordinates differ")
+            target = row["target"]
+            if (i >= hidden and not np.isnan(target)) or (
+                    i < hidden and target != np.float32(m["target"])):
+                fail(f"prepared row {i}: target {target}")
+            if not np.array_equal(row["rdkit_coords"],
+                                  standin_rdkit_coords(i, m)):
+                fail(f"prepared row {i}: RDKit coordinates differ")
+
+
+def converted_checkpoint_check(card, spec: ModelSpec, root: str):
+    """The distance model at seed 0 saved as a reference ``model_state.pt``,
+    converted by ``python -m tgt_torch.models.convert`` in a subprocess and
+    served from a model dir around the ``.npz``: logits and predictions
+    bitwise equal to the in-memory model's with the same seeds; then a
+    served forward under ``trace()``, and ``flops_estimate`` of one.
+    Returns the kernel launches and the row."""
+    import shutil
+
+    from tgt_torch.core.config import save_yaml
+    from tgt_torch.models import make_model
+    from tgt_torch.schemes import get_scheme
+    from tgt_torch.serving import DistancePredictor
+    from tgt_torch.utils.profiling import count_params, flops_estimate, trace
+
+    raw = load_config(spec)
+    scheme = get_scheme(raw["scheme"])(raw, command="evaluate")
+    cfg, buckets = scheme.model_cfg, tuple(scheme.cfg.buckets)
+    mc = scheme.cfg.evaluation_samples
+    per_fwd = spec.per_forward(raw)
+    model = make_model("distance", cfg, device="cuda", seed=0)
+    n_params = count_params(model)
+    model_dir = os.path.join(root, "converted")
+    os.makedirs(os.path.join(model_dir, "checkpoint"))
+    save_yaml(raw, os.path.join(model_dir, "config.yaml"))
+    state_path = os.path.join(root, "model_state.pt")
+    t0 = time.perf_counter()
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+               state_path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "tgt_torch.models.convert", state_path,
+         os.path.join(model_dir, "checkpoint", "model.npz"),
+         "--config", spec.yaml], cwd=REPO, capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, PYTHONPATH=REPO))
+    convert_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"python -m tgt_torch.models.convert exited {res.returncode}:"
+             f"\n{res.stdout}\n{res.stderr}")
+    os.remove(state_path)
+
+    mols = request(np.random.RandomState(17), 16)
+    reset_counts()
+    served = DistancePredictor.from_model_dir(
+        model_dir, mc_samples=mc, batch_size=SERVE_BATCH, buckets=buckets,
+        seed=5)
+    memory = DistancePredictor(model, cfg, mc_samples=mc,
+                               batch_size=SERVE_BATCH, buckets=buckets,
+                               seed=5, device="cuda")
+    got = served.predict(mols)
+    n_served = spec.launches(spec.fwd)
+    want = memory.predict(mols)
+    feed = device_batch(mols, buckets)
+    with torch.inference_mode():
+        reset_counts()
+        logits = served.model(feed, deterministic=True)
+        ref = memory.model(feed, deterministic=True)
+        torch.cuda.synchronize()
+        n_logits = spec.launches(spec.fwd)
+        logits_equal = bool(torch.equal(logits, ref))
+    if n_served != per_fwd * mc or n_logits != 2 * per_fwd:
+        fail(f"converted checkpoint: {n_served} launches served, "
+             f"{n_logits} for two forwards; expected {per_fwd * mc} and "
+             f"{2 * per_fwd}")
+    if not logits_equal or not np.array_equal(got, want):
+        fail(f"the converted checkpoint's outputs differ from the "
+             f"in-memory model's: logits max|diff| "
+             f"{float((logits.float() - ref.float()).abs().max())}, "
+             f"predictions {float(np.abs(got - want).max())}")
+    del memory, model
+
+    # one served forward at b=16, N=48 under trace(): its Chrome trace,
+    # under chiprun_out/, names the dense forward kernel
+    logdir = os.path.join(REPO, "chiprun_out", "trace_7p")
+    shutil.rmtree(logdir, ignore_errors=True)
+    rs = np.random.RandomState(19)
+    feed48 = device_batch([random_molecule(rs, int(n)) for n in
+                           rs.randint(41, 49, size=SERVE_BATCH)], buckets)
+    reset_counts()
+    with torch.inference_mode():
+        with trace(logdir):
+            served.model(feed48)
+        flops = flops_estimate(served.model, feed48)
+    n_traced = spec.launches(spec.fwd)
+    files = [f for f in os.listdir(logdir) if f.endswith(".json")]
+    if len(files) != 1 or n_traced != 2 * per_fwd:
+        fail(f"trace(): files {files}, launches {n_traced}")
+    with open(os.path.join(logdir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    named = sorted({e["name"] for e in events if e.get("cat") == "kernel"
+                    and any(k in e["name"] for k in DENSE_FWD_KERNELS)})
+    if not named:
+        fail(f"the trace of a served forward names no dense forward "
+             f"kernel ({len(events)} events)")
+    n = int(feed48["node_mask"].shape[1])
+    row = {"converted_params": n_params, "model_state_save_s": save_s,
+           "convert_s": convert_s, "convert_stdout": res.stdout.strip(),
+           "served_launches": n_served, "logits_bitwise_equal": True,
+           "predictions_bitwise_equal": True,
+           "trace_file": os.path.relpath(os.path.join(logdir, files[0]),
+                                         REPO),
+           "trace_events": len(events), "trace_dense_kernels": named,
+           "flops_estimate": {"b": SERVE_BATCH, "n": n, **flops}}
+    print(f"converted checkpoint ({n_params} parameters) on {card}: "
+          f"convert {convert_s:.1f} s, served {n_served} launches, logits "
+          f"and predictions bitwise equal; the trace names {named}; "
+          f"flops_estimate of one forward at b={SERVE_BATCH}, N={n}: "
+          f"{flops['flops']:.6g}", flush=True)
+    return n_served + n_logits + n_traced, row
+
+
+def prep_phase(card, spec: ModelSpec, root: str):
+    """The real-data runbook on a PCQM4Mv2 stand-in under ``root``: the
+    port's preparation and its read-back, the native structural transform,
+    training and evaluating the published config on the prepared directory
+    through the CLI, and a converted full-width checkpoint served from a
+    model dir; every command's triplet launches against the count its
+    micro-batches and draws imply."""
+    from tgt_torch.cli.execute import execute
+    from tgt_torch.data import prepare
+    from tgt_torch.training import Trainer
+    from tgt_torch.utils.profiling import StepTimer
+
+    t_phase = time.time()
+    data = os.path.join(root, "prep_data")
+    mols = standin_molecules()
+    ogb, supplier, smiles2graph, chem, allchem, features = \
+        standin_toolkits(mols)
+    t0 = time.time()
+    with standin_modules(features):
+        records, splits = prepare.build_pcqm_records(
+            ogb, supplier, smiles2graph, remove_all_hs=chem.RemoveAllHs)
+    prepare.write_dataset(records, data, coords_names=("dft",),
+                          splits=splits)
+    prepare.build_rdkit_coords(supplier, lambda: ogb, data, chem, allchem,
+                               num_confs=PREP_CONFS)
+    prepare_s = time.time() - t0
+    n_split = {k: len(v) for k, v in splits.items()}
+    t3, v3 = splits["train-3d"], splits["valid-3d"]
+    if (len(t3), len(v3)) != (144, 48) or np.any(np.diff(t3) <= 0) or \
+            np.any(np.diff(v3) <= 0) or not np.array_equal(
+                np.sort(np.concatenate([t3, v3])), splits["train"]):
+        fail(f"prepared splits {n_split}")
+    challenge = set(ogb.get_idx_split()["test-challenge"].tolist())
+    if len(records) != 256 or challenge & {r["idx"] for r in records}:
+        fail(f"prepared {len(records)} records")
+    prepared_rows_check(data, mols)
+    native = native_transform_check(card, mols[:256])
+
+    cfg = load_config(spec, dataset_path=data, global_batch_size=64,
+                      save_path_prefix=os.path.join(root, "prep_models"),
+                      num_epochs=1)
+    per_fwd = spec.per_forward(cfg)
+    replay = per_fwd - spec.per_layer_applied(cfg)
+    eval_b = cfg["batch_size"] * cfg["prediction_bmult"]
+    steps = math.ceil(len(t3) / cfg["global_batch_size"])
+    micro = steps * cfg["global_batch_size"] // cfg["batch_size"]
+    val_fwd = (math.ceil(len(v3) / eval_b) * cfg["evaluation_samples"]
+               * per_fwd)
+    expect = {"train": {"fwd": micro * (per_fwd + replay) + val_fwd,
+                        "bwd": micro * per_fwd},
+              "evaluate": {"fwd": val_fwd, "bwd": 0}}
+    timer = StepTimer(warmup=1)
+    launches, out, wall = {}, {}, {}
+    with recorded_trainer() as rec:
+        step = Trainer.train_step
+
+        def timed_step(self, *args, **kwargs):
+            with timer:
+                return step(self, *args, **kwargs)
+
+        Trainer.train_step = timed_step
+        try:
+            for name in ("train", "evaluate"):
+                torch.cuda.synchronize()
+                reset_counts()                  # the main path starts
+                t0 = time.time()
+                out[name] = execute(name, dict(cfg))
+                torch.cuda.synchronize()
+                wall[name] = time.time() - t0
+                launches[name] = {"fwd": spec.launches(spec.fwd),
+                                  "bwd": spec.launches(spec.bwd)}
+                check_only(spec)                # the main path ends
+                if isinstance(out[name], dict):
+                    out[name].pop("state", None)   # free the card
+                torch.cuda.empty_cache()
+        finally:
+            Trainer.train_step = step
+    if launches != expect or rec["plain_core"]:
+        fail(f"prepared data: kernel launches {launches}, expected "
+             f"{expect}; {rec['plain_core']} plain-core calls")
+    losses = [float(m["loss"]) for _, m, _ in rec["steps"]]
+    if len(losses) != steps or not all(map(math.isfinite, losses)) or \
+            not all(bool(m["ok"]) for _, m, _ in rec["steps"]):
+        fail(f"prepared data: training losses {losses}")
+    val_loss = out["evaluate"]["val"]["loss"]
+    if not math.isfinite(val_loss):
+        fail(f"prepared data: evaluate {out['evaluate']}")
+    ends = [ev for _, _, ev in rec["steps"]]
+    step_ms = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+
+    converted, conv_row = converted_checkpoint_check(card, spec, root)
+    row = {"runbook": "prepare, train, evaluate, convert, serve",
+           "path": spec.name, "model": os.path.relpath(spec.yaml, REPO),
+           "card": card, "molecules": n_split, "prepare_s": prepare_s,
+           "native_transform": native, "wall_s": wall,
+           "train_losses": losses, "val_loss": val_loss,
+           "ms_per_step": step_ms, "step_timer": timer.summary(),
+           "launches": launches, "expected_launches": expect,
+           **conv_row, "phase_s": time.time() - t_phase}
+    emit(row)
+    print(f"prepared data ({spec.name}) on {card}: prepare "
+          f"{prepare_s:.1f} s, train {wall['train']:.1f} s ({steps} steps, "
+          f"losses {losses}), evaluate {wall['evaluate']:.1f} s (val loss "
+          f"{val_loss}); ms per step (CUDA events) {step_ms}, StepTimer "
+          f"{timer.summary()}; phase {row['phase_s']:.1f} s", flush=True)
+    return {"fwd": launches["train"]["fwd"] + launches["evaluate"]["fwd"]
+            + converted, "bwd": launches["train"]["bwd"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2642,6 +3206,7 @@ def main() -> int:
         cli_x = phase("7x TGT-Agx2 CLI", cli_phase, card, agx2, root)
         stage2_x = phase("7bx TGT-Agx2 stage 2", stage2_phase, card, agx2,
                          root)
+        prep = phase("7p TGT-At prepared data", prep_phase, card, at, root)
 
     def entry(name, source, replaces, by_path, row, ungated=None,
               ungated_train=None):
@@ -2696,7 +3261,7 @@ def main() -> int:
             "triplet_dense_fwd", td.KERNEL_SOURCE, td.REPLACES,
             {"serving": served[at.name], "training": trained[at.name]["fwd"],
              "serving_dropout": d_serve, "training_dropout": d_train["fwd"],
-             "cli": cli["fwd"],
+             "cli": cli["fwd"], "prep": prep["fwd"],
              **{k: v["fwd"] for k, v in stage2.items()},
              **{f"remat_{k}": v["fwd"] for k, v in remat.items()},
              "indiv": indiv["triplet_dense_fwd"]},
@@ -2707,6 +3272,7 @@ def main() -> int:
             "triplet_dense_bwd", td.BWD_KERNEL_SOURCE, td.BWD_REPLACES,
             {"training": trained[at.name]["bwd"],
              "training_dropout": d_train["bwd"], "cli": cli["bwd"],
+             "prep": prep["bwd"],
              **{k: v["bwd"] for k, v in stage2.items()},
              **{f"remat_{k}": v["bwd"] for k, v in remat.items()}},
             dense_bwd[FLAGSHIP], dense_bwd[UNGATED],

@@ -310,7 +310,12 @@ class TestImportRule:
                 "tgt_torch.data.prepare, tgt_torch.training.checkpoint, "
                 "tgt_torch.training.progress, tgt_torch.cli, "
                 "tgt_torch.cli.execute, tgt_torch.cli.run_training, "
-                "tgt_torch.cli.make_predictions, tgt_torch.cli.do_evaluations; "
+                "tgt_torch.cli.make_predictions, tgt_torch.cli.do_evaluations, "
+                "tgt_torch.data._native, tgt_torch.data.structural, "
+                "tgt_torch.utils.profiling, tgt_torch.models.convert; "
+                "assert tgt_torch.data.structural.backend() == 'native'; "
+                "from tgt_torch.models.convert import main\n"
+                "try:\n    main(['--help'])\nexcept SystemExit:\n    pass\n"
                 "bad = [m for m in sys.modules "
                 "if m.split('.')[0] in ('jax', 'jaxlib', 'tgt_tpu')]; "
                 "print(bad); sys.exit(1 if bad else 0)")
@@ -324,6 +329,9 @@ class TestImportRule:
         files = sorted((REPO / "tgt_torch").rglob("*.py"))
         files.append(REPO / "chip_smoke.py")
         assert len(files) > 10
+        for new in ("data/_native.py", "data/prepare.py",
+                    "utils/profiling.py", "models/convert.py"):
+            assert REPO / "tgt_torch" / new in files
         for path in files:
             for node in ast.walk(ast.parse(path.read_text())):
                 names = []

@@ -1,6 +1,5 @@
 """Structural preprocessing: hop-distance matrix + dense feature scatter
-(counterpart of tgt_tpu/data/structural.py, numpy path; binding the C++
-library csrc/tgt_native.cpp is the rest of ROADMAP.md item 1j).
+(counterpart of tgt_tpu/data/structural.py).
 
 As the reference's numba kernels (lib/data/pcqm/structural_transform.py:8-75):
 - ``floyd_warshall``: all-pairs hop distance, unreachable pairs = 510,
@@ -8,9 +7,17 @@ As the reference's numba kernels (lib/data/pcqm/structural_transform.py:8-75):
 - ``preprocess_graph``: offset-encodes node/edge features
   (feat + 1 + k*OFFSET, 0 reserved for padding) and scatters the edge
   features into dense (N, N) matrices.
+
+``preprocess_graph`` runs the native library of csrc/tgt_native.cpp
+(``tgt_torch.data._native``, built at first use), which gives the same
+arrays as its numpy version ``preprocess_graph_numpy``. The numpy version
+runs only when no C++ compiler is on PATH, and then it warns once; a
+compiler whose build or load fails raises. ``backend()`` says which ran.
 """
 from __future__ import annotations
 
+import functools
+import warnings
 from typing import Dict
 
 import numpy as np
@@ -18,6 +25,26 @@ import numpy as np
 NODE_FEATURES_OFFSET = 128
 EDGE_FEATURES_OFFSET = 8
 UNREACHABLE = 510
+
+
+@functools.cache
+def _native_module():
+    """The native binding, built and loaded; None, with a warning, when
+    there is no compiler to build it."""
+    from tgt_torch.data import _native
+
+    if not _native.library_path().exists() and _native.compiler() is None:
+        warnings.warn(f"{_native.COMPILER} is not on PATH: the structural "
+                      f"transform runs its numpy version", RuntimeWarning)
+        return None
+    _native.library()
+    return _native
+
+
+def backend() -> str:
+    """'native' when ``preprocess_graph`` runs the C++ library, 'numpy'
+    when there is no compiler to build it."""
+    return "numpy" if _native_module() is None else "native"
 
 
 def floyd_warshall(adj: np.ndarray) -> np.ndarray:
@@ -33,7 +60,17 @@ def floyd_warshall(adj: np.ndarray) -> np.ndarray:
 def preprocess_graph(num_nodes: int, edges: np.ndarray,
                      node_feats: np.ndarray, edge_feats: np.ndarray):
     """Returns (node_feats (N, Fn) int16, dist_matrix (N, N) int16,
-    feature_matrix (N, N, Fe) int16)."""
+    feature_matrix (N, N, Fe) int16), through the native library."""
+    native = _native_module()
+    if native is None:
+        return preprocess_graph_numpy(num_nodes, edges, node_feats,
+                                      edge_feats)
+    return native.preprocess_graph(num_nodes, edges, node_feats, edge_feats)
+
+
+def preprocess_graph_numpy(num_nodes: int, edges: np.ndarray,
+                           node_feats: np.ndarray, edge_feats: np.ndarray):
+    """``preprocess_graph`` in numpy."""
     fn = node_feats.shape[-1]
     fe = edge_feats.shape[-1]
     node_out = (node_feats.astype(np.int16)

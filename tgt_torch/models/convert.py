@@ -22,10 +22,22 @@ either package loads strictly in the other.
 Arrays are numpy; this module needs no JAX. ``load_jax_npz`` reads the
 flat ``.npz`` that ``save_pytree`` writes (keys
 ``encoder/layers/update/lin_QKV/w``, ...) back into a nested dict.
+
+A released reference checkpoint (a ``model_state.pt`` state_dict) is
+imported by ``import_reference_state_dict``, or from the shell (the
+counterpart of ``python -m tgt_tpu.models.convert``, with the same
+``.npz`` out):
+
+    python -m tgt_torch.models.convert <model_state.pt> <out.npz> \
+        --config <config.yaml> [--model distance|gap|multi]
+
+Point ``pretrained_weights_file`` at the ``.npz``, or put it in a model
+dir as ``checkpoint/model.npz``: either package reads it.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Union
+import argparse
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -218,3 +230,57 @@ def load_jax_npz(path: str) -> Dict[str, Any]:
                 node = node.setdefault(p, {})
             node[leaf] = npz[key]
     return tree
+
+
+def import_reference_state_dict(state: Mapping[str, Any], cfg: TGTConfig,
+                                model: str = "distance") -> Dict[str, Any]:
+    """A reference state_dict (tensors or arrays) of task model ``model``
+    -> tgt_tpu's params tree of numpy arrays. The module names are the
+    reference's, so the state loads strictly, names and shapes, into the
+    port's model of that kind built on the meta device: a missing or an
+    extra key raises. Values take the model's dtypes (float32)."""
+    from tgt_torch.models.heads import MODELS
+
+    module = MODELS[model](cfg, device="meta")
+    own = module.state_dict()
+    state = {k: torch.as_tensor(v) for k, v in state.items()}
+    module.load_state_dict(state, strict=True, assign=True)
+    return jax_params_from_state_dict(
+        {k: v.detach().to(own[k].dtype) for k, v in state.items()}, cfg,
+        module)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    """Convert a released reference checkpoint to the ``.npz`` that
+    ``pretrained_weights_file`` and ``from_model_dir`` read."""
+    from tgt_torch.core.config import load_yaml
+    from tgt_torch.schemes import get_scheme
+    from tgt_torch.training.checkpoint import flatten_tree, save_pytree
+
+    ap = argparse.ArgumentParser(
+        prog="python -m tgt_torch.models.convert",
+        description="Convert a reference model_state.pt to a checkpoint "
+                    ".npz of tgt_tpu and tgt_torch.")
+    ap.add_argument("torch_checkpoint")
+    ap.add_argument("out_npz")
+    ap.add_argument("--config", required=True,
+                    help="scheme config yaml (determines model shape)")
+    ap.add_argument("--model", default=None,
+                    choices=("distance", "gap", "multi"),
+                    help="override model kind (distance|gap|multi)")
+    args = ap.parse_args(argv)
+
+    state = torch.load(args.torch_checkpoint, map_location="cpu",
+                       weights_only=True)
+    cfg_dict = load_yaml(args.config)
+    scheme = get_scheme(cfg_dict["scheme"])(cfg_dict)
+    params = import_reference_state_dict(state, scheme.model_cfg,
+                                         args.model or scheme.MODEL)
+    save_pytree(params, args.out_npz)
+    n = sum(int(np.size(v)) for v in flatten_tree(params).values())
+    print(f"converted {n/1e6:.1f}M params -> {args.out_npz}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
