@@ -228,8 +228,33 @@ Phases, each of which fails the run (non-zero exit) on error:
    forward at b=16, N=48 under ``tgt_torch.utils.profiling.trace`` must
    write a Chrome trace under ``chiprun_out/trace_7p/`` that names the
    dense forward kernel; ``flops_estimate`` of one forward is printed.
+7d. Data parallelism on the card, in phase 7's directory, on its parquet:
+   (a) two ranks, each a subprocess of this script (``--ddp-worker``) in a
+   gloo group on cuda:0 (``initialize_distributed(..., backend="gloo",
+   device="cuda:0")``: gloo moves CUDA tensors through host memory, so two
+   ranks can share one card for the step's all-reduce and broadcast),
+   ``execute("train")`` of the published TGT-At yaml with
+   ``global_batch_size: 64`` (32 a rank, no accumulation, one epoch of 3
+   steps), then ``execute("evaluate")`` and an f32 evaluate
+   (``predict_in_train: false``) by both. Checks finite losses, every
+   step applied, both ranks' histories equal (1e-6 relative, wall times
+   excepted), rank 0 alone wrote (rank 1 trains into a model dir of its
+   own, which must stay empty), the dense launches exact on each rank (per
+   training micro-batch 94 + 48, per draw 48) with no plain-core call,
+   equal evaluate metrics on both ranks, and the f32 evaluate of the two
+   ranks within 1e-4 relative of one process's. (b) The f32 global
+   gradient, every dropout 0, deterministic algorithms: 16 molecules of
+   4-16 atoms on rank 0 and 16 of 40-48 on rank 1; the ranks' all-reduced
+   gradient within 1e-4 of max|ref| of one process's on all 32, which a
+   planted fault, the average of each rank's own mean (plain DDP), must
+   fail. (c) A one-rank NCCL group takes the same gradient through the same
+   code, bitwise equal to the one with no group. Prints ms per step on each
+   rank (CUDA events) with the all-reduce's share, each rank's peak
+   memory, the gradient's and the fault's max|diff|, and the NCCL version.
+   Gloo on one card says nothing of NCCL across cards.
 8. The kernels line (six kernels, launches by path, with the dense pair's
-   ``prep`` path (phase 7p), its stage-2 paths ``pretrain``, ``finetune``,
+   ``prep`` path (phase 7p), its ``ddp`` path (phase 7d, both ranks' train
+   and evaluate), its stage-2 paths ``pretrain``, ``finetune``,
    ``gap_pred`` and ``two_stage``, its ``remat_<policy>`` training and the IndivConfig
    forward, and the aggregate pair's ``cli`` and stage-2 paths; the
    aggregate pair's rows at bucket 56 and stage 2's shapes; the dense
@@ -3120,6 +3145,380 @@ def prep_phase(card, spec: ModelSpec, root: str):
             + converted, "bwd": launches["train"]["bwd"]}
 
 
+# -- phase 7d: data parallelism, two ranks on the card ------------------------------
+
+DDP_WORLD = 2
+DDP_TIMEOUT_S = 300     # a rank's bound on its collectives; the parent's on a rank
+DDP_GRAD_TOL = 1e-4     # of max|ref| over the flat f32 gradient
+DDP_GRAD_SEED = 7
+
+
+def ddp_config(spec: ModelSpec, root: str, **extra) -> dict:
+    """Phase 7's published config on its parquet, global batch 64: 32 per
+    rank, no accumulation, one epoch of 3 steps."""
+    return load_config(spec, **dict(dict(
+        dataset_path=os.path.join(root, "data"), global_batch_size=64,
+        num_epochs=1, save_path_prefix=os.path.join(root, "ddp")), **extra))
+
+
+def ddp_f32_config(spec: ModelSpec, root: str) -> dict:
+    """The evaluate of phase 7d's checkpoint in f32, dropout off."""
+    return ddp_config(spec, root, mixed_precision=False,
+                      predict_in_train=False, evaluation_samples=2)
+
+
+def ddp_grad_scheme(spec: ModelSpec, root: str, batch_size: int):
+    """The published config in f32 with every dropout and noise at 0, one
+    micro-batch of ``batch_size`` a rank (32 molecules a step)."""
+    from tgt_torch.schemes import get_scheme
+
+    raw = ddp_config(spec, root, mixed_precision=False, source_dropout=0.0,
+                     node_act_dropout=0.0, edge_act_dropout=0.0,
+                     drop_path=0.0, batch_size=batch_size,
+                     global_batch_size=32)
+    return get_scheme(raw["scheme"])(raw, command="train")
+
+
+def ddp_grad_batches(scheme, ranks):
+    """Phase 7d's global batch of 32 molecules, seed 14: 16 of 4-16 atoms
+    (rank 0's half, bucket 24) and 16 of 40-48 (rank 1's, bucket 48), so
+    the halves' valid pairs differ about 15-fold; one device batch on the
+    card per entry of ``ranks`` (a rank, or None for all 32)."""
+    from tgt_torch.data.collate import padded_collate
+    from tgt_torch.data.structural import AddStructuralData
+    from tgt_torch.data.synthetic import make_molecule
+
+    rs = np.random.RandomState(14)
+    rows = []
+    for n in np.concatenate([rs.randint(4, 17, 16), rs.randint(40, 49, 16)]):
+        row = make_molecule(rs, int(n))
+        row["node_mask"] = np.ones(int(n), np.uint8)
+        rows.append(AddStructuralData()(row))
+    out = []
+    for r in ranks:
+        part = rows if r is None else rows[16 * r:16 * (r + 1)]
+        host = padded_collate(part, buckets=tuple(scheme.cfg.buckets))
+        out.append({k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+                    for k, v in scheme.device_batch(host).items()})
+    return out
+
+
+def flat_grad(trainer, model, batch) -> tuple:
+    """(loss, flat f32 gradient) of ``Trainer.accumulated_grad`` under
+    deterministic algorithms (phase 4r's reason)."""
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        loss, _, grads = trainer.accumulated_grad(model, batch, DDP_GRAD_SEED)
+        return float(loss.detach()), torch.cat(
+            [g.reshape(-1).float() for g in grads])
+    finally:
+        torch.use_deterministic_algorithms(before, warn_only=True)
+
+
+@contextlib.contextmanager
+def recorded_all_reduce():
+    """CUDA events around each step's gradient all-reduce
+    (``Trainer.sum_over_ranks``)."""
+    from tgt_torch.training import Trainer
+
+    spans, sum_over_ranks = [], Trainer.sum_over_ranks
+
+    def timed(self, *args):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = sum_over_ranks(self, *args)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    Trainer.sum_over_ranks = timed
+    try:
+        yield spans
+    finally:
+        Trainer.sum_over_ranks = sum_over_ranks
+
+
+def ddp_worker(rank: int, port: int, root: str) -> int:
+    """One rank of phase 7d, a subprocess of its own on cuda:0 in a gloo
+    group of two: train and evaluate through ``execute``, an f32 evaluate,
+    and the f32 global gradient with the planted fault; writes what it saw
+    to ``<root>/ddp_rank<rank>.json`` (rank 0 also the gradients)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from tgt_torch.cli.execute import execute
+    from tgt_torch.ops.kernels import triplet_dense as td
+    from tgt_torch.parallel import initialize_distributed
+    from tgt_torch.training import Trainer
+
+    spec = ModelSpec("TGT-At", FLAGSHIP_YAML, {}, td.triplet_dense_fwd,
+                     td.triplet_dense_bwd)
+    initialize_distributed(f"localhost:{port}", DDP_WORLD, rank,
+                           backend="gloo", device="cuda:0",
+                           timeout=datetime.timedelta(seconds=DDP_TIMEOUT_S))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": rank, "wall_s": {}, "launches": {}}
+    cfg = ddp_config(spec, root)
+    # rank 1 trains into a model dir of its own, which must stay empty:
+    # rank 0 alone writes
+    train_cfg = cfg if rank == 0 else dict(
+        cfg, save_path_prefix=os.path.join(root, "ddp_rank1"))
+    torch.cuda.reset_peak_memory_stats()
+    with recorded_trainer() as rec, recorded_all_reduce() as spans:
+        for name, command, c in (("train", "train", train_cfg),
+                                 ("evaluate", "evaluate", cfg),
+                                 ("evaluate_f32", "evaluate",
+                                  ddp_f32_config(spec, root))):
+            torch.cuda.synchronize()
+            reset_counts()                  # the main path starts
+            t0 = time.time()
+            result = execute(command, c, device="cuda:0")
+            torch.cuda.synchronize()
+            out["wall_s"][name] = time.time() - t0
+            out["launches"][name] = {"fwd": spec.launches(spec.fwd),
+                                     "bwd": spec.launches(spec.bwd)}
+            check_only(spec)                # the main path ends
+            out[name] = (result["history"] if command == "train"
+                         else result)
+            del result
+            torch.cuda.empty_cache()
+        ends = [ev for _, _, ev in rec["steps"]]
+        out["ok"] = [bool(m["ok"]) for _, m, _ in rec["steps"]]
+        out["losses"] = [float(m["loss"]) for _, m, _ in rec["steps"]]
+        out["ms_per_step"] = [a.elapsed_time(b)
+                              for a, b in zip(ends, ends[1:])]
+        out["all_reduce_ms"] = [a.elapsed_time(b) for a, b in spans]
+        out["plain_core"] = rec["plain_core"]
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # the f32 global gradient, and plain DDP's average of the ranks' own
+    # means (the planted fault)
+    scheme = ddp_grad_scheme(spec, root, 16)
+    trainer = Trainer(scheme, rank=rank, world_size=DDP_WORLD,
+                      device="cuda:0")
+    model = trainer.init_state(0)["model"]
+    batch, = ddp_grad_batches(scheme, [rank])
+    out["grad_pairs"] = float(scheme.edge_mask_of(batch).sum())
+    loss, grad = flat_grad(trainer, model, batch)
+    local, _ = scheme.loss_fn(model, batch, DDP_GRAD_SEED)
+    fault = torch.cat([g.reshape(-1).float() for g in torch.autograd.grad(
+        local, list(model.parameters()), allow_unused=True)])
+    dist.all_reduce(fault)
+    fault /= DDP_WORLD
+    out.update(grad_loss=loss, local_loss=float(local))
+    if rank == 0:
+        torch.save({"grad": grad.cpu(), "fault": fault.cpu()},
+                   os.path.join(root, "ddp_grad.pt"))
+    dist.destroy_process_group()
+    with open(os.path.join(root, f"ddp_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def ddp_ranks(root: str) -> list:
+    """Phase 7d's two ranks as subprocesses of this script; fails with
+    their output if either fails or outlives DDP_TIMEOUT_S."""
+    port = free_port()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ddp-worker", str(r),
+         str(port), root], cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(DDP_WORLD)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DDP_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        fail(f"phase 7d: a rank outlived {DDP_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"phase 7d: rank {r} exited {p.returncode}:\n"
+                 f"{text[-4000:]}")
+    ranks = []
+    for r in range(DDP_WORLD):
+        with open(os.path.join(root, f"ddp_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def same_history(h0: list, h1: list) -> bool:
+    """Two ranks' histories agree to 1e-6 relative, wall times excepted."""
+    if len(h0) != len(h1):
+        return False
+    for e0, e1 in zip(h0, h1):
+        if e0.keys() != e1.keys():
+            return False
+        for k, v in e0.items():
+            if k.endswith("_time"):
+                continue
+            if v != e1[k] and not (isinstance(v, float) and math.isclose(
+                    v, e1[k], rel_tol=1e-6, abs_tol=1e-9)):
+                return False
+    return True
+
+
+def ddp_phase(card, spec: ModelSpec, root: str):
+    """Phase 7d: data parallelism on one card, on phase 7's parquet under
+    ``root``. (a) two ranks, each a subprocess on cuda:0 in a gloo group,
+    train the published config through ``execute`` (global batch 64: 32
+    a rank) and evaluate; histories identical, rank 0 alone writes, the
+    launches exact on each rank, an f32 evaluate of the two ranks equal
+    to one process's. (b) the two ranks' f32 gradient on a global batch
+    whose halves differ in size equals one process's on all of it, and
+    the average of the ranks' own means (plain DDP) does not. (c) a
+    one-rank NCCL group takes the same gradient bitwise."""
+    import torch.distributed as dist
+
+    from tgt_torch.cli.execute import execute
+    from tgt_torch.training import Trainer
+
+    t_phase = time.time()
+    with np.load(os.path.join(root, "data", "splits.npz")) as splits:
+        n_split = {k: len(splits[k]) for k in splits.files}
+    cfg = ddp_config(spec, root)
+    per_fwd = spec.per_forward(cfg)
+    replay = per_fwd - spec.per_layer_applied(cfg)
+    eval_b = cfg["batch_size"] * cfg["prediction_bmult"]
+    per_rank = {s: math.ceil(n_split[s] / DDP_WORLD)
+                for s in ("train-3d", "valid-3d")}
+    steps = math.ceil(per_rank["train-3d"] / cfg["batch_size"])
+    val_fwd = (math.ceil(per_rank["valid-3d"] / eval_b)
+               * cfg["evaluation_samples"] * per_fwd)
+    f32_fwd = math.ceil(per_rank["valid-3d"] / eval_b) * 2 * per_fwd
+    expect = {"train": {"fwd": steps * (per_fwd + replay) + val_fwd,
+                        "bwd": steps * per_fwd},
+              "evaluate": {"fwd": val_fwd, "bwd": 0},
+              "evaluate_f32": {"fwd": f32_fwd, "bwd": 0}}
+
+    ranks = ddp_ranks(root)
+    r0, r1 = ranks
+    for r in ranks:
+        if r["launches"] != expect or r["plain_core"]:
+            fail(f"phase 7d rank {r['rank']}: launches {r['launches']}, "
+                 f"expected {expect}; {r['plain_core']} plain-core calls")
+        if r["ok"] != [True] * steps or not all(
+                math.isfinite(x) for x in r["losses"]):
+            fail(f"phase 7d rank {r['rank']}: steps {r['ok']}, losses "
+                 f"{r['losses']}")
+    if not same_history(r0["train"], r1["train"]) or not all(
+            math.isfinite(h["loss"]) and math.isfinite(h["val_loss"])
+            for h in r0["train"]):
+        fail(f"phase 7d: histories {r0['train']} and {r1['train']}")
+    if r0["evaluate"] != r1["evaluate"] or \
+            r0["evaluate_f32"] != r1["evaluate_f32"]:
+        fail(f"phase 7d: evaluate metrics differ between the ranks: "
+             f"{r0['evaluate']}, {r1['evaluate']}, {r0['evaluate_f32']}, "
+             f"{r1['evaluate_f32']}")
+    model_dir = os.path.join(root, "ddp", cfg["model_prefix"],
+                             cfg["model_name"])
+    for name in ("checkpoint/model.npz", "logs/history.yaml",
+                 "predictions/results.yaml"):
+        if not os.path.exists(os.path.join(model_dir, name)):
+            fail(f"phase 7d: rank 0 did not write {name}")
+    rank1_files = [os.path.join(d, f) for d, _, fs in os.walk(
+        os.path.join(root, "ddp_rank1")) for f in fs]
+    if rank1_files:
+        fail(f"phase 7d: rank 1 wrote {rank1_files}")
+
+    # (a) the f32 evaluate of the two ranks against one process's
+    reset_counts()
+    one = execute("evaluate", ddp_f32_config(spec, root))
+    one_fwd = spec.launches(spec.fwd)
+    f32 = (r0["evaluate_f32"]["val"]["loss"], one["val"]["loss"])
+    f32_rel = abs(f32[0] - f32[1]) / abs(f32[1])
+    if f32_rel > 1e-4:
+        fail(f"phase 7d: f32 evaluate by two ranks {f32[0]}, by one "
+             f"process {f32[1]}")
+
+    # (b) the two ranks' gradient against one process's on all 32
+    # molecules; (c) the same through a one-rank NCCL group, bitwise
+    scheme = ddp_grad_scheme(spec, root, 32)
+    trainer = Trainer(scheme, device="cuda")
+    model = trainer.init_state(0)["model"]
+    batch, = ddp_grad_batches(scheme, [None])
+    ref_loss, ref = flat_grad(trainer, model, batch)
+    grad_mb = ref.numel() * 4 / 1e6
+    got = torch.load(os.path.join(root, "ddp_grad.pt"))
+    scale = float(ref.abs().max())
+    err = float((got["grad"].cuda() - ref).abs().max())
+    err_fault = float((got["fault"].cuda() - ref).abs().max())
+    del got
+    if err > DDP_GRAD_TOL * scale:
+        fail(f"phase 7d: the two ranks' f32 gradient max|diff| {err}, "
+             f"max|ref| {scale}")
+    if err_fault <= DDP_GRAD_TOL * scale:
+        fail(f"phase 7d: the gradient check does not see plain DDP's "
+             f"average of the ranks' means: max|diff| {err_fault}")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", world_size=1, rank=0,
+                            init_method=f"tcp://localhost:{free_port()}")
+    try:
+        nccl_trainer = Trainer(scheme, rank=0, world_size=1, device="cuda")
+        if not nccl_trainer.group:
+            fail("phase 7d: the Trainer does not see the NCCL group")
+        nccl_loss, nccl = flat_grad(nccl_trainer, model, batch)
+    finally:
+        dist.destroy_process_group()
+    nccl_bitwise = bool(torch.equal(nccl, ref)) and nccl_loss == ref_loss
+    nccl_version = ".".join(map(str, torch.cuda.nccl.version()))
+    if not nccl_bitwise:
+        fail(f"phase 7d: the one-rank NCCL gradient differs from the one "
+             f"without a group by {float((nccl - ref).abs().max())}")
+    del trainer, nccl_trainer, model, batch, ref, nccl
+    torch.cuda.empty_cache()
+
+    share = [sum(r["all_reduce_ms"][1:]) / sum(r["ms_per_step"])
+             for r in ranks]
+    row = {"ddp": "two ranks on cuda:0 over gloo", "path": spec.name,
+           "model": os.path.relpath(spec.yaml, REPO), "card": card,
+           "molecules_per_rank": per_rank, "steps": steps,
+           "wall_s": [r["wall_s"] for r in ranks],
+           "ms_per_step": [r["ms_per_step"] for r in ranks],
+           "all_reduce_ms": [r["all_reduce_ms"] for r in ranks],
+           "all_reduce_share_after_first": share,
+           "gradient_mb": grad_mb,
+           "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
+           "history": r0["train"], "evaluate": r0["evaluate"],
+           "launches": [r["launches"] for r in ranks],
+           "expected_launches": expect,
+           "f32_val_loss_two_ranks": f32[0], "f32_val_loss_one": f32[1],
+           "f32_val_loss_rel_diff": f32_rel, "f32_one_launches": one_fwd,
+           "grad_pairs_per_rank": [r["grad_pairs"] for r in ranks],
+           "grad_loss": ref_loss,
+           "grad_local_losses": [r["local_loss"] for r in ranks],
+           "grad_max_abs_err": err, "grad_max_abs_err_fault": err_fault,
+           "grad_max_abs_ref": scale, "grad_tol": DDP_GRAD_TOL,
+           "nccl_version": nccl_version, "nccl_bitwise_equal": nccl_bitwise,
+           "phase_s": time.time() - t_phase}
+    emit(row)
+    print(f"data parallelism ({spec.name}, 2 ranks on one card, gloo) on "
+          f"{card}: ms per step {row['ms_per_step']}, all-reduce ms "
+          f"{row['all_reduce_ms']} (share after the first step {share}); "
+          f"peak memory GB {row['peak_mem_gb']}; f32 gradient max|diff| "
+          f"{err}, plain DDP's {err_fault}, of max|ref| {scale}; NCCL "
+          f"{nccl_version} one rank bitwise equal; phase "
+          f"{row['phase_s']:.1f} s", flush=True)
+    return {k: sum(r["launches"][c][k] for r in ranks
+                   for c in ("train", "evaluate")) for k in ("fwd", "bwd")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3207,6 +3606,7 @@ def main() -> int:
         stage2_x = phase("7bx TGT-Agx2 stage 2", stage2_phase, card, agx2,
                          root)
         prep = phase("7p TGT-At prepared data", prep_phase, card, at, root)
+        ddp = phase("7d TGT-At data parallelism", ddp_phase, card, at, root)
 
     def entry(name, source, replaces, by_path, row, ungated=None,
               ungated_train=None):
@@ -3261,7 +3661,7 @@ def main() -> int:
             "triplet_dense_fwd", td.KERNEL_SOURCE, td.REPLACES,
             {"serving": served[at.name], "training": trained[at.name]["fwd"],
              "serving_dropout": d_serve, "training_dropout": d_train["fwd"],
-             "cli": cli["fwd"], "prep": prep["fwd"],
+             "cli": cli["fwd"], "prep": prep["fwd"], "ddp": ddp["fwd"],
              **{k: v["fwd"] for k, v in stage2.items()},
              **{f"remat_{k}": v["fwd"] for k, v in remat.items()},
              "indiv": indiv["triplet_dense_fwd"]},
@@ -3272,7 +3672,7 @@ def main() -> int:
             "triplet_dense_bwd", td.BWD_KERNEL_SOURCE, td.BWD_REPLACES,
             {"training": trained[at.name]["bwd"],
              "training_dropout": d_train["bwd"], "cli": cli["bwd"],
-             "prep": prep["bwd"],
+             "prep": prep["bwd"], "ddp": ddp["bwd"],
              **{k: v["bwd"] for k, v in stage2.items()},
              **{f"remat_{k}": v["bwd"] for k, v in remat.items()}},
             dense_bwd[FLAGSHIP], dense_bwd[UNGATED],
@@ -3320,4 +3720,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-worker"]:       # one rank of phase 7d
+        sys.exit(ddp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

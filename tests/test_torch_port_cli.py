@@ -4,7 +4,7 @@ port's ``write_synthetic_dataset``).
 
 - the config grammar of ``tests/test_cli.py``; every published yaml, of
   all four schemes, resolves to tgt_tpu's model, model config and keys; a
-  world size above 1 raises naming 1m;
+  world size above 1 without a rendezvous raises naming its keys;
 - ``python -m tgt_torch.cli.run_training <published yaml> ... --device
   cpu``, then ``do_evaluations`` and ``make_predictions`` on its model
   dir: the artifacts ``test_cli.py`` asserts, the bins parquet read back
@@ -103,8 +103,14 @@ class TestConfigGrammar:
         with pytest.raises(KeyError):
             execute("train", cfg, device="cpu")
 
-    def test_world_size_above_one_raises(self, tmp_path, data_dir):
-        with pytest.raises(NotImplementedError, match="1m"):
+    def test_world_size_above_one_raises(self, tmp_path, data_dir,
+                                         monkeypatch):
+        """Two processes without a rendezvous: the error names the keys
+        that give one."""
+        for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+            monkeypatch.delenv(var, raising=False)
+        with pytest.raises(ValueError, match="jax_coordinator.*"
+                           "jax_num_processes.*jax_process_id"):
             execute("train", flagship(tmp_path, data_dir), world_size=2,
                     device="cpu")
 

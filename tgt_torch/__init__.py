@@ -13,8 +13,10 @@ PCQM4Mv2 parquet data layer and the CLI (``python -m
 tgt_torch.cli.run_training``, ``do_evaluations``, ``make_predictions``),
 with all six triplet variants; the preparation of the real PCQM4Mv2
 (``tgt_torch.data.prepare``), the native structural transform, the import
-of released reference checkpoints (``python -m tgt_torch.models.convert``)
-and the profiling utilities (``tgt_torch.utils.profiling``). With
+of released reference checkpoints (``python -m tgt_torch.models.convert``),
+the profiling utilities (``tgt_torch.utils.profiling``) and data
+parallelism (``tgt_torch.parallel``: one process per device, each step the
+global batch's). With
 ``use_pallas: dense`` the triplet core runs hand-written CUDA kernels on the
 card: ``csrc/triplet_dense_{fwd,bwd}.cu`` for the attention variants
 (TGT-At, with triplet dropout drawn in the kernels),

@@ -13,7 +13,9 @@ size-bucketed batches), the validation and test loaders, the device batch
 A task's ``loss_fn(model, batch, seed) -> (loss, aux)`` and
 ``eval_fn(model, batch, seed) -> dict`` take the model module (the
 parameters live in it) and a device batch of tensors; every random draw
-comes from ``seed``. ``precompile_buckets`` is accepted and has no effect:
+comes from ``seed``. The loss's masked means divide by the batch's
+``pair_count`` and ``sample_count`` where the Trainer puts them there
+(their sums over the ranks, ``loss_counts``), else by its own counts. ``precompile_buckets`` is accepted and has no effect:
 the port runs eagerly, so there is no program to compile ahead.
 """
 from __future__ import annotations
@@ -273,6 +275,13 @@ class TGTScheme:
         sizes = getattr(ds, "sizes", None)
         if self.cfg.size_bucketed_batching and sizes is not None and \
                 len(sizes) == len(ds):
+            if world_size > 1:
+                # each rank's bucket remainders give it its own number of
+                # batches, and the Trainer's collectives would wait forever
+                raise ValueError(
+                    "size_bucketed_batching gives the ranks different "
+                    f"numbers of batches; it needs a world size of 1 (got "
+                    f"{world_size})")
             sampler = SizeBucketedTrainSampler(
                 sizes, bsz, self.cfg.buckets, rank=rank,
                 world_size=world_size, seed=self.cfg.random_seed or 0)
@@ -324,6 +333,16 @@ class TGTScheme:
         """(b, N, N) pair mask, zero for every pair of a padded sample."""
         nm = batch["node_mask"].float() * batch["sample_mask"].float()[:, None]
         return nm[:, :, None] * nm[:, None, :]
+
+    def loss_counts(self, batch: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """The counts that ``loss_fn``'s masked means divide by: the valid
+        pairs (``edge_mask_of``) and the real samples (``sample_mask``).
+        Under a process group the Trainer sums them over the ranks and
+        passes the sums in the batch under these keys, so that each rank's
+        loss is its share of the global batch's."""
+        return {"pair_count": self.edge_mask_of(batch).sum(),
+                "sample_count": batch["sample_mask"].float().sum()}
 
     # -- task hooks -------------------------------------------------------------
     def loss_fn(self, model, batch: Dict[str, torch.Tensor], seed: int):

@@ -38,19 +38,23 @@ def discrete_dist(dist: torch.Tensor, num_bins: int,
 
 def discrete_dist_loss(dist_logits: torch.Tensor, dist_targ: torch.Tensor,
                        mask: torch.Tensor, num_bins: int, range_bins: float,
-                       reduce: bool = True) -> torch.Tensor:
+                       reduce: bool = True,
+                       count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Masked cross-entropy over distance bins (reference commons.py:25-48).
 
     dist_logits (b, N, N, B), dist_targ float distances (b, N, N), mask
     (b, N, N). The log-softmax runs in f32. reduce=True -> scalar mean over
-    the valid pairs of the batch; else per-graph (b,)."""
+    the valid pairs of the batch, or the sum over them divided by ``count``
+    (the valid pairs of every rank's batch: this rank's share of the
+    global mean); else per-graph (b,)."""
     b = dist_logits.shape[0]
     targ = discrete_dist(dist_targ, num_bins, range_bins)
     logp = torch.log_softmax(dist_logits.float(), dim=-1)
     xent = -torch.gather(logp, -1, targ[..., None])[..., 0].reshape(b, -1)
     m = mask.to(xent.dtype).reshape(b, -1)
     if reduce:
-        return (xent * m).sum() / (m.sum() + 1e-9)
+        return (xent * m).sum() / ((m.sum() if count is None else count)
+                                   + 1e-9)
     return (xent * m).sum(dim=1) / (m.sum(dim=1) + 1e-9)
 
 
@@ -73,10 +77,13 @@ def bins2dist(bins: torch.Tensor, num_bins: int, range_bins: float,
 
 
 def masked_l1(pred: torch.Tensor, target: torch.Tensor,
-              sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean |pred - target| over the valid samples (the L1 gap loss)."""
+              sample_mask: Optional[torch.Tensor] = None,
+              count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean |pred - target| over the valid samples (the L1 gap loss); with
+    ``count`` (the valid samples of every rank's batch) the sum over them
+    divided by it, this rank's share of the global mean."""
     err = torch.abs(pred - target)
     if sample_mask is None:
         return err.mean()
     m = sample_mask.to(err.dtype)
-    return (err * m).sum() / (m.sum() + 1e-9)
+    return (err * m).sum() / ((m.sum() if count is None else count) + 1e-9)

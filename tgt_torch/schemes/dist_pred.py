@@ -109,7 +109,8 @@ class DistPredScheme(TGTScheme):
         logits = model(feed, deterministic=False, seed=derive_seed(seed, 1))
         loss = discrete_dist_loss(logits, dist_targ, edge_mask,
                                   self.cfg.num_dist_bins,
-                                  self.cfg.range_dist_bins)
+                                  self.cfg.range_dist_bins,
+                                  count=batch.get("pair_count"))
         return loss, {}
 
     # -- evaluation ------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Training harness on one device (counterpart of
-tgt_tpu/training/harness.py).
+"""Training harness: one process per device, one or many ranks
+(counterpart of tgt_tpu/training/harness.py).
 
 Ported: ``make_optimizer`` (adam with L2 weight decay folded into the
 gradients, adamw, sgd; value and norm clipping), ``resolve_grad_accum``,
@@ -10,16 +10,30 @@ accumulation weighted by ``sample_mask``, the plateau ``lr_scale``, the
 NaN-step guard), ``train_epoch`` (delayed metric drain, NaN streak, step
 budget), ``eval_epoch`` and ``fit`` (validation, best-model monitor,
 plateau stop, NaN rollback to the last checkpoint, checkpoints in
-tgt_tpu's format, history.yaml). The data mesh is ROADMAP.md item 1m; the
-XLA compile cache and ``precompile`` have no counterpart in an eager port.
+tgt_tpu's format, history.yaml). The XLA compile cache and ``precompile``
+have no counterpart in an eager port.
 
 Where tgt_tpu jits one pure step, the port runs eagerly and updates the
 parameters and the optimizer moments in place. The guard is still decided
 on the device: a non-finite loss selects the old values with
 ``torch.where``, so the step never waits for the host. Every random draw
 of a step or an eval batch comes from a seed that is a pure function of
-(``random_seed``, step or batch index), so a resumed run repeats an
+(``random_seed``, step or batch index, rank), so a resumed run repeats an
 uninterrupted one.
+
+Data parallelism (tgt_tpu's data axis): each rank trains on its own rows,
+and a step equals one process's step on the global batch, the ranks'
+batches concatenated, as tgt_tpu's GSPMD step does. Before each
+micro-batch's forward the counts that the loss's masked means divide by
+(valid pairs, real samples) are summed over the ranks, so each rank's loss
+is its share of the global mean; one sum all-reduce per step of one flat
+f32 buffer (gradients, loss, aux) then gives the global gradient exactly.
+``torch.autograd.grad`` does not drive ``DistributedDataParallel``'s
+hooks, hence no DDP wrapper. With accumulation, micro-batch m is the union
+of every rank's m-th chunk (tgt_tpu cuts the global rows into contiguous
+chunks instead; ROADMAP.md section 3). The weights after ``load_or_init``
+are rank 0's, evaluation gathers every rank's predictions before a metric
+is computed, and rank 0 alone writes.
 """
 from __future__ import annotations
 
@@ -30,12 +44,14 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import yaml
 
 from tgt_torch.core.device import resolve_device
 from tgt_torch.models.convert import (jax_params_from_state_dict,
                                       opt_state_from_jax, opt_state_to_jax,
                                       state_dict_from_jax_params)
+from tgt_torch.parallel.mesh import gather_predictions
 from tgt_torch.training.checkpoint import (CheckpointManager, flatten_tree,
                                            load_pretrained)
 from tgt_torch.training.progress import progbar
@@ -245,13 +261,33 @@ def resolve_grad_accum(cfg, world_size: int) -> int:
 
 
 class Trainer:
-    """Epoch and step loop around a scheme's task functions, on one device:
-    the card unless the caller passes ``device="cpu"``."""
+    """Epoch and step loop around a scheme's task functions, on one device
+    (the card unless the caller passes ``device="cpu"``) of rank ``rank``
+    of ``world_size``. A world size above 1 needs the process group
+    (``tgt_torch.parallel.initialize_distributed``); whenever a group
+    exists, of any size, the step's collectives run through it."""
 
-    def __init__(self, scheme, device=None):
-        self.device = resolve_device(device)
+    def __init__(self, scheme, rank: int = 0, world_size: int = 1,
+                 device=None):
         self.scheme = scheme
         self.cfg = scheme.cfg
+        if int(self.cfg.num_pair_devices or 1) > 1:
+            raise NotImplementedError(
+                f"num_pair_devices={self.cfg.num_pair_devices}: the pair "
+                "axis is not ported yet (ROADMAP.md, module item 5, the "
+                "pair axis)")
+        self.group = dist.is_initialized()
+        group = ((dist.get_rank(), dist.get_world_size()) if self.group
+                 else (0, 1))
+        if (rank, world_size) != group:
+            raise ValueError(
+                f"rank {rank} of {world_size} is not this process's (rank, "
+                f"world size) {group}: a world size above 1 needs the "
+                "process group (tgt_torch.parallel.initialize_distributed)")
+        self.rank = rank
+        self.world_size = world_size
+        self.is_main = rank == 0
+        self.device = resolve_device(device)
         self.model_path = self.cfg.save_path
         self.log_path = os.path.join(self.model_path, "logs")
         self.ckpt = CheckpointManager(
@@ -271,7 +307,11 @@ class Trainer:
         self.recovery_tries = 0
         self.monitor_best = float("inf")
         self.monitor_best_epoch = -1
-        self.grad_accum = resolve_grad_accum(self.cfg, 1)
+        self.grad_accum = resolve_grad_accum(self.cfg, world_size)
+
+    def log(self, msg: str) -> None:
+        if self.is_main:
+            print(msg, flush=True)
 
     # -- state and batches ------------------------------------------------
     def init_state(self, seed: Optional[int] = None) -> Dict[str, Any]:
@@ -315,17 +355,34 @@ class Trainer:
             if self.plateau is not None and "plateau" in counters:
                 self.plateau.load_state_dict(counters["plateau"])
                 self.scheme.lr_scale = self.plateau.scale
-            print(f"Resumed from checkpoint @ epoch {self.epoch}, "
-                  f"step {self.global_step}", flush=True)
+            self.log(f"Resumed from checkpoint @ epoch {self.epoch}, "
+                     f"step {self.global_step}")
         elif self.cfg.pretrained_weights_file:
             params, missing, unexpected = load_pretrained(
                 self.params_tree(model), self.cfg.pretrained_weights_file)
             self.load_params_tree(model, params)
-            print(f"Loaded pretrained weights from "
-                  f"{self.cfg.pretrained_weights_file}", flush=True)
-            print(f"missing keys: {missing[:8]}", flush=True)
-            print(f"unexpected keys: {unexpected[:8]}", flush=True)
+            self.log(f"Loaded pretrained weights from "
+                     f"{self.cfg.pretrained_weights_file}")
+            self.log(f"missing keys: {missing[:8]}")
+            self.log(f"unexpected keys: {unexpected[:8]}")
+        if self.group:
+            self.broadcast_weights(model)
         return state
+
+    def broadcast_weights(self, model) -> None:
+        """Rank 0's parameters and buffers on every rank, as
+        ``DistributedDataParallel`` does at construction: one broadcast of
+        one flat buffer per dtype."""
+        by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+        for t in list(model.parameters()) + list(model.buffers()):
+            by_dtype.setdefault(t.dtype, []).append(t)
+        with torch.no_grad():
+            for tensors in by_dtype.values():
+                flat = torch.cat([t.reshape(-1) for t in tensors])
+                dist.broadcast(flat, src=0)
+                for t, v in zip(tensors, flat.split(
+                        [t.numel() for t in tensors])):
+                    t.copy_(v.view_as(t))
 
     def pad_device_batch(self, device_batch: Dict[str, np.ndarray]
                          ) -> Dict[str, np.ndarray]:
@@ -357,12 +414,36 @@ class Trainer:
                 for k, v in device_batch.items()}
 
     # -- the step -----------------------------------------------------------
+    def global_counts(self, batch: Tensors) -> Tensors:
+        """The scheme's ``loss_counts`` of this micro-batch summed over the
+        ranks: the denominators of the global batch's masked means."""
+        counts = self.scheme.loss_counts(batch)
+        summed = torch.stack([c.float() for c in counts.values()])
+        dist.all_reduce(summed)
+        return dict(zip(counts, summed))
+
+    def sum_over_ranks(self, flat: torch.Tensor, loss: torch.Tensor,
+                       aux: Tensors):
+        """One sum all-reduce of one flat f32 buffer: the gradient, the
+        loss and the aux values."""
+        keys = list(aux)
+        buf = torch.cat([flat, loss.detach().float().reshape(1)]
+                        + [aux[k].detach().float().reshape(1) for k in keys])
+        dist.all_reduce(buf)
+        n = flat.numel()
+        return buf[:n], buf[n], {k: buf[n + 1 + i] for i, k in enumerate(keys)}
+
     def accumulated_grad(self, model, batch: Tensors, seed: int):
         """(loss, aux, grads): the batch splits into ``grad_accum``
         micro-batches run in turn, each under its own seed; their losses
         and gradients average weighted by their real samples
-        (``sample_mask``), and an all-padding micro-batch weighs 0."""
+        (``sample_mask``), and an all-padding micro-batch weighs 0. Under a
+        process group each micro-batch's loss divides by the counts of
+        every rank's micro-batch, its weight is their real samples, and the
+        ranks' sums are added up: the result is the global batch's on
+        every rank."""
         params = [p for p in model.parameters()]
+        sizes = [p.numel() for p in params]
 
         def grad_of(mb, s):
             loss, aux = self.scheme.loss_fn(model, mb, s)
@@ -370,9 +451,25 @@ class Trainer:
             return loss, aux, [torch.zeros_like(p) if g is None else g
                                for g, p in zip(grads, params)]
 
+        def flat_of(grads):
+            return torch.cat([g.reshape(-1).float() for g in grads])
+
+        def unflat(flat):
+            return [g.view_as(p) for g, p in zip(flat.split(sizes), params)]
+
         accum = self.grad_accum
         if accum <= 1:
-            return grad_of(batch, seed)
+            if not self.group:
+                return grad_of(batch, seed)
+            counts = self.global_counts(batch)
+            loss, aux, grads = grad_of({**batch, **counts}, seed)
+            # a rank whose rows are all padding adds nothing
+            mine = batch["sample_mask"].float().sum() > 0
+            flat, loss, aux = self.sum_over_ranks(
+                torch.where(mine, flat_of(grads), 0.0),
+                torch.where(mine, loss.float(), 0.0),
+                {k: torch.where(mine, x.float(), 0.0) for k, x in aux.items()})
+            return loss, aux, unflat(flat)
         batch_size = batch["node_features"].shape[0]
         if batch_size % accum != 0:
             raise ValueError(
@@ -392,23 +489,30 @@ class Trainer:
         for m in range(accum):
             mb = {k: v[m * micro:(m + 1) * micro] if k in splittable else v
                   for k, v in batch.items()}
+            mine = mb["sample_mask"].float().sum()
+            w = mine
+            if self.group:
+                counts = self.global_counts(mb)
+                mb = {**mb, **counts}
+                w = counts["sample_count"]
             loss, aux, grads = grad_of(mb, derive_seed(seed, m))
-            w = mb["sample_mask"].float().sum()
-            ok = w > 0          # an all-padding micro-batch: drop its terms
+            # an all-padding micro-batch (on every rank): drop its terms;
+            # a rank whose part of it is all padding adds nothing
+            ok, keep = w > 0, mine > 0
             wz = torch.where(ok, w, 0.0)
-            flat = torch.cat([g.reshape(-1).float() for g in grads])
-            flat = wz * torch.where(ok, flat, 0.0)
+            flat = wz * torch.where(keep, flat_of(grads), 0.0)
             grad_sum = flat if grad_sum is None else grad_sum + flat
-            loss_sum = loss_sum + wz * torch.where(ok, loss.float(), 0.0)
+            loss_sum = loss_sum + wz * torch.where(keep, loss.float(), 0.0)
             for k, x in aux.items():
                 aux_sum[k] = aux_sum.get(k, 0.0) + wz * torch.where(
-                    ok, x.float(), 0.0)
+                    keep, x.float(), 0.0)
             w_sum = w_sum + wz
+        if self.group:
+            grad_sum, loss_sum, aux_sum = self.sum_over_ranks(
+                grad_sum, loss_sum, aux_sum)
         inv = 1.0 / torch.clamp(w_sum, min=1.0)
-        grads = [g.view_as(p) for g, p in zip(
-            (grad_sum * inv).split([p.numel() for p in params]), params)]
         return (loss_sum * inv, {k: v * inv for k, v in aux_sum.items()},
-                grads)
+                unflat(grad_sum * inv))
 
     def train_step(self, state: Dict[str, Any], batch: Tensors, step: int,
                    seed: int, lr_scale: float = 1.0):
@@ -472,13 +576,15 @@ class Trainer:
 
         stop_reason = None
         seed0 = getattr(self.cfg, "random_seed", 0) or 0
-        for batch in progbar(loader, desc=f"epoch {self.epoch + 1}"):
+        for batch in self.progress(loader, f"epoch {self.epoch + 1}"):
             n = self.scheme.batch_num_samples(batch)
             device_batch = self.to_device(
                 self.pad_device_batch(self.scheme.device_batch(batch)))
+            # each rank draws its own masks for its own rows
             state, metrics = self.train_step(
                 state, device_batch, self.global_step,
-                derive_seed(seed0, self.global_step), self.scheme.lr_scale)
+                derive_seed(seed0, self.global_step * self.world_size
+                            + self.rank), self.scheme.lr_scale)
             pending.append((metrics, n))
             stop_reason = drain()
             if stop_reason:
@@ -498,7 +604,7 @@ class Trainer:
         ``derive_seed(seed + 1000, i)`` (tgt_tpu: ``fold_in(seed + 1000,
         i)``), padded rows stripped; outputs concatenated per key."""
         collected: Dict[str, list] = {}
-        for i, batch in enumerate(progbar(loader, desc="eval")):
+        for i, batch in enumerate(self.progress(loader, "eval")):
             device_batch = self.to_device(
                 self.scheme.device_batch(batch, training=False))
             out = self.scheme.eval_fn(model, device_batch,
@@ -515,31 +621,38 @@ class Trainer:
         return {k: np.concatenate(v, axis=0) if np.ndim(v[0]) > 0
                 else np.asarray(v) for k, v in collected.items()}
 
+    def progress(self, loader, desc: str):
+        """The loader, with a progress bar on rank 0."""
+        return progbar(loader, desc=desc) if self.is_main else loader
+
     # -- the whole run ----------------------------------------------------------
     def fit(self, num_epochs: Optional[int] = None) -> Dict[str, Any]:
+        """Train to ``num_epochs``; every rank returns the same history."""
         cfg = self.cfg
         num_epochs = num_epochs or cfg.num_epochs
         state = self.load_or_init()
-        os.makedirs(self.log_path, exist_ok=True)
-        self._quarantine_corrupted_history()
-        self.save_config()
-        model_summary(self.params_tree(state["model"]),
-                      os.path.join(self.model_path, "model_summary.txt"))
+        if self.is_main:
+            os.makedirs(self.log_path, exist_ok=True)
+            self._quarantine_corrupted_history()
+            self.save_config()
+            model_summary(self.params_tree(state["model"]),
+                          os.path.join(self.model_path, "model_summary.txt"))
 
         history = []
         while self.epoch < num_epochs:
             t0 = time.time()
             # finetune picks its bins sample by the epoch, a resumed one too
             self.scheme.current_epoch = self.epoch
-            loader = self.scheme.train_loader(self.epoch, 0, 1)
+            loader = self.scheme.train_loader(self.epoch, self.rank,
+                                              self.world_size)
             state, train_logs, stop_reason = self.train_epoch(state, loader)
             if stop_reason == "nan":
                 if self.recovery_tries >= cfg.max_recovery_tries:
                     raise RuntimeError(
                         "NaN loss persisted past max_recovery_tries")
                 self.recovery_tries += 1
-                print(f"NaN epoch — rolling back to checkpoint "
-                      f"(try {self.recovery_tries})", flush=True)
+                self.log(f"NaN epoch — rolling back to checkpoint "
+                         f"(try {self.recovery_tries})")
                 tries = self.recovery_tries
                 state = self.load_or_init()
                 self.recovery_tries = max(self.recovery_tries, tries)
@@ -553,9 +666,13 @@ class Trainer:
             if (self.epoch + 1) % cfg.validation_frequency == 0 and \
                     eval_condition(cfg.validation_condition, logs):
                 t0 = time.time()
-                preds = self.eval_epoch(state["model"],
-                                        self.scheme.val_loader(0, 1),
-                                        seed=self.epoch)
+                preds = self.eval_epoch(
+                    state["model"],
+                    self.scheme.val_loader(self.rank, self.world_size),
+                    seed=self.epoch)
+                # the monitor and the plateau act on the whole split's
+                # metric, the same on every rank
+                preds = gather_predictions(preds, self.world_size)
                 val_metrics = self.scheme.evaluate_predictions(preds)
                 logs.update({f"val_{k}": float(v)
                              for k, v in val_metrics.items()})
@@ -567,7 +684,7 @@ class Trainer:
                     self.scheme.lr_scale = self.plateau.scale
                     logs["lr_scale"] = self.plateau.scale
                     if should_stop:
-                        print("STOP: lr fell below stopping_lr", flush=True)
+                        self.log("STOP: lr fell below stopping_lr")
                         self.epoch += 1
                         self.checkpoint(state)
                         history.append(logs)
@@ -580,7 +697,9 @@ class Trainer:
             self.append_history(logs)
             msg = ", ".join(f"{k}={v:.5g}" if isinstance(v, float) else
                             f"{k}={v}" for k, v in logs.items())
-            print(f"[epoch {self.epoch}] {msg}", flush=True)
+            self.log(f"[epoch {self.epoch}] {msg}")
+        if self.group:
+            dist.barrier()      # rank 0's checkpoint is written
         return {"state": state, "history": history}
 
     # -- artifacts --------------------------------------------------------------
@@ -589,17 +708,20 @@ class Trainer:
         if monitor in logs:
             v = logs[monitor]
             if v < self.monitor_best:
-                print(f"MONITOR BEST: {monitor} improved "
-                      f"{self.monitor_best:0.5f} -> {v:0.5f}", flush=True)
+                self.log(f"MONITOR BEST: {monitor} improved "
+                         f"{self.monitor_best:0.5f} -> {v:0.5f}")
                 self.monitor_best = v
                 self.monitor_best_epoch = logs["epoch"]
                 # conditional best-model saving (reference
                 # training_mixins.py:60-103)
-                if eval_condition(self.cfg.save_model_condition, logs):
+                if self.is_main and eval_condition(
+                        self.cfg.save_model_condition, logs):
                     self.ckpt.save_best(self.params_tree(state["model"]))
             logs[f"best_{monitor}"] = self.monitor_best
 
     def checkpoint(self, state: Dict) -> None:
+        if not self.is_main:
+            return
         if self.cfg.trial_run:
             return  # trial runs skip checkpoint io (training.py:292-293)
         counters = {"epoch": self.epoch, "global_step": self.global_step,
@@ -632,6 +754,8 @@ class Trainer:
         print(f"WARNING: corrupted history file moved to {corrupted}")
 
     def append_history(self, logs: Dict) -> None:
+        if not self.is_main:
+            return
         path = os.path.join(self.log_path, "history.yaml")
         with open(path, "a") as f:
             yaml.safe_dump([{k: (float(v) if isinstance(v, (int, float,
