@@ -252,9 +252,33 @@ Phases, each of which fails the run (non-zero exit) on error:
    rank (CUDA events) with the all-reduce's share, each rank's peak
    memory, the gradient's and the fault's max|diff|, and the NCCL version.
    Gloo on one card says nothing of NCCL across cards.
+7q. The pair axis on the card, in phase 7's directory, on its parquet:
+   (a) the two ranks of one pair group (D=1, P=2), each a subprocess of
+   this script (``--pair-worker``) in a gloo group on cuda:0, through the
+   ``gloo-host`` transport (every pair collective staged through pinned
+   host memory), run ``execute("train")`` of the published TGT-At yaml
+   with ``num_pair_devices: 2`` and ``use_pallas: false`` (tgt_tpu refuses
+   Pallas under a pair mesh), global batch 32, one epoch on the 64
+   molecules of the ``valid`` split (2 steps), then ``execute("evaluate")``
+   (1 draw), and 3 timed steps on one global batch of 32 molecules (16 of
+   4-16 atoms, 16 of 40-48). Checks: 0 launches of every kernel counter
+   and 0 plain-core calls, every step applied with finite losses, equal
+   losses, histories and evaluate metrics on both ranks, rank 0 alone
+   wrote, each rank's ``e`` in every pair-sharded layer application is
+   (b, N/2, N, 256). (b) The f32 gradient (every dropout 0, deterministic
+   algorithms) of 16 molecules of 40-48 atoms through the pair path within
+   1e-4 of max|ref| of one process's on the plain path, for TGT-At and for
+   TGT-Agx2 at 4 layers (full width); a planted fault, the ring placing
+   block t at ``my`` instead of ``(my - t) mod P``, must fail it. (c) A
+   one-rank NCCL group through the same pair path (transport ``nccl``):
+   the gradient bitwise equal to the one with no group. Prints ms per step
+   on each rank and one process's on the same batch, the pair collectives'
+   calls, bytes and ms per step (CUDA events around each), each rank's
+   peak memory against one process's, and the transport's name.
 8. The kernels line (six kernels, launches by path, with the dense pair's
    ``prep`` path (phase 7p), its ``ddp`` path (phase 7d, both ranks' train
-   and evaluate), its stage-2 paths ``pretrain``, ``finetune``,
+   and evaluate), every kernel's ``pair`` path (phase 7q: 0, the pair path
+   runs none), its stage-2 paths ``pretrain``, ``finetune``,
    ``gap_pred`` and ``two_stage``, its ``remat_<policy>`` training and the IndivConfig
    forward, and the aggregate pair's ``cli`` and stage-2 paths; the
    aggregate pair's rows at bucket 56 and stage 2's shapes; the dense
@@ -3519,6 +3543,456 @@ def ddp_phase(card, spec: ModelSpec, root: str):
                    for c in ("train", "evaluate")) for k in ("fwd", "bwd")}
 
 
+# -- phase 7q: the pair axis, two ranks on the card ------------------------------
+
+PAIR_WORLD = 2
+PAIR_TIMEOUT_S = 600    # a rank's bound on its collectives; the parent's on a rank
+PAIR_GRAD_TOL = 1e-4    # of max|ref| over the flat f32 gradient
+PAIR_AGX2_HEIGHT = 4    # TGT-Agx2's depth in the aggregate ring's check
+PAIR_STEPS = 3          # timed steps on one global batch
+
+
+def pair_config(spec: ModelSpec, root: str, **extra) -> dict:
+    """Phase 7's published config on its parquet with the edge channel
+    split over two pair ranks (``num_pair_devices: 2``) and the plain
+    triplet path (``use_pallas: false``: tgt_tpu refuses its Pallas kernels
+    under a pair mesh); global batch 32, one micro-batch a step on both
+    ranks; one epoch on the 64 molecules of the ``valid`` split (2 steps:
+    every pair collective goes through host memory), validation on
+    valid-3d; 1 draw per evaluation."""
+    return load_config(spec, **dict(dict(
+        dataset_path=os.path.join(root, "data"), global_batch_size=32,
+        num_epochs=1, num_pair_devices=2, use_pallas=False,
+        train_split="valid", evaluation_samples=1,
+        save_path_prefix=os.path.join(root, "pair")), **extra))
+
+
+def pair_scheme(spec: ModelSpec, root: str, f32: bool, pair: bool = True,
+                **extra):
+    """The training scheme of ``pair_config``, on the pair axis or in one
+    process; ``f32``: every dropout and noise at 0, 16 molecules a step."""
+    from tgt_torch.schemes import get_scheme
+
+    if f32:
+        extra = dict(dict(mixed_precision=False, source_dropout=0.0,
+                          node_act_dropout=0.0, edge_act_dropout=0.0,
+                          drop_path=0.0, batch_size=16,
+                          global_batch_size=16), **extra)
+    raw = pair_config(spec, root, num_pair_devices=2 if pair else 1, **extra)
+    return get_scheme(raw["scheme"])(raw, command="train")
+
+
+@contextlib.contextmanager
+def recorded_pair():
+    """The pair axis of every Trainer made inside, its calls, bytes and
+    CUDA event pairs (``pair_timing``) per training step, and the shape of
+    ``e`` in every pair-sharded layer application, each checked to be
+    this rank's half of the rows: (b, N/2, N, edge width)."""
+    import tgt_torch.parallel.pair_layer as pl
+    import tgt_torch.training.harness as harness
+    from tgt_torch.training import Trainer
+
+    rec = {"axes": [], "steps": [], "e_shapes": set()}
+    pair_groups, layer = harness.pair_groups, pl.tgt_layer_pair_sharded
+    train_step = Trainer.train_step
+
+    def groups(*args):
+        out = pair_groups(*args)
+        rec["axes"].append(out[2])
+        return out
+
+    def sharded(lay, g, axis, **kwargs):
+        b, i_loc, n, w = g.e.shape
+        if (i_loc * PAIR_WORLD, w) != (n, lay.cfg.edge_width) or \
+                axis.size != PAIR_WORLD:
+            fail(f"phase 7q: a pair rank holds e as {tuple(g.e.shape)}")
+        rec["e_shapes"].add((b, i_loc, n, w))
+        return layer(lay, g, axis, **kwargs)
+
+    def step(self, *args, **kwargs):
+        if self.pair is None:
+            return train_step(self, *args, **kwargs)
+        self.pair.reset_stats()
+        out = train_step(self, *args, **kwargs)
+        rec["steps"].append(dict(self.pair.stats))
+        return out
+
+    harness.pair_groups, pl.tgt_layer_pair_sharded = groups, sharded
+    Trainer.train_step = step
+    try:
+        yield rec
+    finally:
+        harness.pair_groups, pl.tgt_layer_pair_sharded = pair_groups, layer
+        Trainer.train_step = train_step
+
+
+@contextlib.contextmanager
+def pair_timing():
+    """A pair of CUDA events around each pair collective, kept in its
+    axis's ``stats["events"]``."""
+    import tgt_torch.parallel.ring as ring
+
+    collective = ring._collective
+
+    def timed(axis, *args):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        collective(axis, *args)
+        end.record()
+        axis.stats.setdefault("events", []).append((start, end))
+
+    ring._collective = timed
+    try:
+        yield
+    finally:
+        ring._collective = collective
+
+
+def collective_ms(stats) -> float:
+    return sum(a.elapsed_time(b) for a, b in stats.get("events", ()))
+
+
+def timed_steps(trainer, batch) -> dict:
+    """PAIR_STEPS optimizer steps on one device batch: ms per step (CUDA
+    events between the ends of consecutive steps, after the first), the
+    pair collectives' bytes and ms per step, and peak memory."""
+    state = trainer.init_state(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ends, stats = [], []
+    for i in range(PAIR_STEPS):
+        if trainer.pair is not None:
+            trainer.pair.reset_stats()
+        state, m = trainer.train_step(state, batch, i, seed=i)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        ends.append(end)
+        if trainer.pair is not None:
+            stats.append(dict(trainer.pair.stats))
+        if not bool(m["ok"]):
+            fail(f"phase 7q: timed step {i} was not applied")
+    torch.cuda.synchronize()
+    out = {"ms_per_step": [a.elapsed_time(b) for a, b in zip(ends, ends[1:])],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if stats:
+        out.update(collective_calls=[s["calls"] for s in stats],
+                   collective_bytes=[s["bytes"] for s in stats],
+                   collective_ms=[collective_ms(s) for s in stats])
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def misplaced_ring_block():
+    """A planted fault: the ring places the block of step t at ``my``
+    instead of ``(my - t) mod P``."""
+    import tgt_torch.parallel.ring as ring
+
+    saved = ring._block_source
+    ring._block_source = lambda my, t, p: my
+    try:
+        yield
+    finally:
+        ring._block_source = saved
+
+
+def pair_worker(rank: int, port: int, root: str) -> int:
+    """One rank of phase 7q, a subprocess of its own on cuda:0 in a gloo
+    group of two, both ranks one pair group: train and evaluate the
+    published config through ``execute``, time steps on one global batch,
+    and the f32 gradients of TGT-At (with the planted fault) and of
+    TGT-Agx2 at reduced depth; writes what it saw to
+    ``<root>/pair_rank<rank>.json`` (rank 0 also the gradients)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from tgt_torch.cli.execute import execute
+    from tgt_torch.ops.kernels import triplet_aggregate as ta
+    from tgt_torch.ops.kernels import triplet_dense as td
+    from tgt_torch.parallel import initialize_distributed
+    from tgt_torch.parallel.ring import transport
+    from tgt_torch.training import Trainer
+
+    at = ModelSpec("TGT-At", FLAGSHIP_YAML, {}, td.triplet_dense_fwd,
+                   td.triplet_dense_bwd)
+    agx2 = ModelSpec("TGT-Agx2", AGX2_YAML, {}, ta.triplet_aggregate_fwd,
+                     ta.triplet_aggregate_bwd)
+    initialize_distributed(f"localhost:{port}", PAIR_WORLD, rank,
+                           backend="gloo", device="cuda:0",
+                           timeout=datetime.timedelta(seconds=PAIR_TIMEOUT_S))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": rank, "wall_s": {}, "launches": {}}
+    cfg = pair_config(at, root)
+    # rank 1 trains into a model dir of its own, which must stay empty:
+    # rank 0 alone writes
+    train_cfg = cfg if rank == 0 else dict(
+        cfg, save_path_prefix=os.path.join(root, "pair_rank1"))
+    with recorded_trainer() as rec, recorded_pair() as pair, pair_timing():
+        for name, c in (("train", train_cfg), ("evaluate", cfg)):
+            torch.cuda.synchronize()
+            reset_counts()                  # the main path starts
+            t0 = time.time()
+            result = execute(name, c, device="cuda:0")
+            torch.cuda.synchronize()
+            out["wall_s"][name] = time.time() - t0
+            out["launches"][name] = {f"{w.__name__}.{a}": getattr(w, a)
+                                     for w, a in kernel_counters()}
+            out[name] = result["history"] if name == "train" else result
+            del result
+            torch.cuda.empty_cache()
+        out["ok"] = [bool(m["ok"]) for _, m, _ in rec["steps"]]
+        out["losses"] = [float(m["loss"]) for _, m, _ in rec["steps"]]
+        out["plain_core"] = rec["plain_core"]
+        out["train_bytes"] = [s["bytes"] for s in pair["steps"]]
+        out["train_collective_ms"] = [collective_ms(s)
+                                      for s in pair["steps"]]
+        axis = pair["axes"][0]
+        out["transport"] = transport(axis, torch.zeros(1).cuda())
+        out["pair_index"] = axis.index
+
+        # steps on one global batch of 32 (bf16, as published)
+        scheme = pair_scheme(at, root, f32=False)
+        trainer = Trainer(scheme, rank=rank, world_size=PAIR_WORLD,
+                          device="cuda:0")
+        batch, = ddp_grad_batches(scheme, [None])
+        out["timed"] = timed_steps(trainer, batch)
+        out["e_shapes"] = sorted(pair["e_shapes"])
+        del trainer, batch
+
+    # the f32 gradients: TGT-At (and the planted fault), TGT-Agx2
+    grads = {}
+    for name, spec, extra in (("at", at, {}), ("agx2", agx2, dict(
+            model_height=PAIR_AGX2_HEIGHT))):
+        scheme = pair_scheme(spec, root, f32=True, **extra)
+        trainer = Trainer(scheme, rank=rank, world_size=PAIR_WORLD,
+                          device="cuda:0")
+        model = trainer.init_state(0)["model"]
+        batch, = ddp_grad_batches(scheme, [1])     # 16 of 40-48 atoms
+        out[f"grad_loss_{name}"], grads[name] = flat_grad(trainer, model,
+                                                          batch)
+        if name == "at":
+            with misplaced_ring_block():
+                _, grads["fault"] = flat_grad(trainer, model, batch)
+        del trainer, model, batch
+        torch.cuda.empty_cache()
+    if rank == 0:
+        torch.save({k: v.cpu() for k, v in grads.items()},
+                   os.path.join(root, "pair_grad.pt"))
+    dist.destroy_process_group()
+    with open(os.path.join(root, f"pair_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def pair_ranks(root: str) -> list:
+    """Phase 7q's two ranks as subprocesses of this script; fails with
+    their output if either fails or outlives PAIR_TIMEOUT_S."""
+    port = free_port()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--pair-worker", str(r),
+         str(port), root], cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(PAIR_WORLD)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=PAIR_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        fail(f"phase 7q: a rank outlived {PAIR_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"phase 7q: rank {r} exited {p.returncode}:\n"
+                 f"{text[-4000:]}")
+    ranks = []
+    for r in range(PAIR_WORLD):
+        with open(os.path.join(root, f"pair_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def pair_path_grad(scheme, model, batch, axis) -> torch.Tensor:
+    """The flat f32 gradient of ``scheme.loss_fn`` through the pair path
+    on ``axis``, under deterministic algorithms."""
+    from tgt_torch.parallel import pair_scope
+
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with pair_scope(axis):
+            loss, _ = scheme.loss_fn(model, batch, DDP_GRAD_SEED)
+            grads = torch.autograd.grad(loss, list(model.parameters()),
+                                        allow_unused=True)
+        return torch.cat([(torch.zeros_like(p) if g is None else g)
+                          .reshape(-1).float()
+                          for g, p in zip(grads, model.parameters())])
+    finally:
+        torch.use_deterministic_algorithms(before, warn_only=True)
+
+
+def pair_phase(card, spec: ModelSpec, root: str):
+    """Phase 7q: the pair axis on one card, on phase 7's parquet under
+    ``root``. (a) two ranks, each a subprocess on cuda:0 in a gloo group,
+    one pair group (D=1, P=2): each holds half the rows of the edge
+    channel; they train the published config through ``execute`` and
+    evaluate, with no triplet kernel and no plain-core call; histories
+    identical, rank 0 alone writes; steps on one global batch timed
+    against one process's. (b) their f32 gradient of TGT-At, and of
+    TGT-Agx2 at 4 layers, equals one process's, and the misplaced ring
+    block does not. (c) a one-rank NCCL group takes the pair path's
+    gradient bitwise equal to the one with no group."""
+    import torch.distributed as dist
+
+    from tgt_torch.ops.kernels import triplet_aggregate as ta
+    from tgt_torch.parallel import PairAxis, pair_groups
+    from tgt_torch.parallel.ring import transport
+    from tgt_torch.training import Trainer
+
+    t_phase = time.time()
+    agx2 = ModelSpec("TGT-Agx2", AGX2_YAML, {}, ta.triplet_aggregate_fwd,
+                     ta.triplet_aggregate_bwd)
+    cfg = pair_config(spec, root)
+    ranks = pair_ranks(root)
+    r0, r1 = ranks
+    zero = {f"{w.__name__}.{a}": 0 for w, a in kernel_counters()}
+    for r in ranks:
+        if r["launches"] != {"train": zero, "evaluate": zero} or \
+                r["plain_core"]:
+            fail(f"phase 7q rank {r['rank']}: launches {r['launches']}, "
+                 f"{r['plain_core']} plain-core calls")
+        if not r["ok"] or not all(r["ok"]) or not all(
+                math.isfinite(x) for x in r["losses"]):
+            fail(f"phase 7q rank {r['rank']}: steps {r['ok']}, losses "
+                 f"{r['losses']}")
+        if r["transport"] != "gloo-host" or r["pair_index"] != r["rank"]:
+            fail(f"phase 7q rank {r['rank']}: transport {r['transport']}, "
+                 f"pair index {r['pair_index']}")
+        if not r["e_shapes"] or any(shape[3] != cfg["edge_width"]
+                                    for shape in r["e_shapes"]):
+            fail(f"phase 7q rank {r['rank']}: e shapes {r['e_shapes']}")
+    if r0["losses"] != r1["losses"] or not same_history(
+            r0["train"], r1["train"]) or not all(
+            math.isfinite(h["loss"]) and math.isfinite(h["val_loss"])
+            for h in r0["train"]) or not r0["train"]:
+        fail(f"phase 7q: histories {r0['train']} and {r1['train']}, "
+             f"losses {r0['losses']}, {r1['losses']}")
+    if r0["evaluate"] != r1["evaluate"]:
+        fail(f"phase 7q: evaluate metrics differ between the ranks: "
+             f"{r0['evaluate']}, {r1['evaluate']}")
+    model_dir = os.path.join(root, "pair", cfg["model_prefix"],
+                             cfg["model_name"])
+    for name in ("checkpoint/model.npz", "logs/history.yaml",
+                 "predictions/results.yaml"):
+        if not os.path.exists(os.path.join(model_dir, name)):
+            fail(f"phase 7q: rank 0 did not write {name}")
+    rank1_files = [os.path.join(d, f) for d, _, fs in os.walk(
+        os.path.join(root, "pair_rank1")) for f in fs]
+    if rank1_files:
+        fail(f"phase 7q: rank 1 wrote {rank1_files}")
+
+    # one process's steps on the same global batch
+    scheme = pair_scheme(spec, root, f32=False, pair=False)
+    trainer = Trainer(scheme, device="cuda")
+    batch, = ddp_grad_batches(scheme, [None])
+    one = timed_steps(trainer, batch)
+    del trainer, batch
+
+    # (b) the f32 gradients against one process's; (c) NCCL, one rank
+    got = torch.load(os.path.join(root, "pair_grad.pt"))
+    grad = {}
+    nccl = {}
+    for name, s, extra in (("at", spec, {}), ("agx2", agx2, dict(
+            model_height=PAIR_AGX2_HEIGHT))):
+        scheme = pair_scheme(s, root, f32=True, pair=False, **extra)
+        trainer = Trainer(scheme, device="cuda")
+        model = trainer.init_state(0)["model"]
+        batch, = ddp_grad_batches(scheme, [1])
+        loss, ref = flat_grad(trainer, model, batch)
+        scale = float(ref.abs().max())
+        grad[name] = {"loss": loss, "max_abs_ref": scale,
+                      "max_abs_err": float((got[name].cuda() - ref).abs()
+                                           .max())}
+        if name == "at":
+            grad["fault"] = {"max_abs_err": float(
+                (got["fault"].cuda() - ref).abs().max())}
+            local = pair_path_grad(scheme, model, batch, PairAxis())
+            torch.cuda.set_device(0)
+            dist.init_process_group(
+                "nccl", world_size=1, rank=0,
+                init_method=f"tcp://localhost:{free_port()}")
+            try:
+                axis = pair_groups(1, 1)[2]
+                nccl["transport"] = transport(axis, local)
+                through = pair_path_grad(scheme, model, batch, axis)
+                nccl["collectives"] = axis.stats["calls"]
+            finally:
+                dist.destroy_process_group()
+            nccl["bitwise_equal"] = bool(torch.equal(through, local))
+            nccl["max_abs_err_vs_plain_path"] = float(
+                (local - ref).abs().max())
+            del local, through
+        del trainer, model, batch, ref
+        torch.cuda.empty_cache()
+    del got
+    for name in ("at", "agx2"):
+        g = grad[name]
+        if not g["max_abs_err"] <= PAIR_GRAD_TOL * g["max_abs_ref"]:
+            fail(f"phase 7q: the pair ranks' f32 gradient ({name}) "
+                 f"max|diff| {g['max_abs_err']}, max|ref| "
+                 f"{g['max_abs_ref']}")
+    if grad["fault"]["max_abs_err"] <= PAIR_GRAD_TOL * grad["at"][
+            "max_abs_ref"]:
+        fail(f"phase 7q: the gradient check does not see the misplaced "
+             f"ring block: max|diff| {grad['fault']['max_abs_err']}")
+    if nccl["transport"] != "nccl" or not nccl["collectives"] or \
+            not nccl["bitwise_equal"]:
+        fail(f"phase 7q: the one-rank NCCL pair path: {nccl}")
+
+    timed = [r["timed"] for r in ranks]
+    row = {"pair": "two ranks on cuda:0 over gloo, one pair group (D=1, P=2)",
+           "path": spec.name, "model": os.path.relpath(spec.yaml, REPO),
+           "card": card, "transport": r0["transport"],
+           "e_shapes": r0["e_shapes"], "wall_s": [r["wall_s"] for r in ranks],
+           "cli_losses": r0["losses"], "history": r0["train"],
+           "evaluate": r0["evaluate"],
+           "cli_bytes_per_step": [r["train_bytes"] for r in ranks],
+           "cli_collective_ms_per_step": [r["train_collective_ms"]
+                                          for r in ranks],
+           "ms_per_step": [t["ms_per_step"] for t in timed],
+           "collective_bytes_per_step": [t["collective_bytes"]
+                                         for t in timed],
+           "collective_calls_per_step": [t["collective_calls"]
+                                         for t in timed],
+           "collective_ms_per_step": [t["collective_ms"] for t in timed],
+           "peak_mem_gb": [t["peak_mem_gb"] for t in timed],
+           "one_process_ms_per_step": one["ms_per_step"],
+           "one_process_peak_mem_gb": one["peak_mem_gb"],
+           "launches": [r["launches"] for r in ranks],
+           "grad": grad, "grad_tol": PAIR_GRAD_TOL, "nccl": nccl,
+           "phase_s": time.time() - t_phase}
+    emit(row)
+    print(f"pair axis ({spec.name}, 2 ranks on one card, {r0['transport']}) "
+          f"on {card}: e held as {r0['e_shapes']}; ms per step on one "
+          f"global batch of 32 {row['ms_per_step']} against one process's "
+          f"{one['ms_per_step']}; pair collectives per step "
+          f"{row['collective_bytes_per_step']} bytes in "
+          f"{row['collective_ms_per_step']} ms; peak memory GB "
+          f"{row['peak_mem_gb']} against {one['peak_mem_gb']}; f32 gradient "
+          f"max|diff| TGT-At {grad['at']['max_abs_err']} (fault "
+          f"{grad['fault']['max_abs_err']}), TGT-Agx2 "
+          f"{grad['agx2']['max_abs_err']}; NCCL one rank bitwise equal; "
+          f"phase {row['phase_s']:.1f} s", flush=True)
+    return {"fwd": 0, "bwd": 0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3607,6 +4081,7 @@ def main() -> int:
                          root)
         prep = phase("7p TGT-At prepared data", prep_phase, card, at, root)
         ddp = phase("7d TGT-At data parallelism", ddp_phase, card, at, root)
+        pair = phase("7q TGT-At pair axis", pair_phase, card, at, root)
 
     def entry(name, source, replaces, by_path, row, ungated=None,
               ungated_train=None):
@@ -3662,6 +4137,7 @@ def main() -> int:
             {"serving": served[at.name], "training": trained[at.name]["fwd"],
              "serving_dropout": d_serve, "training_dropout": d_train["fwd"],
              "cli": cli["fwd"], "prep": prep["fwd"], "ddp": ddp["fwd"],
+             "pair": pair["fwd"],
              **{k: v["fwd"] for k, v in stage2.items()},
              **{f"remat_{k}": v["fwd"] for k, v in remat.items()},
              "indiv": indiv["triplet_dense_fwd"]},
@@ -3672,7 +4148,7 @@ def main() -> int:
             "triplet_dense_bwd", td.BWD_KERNEL_SOURCE, td.BWD_REPLACES,
             {"training": trained[at.name]["bwd"],
              "training_dropout": d_train["bwd"], "cli": cli["bwd"],
-             "prep": prep["bwd"], "ddp": ddp["bwd"],
+             "prep": prep["bwd"], "ddp": ddp["bwd"], "pair": pair["bwd"],
              **{k: v["bwd"] for k, v in stage2.items()},
              **{f"remat_{k}": v["bwd"] for k, v in remat.items()}},
             dense_bwd[FLAGSHIP], dense_bwd[UNGATED],
@@ -3683,6 +4159,7 @@ def main() -> int:
             "triplet_aggregate_fwd", ta.KERNEL_SOURCE, ta.REPLACES,
             {"serving": served[agx2.name],
              "training": trained[agx2.name]["fwd"], "cli": cli_x["fwd"],
+             "pair": pair["fwd"],
              **{k: v["fwd"] for k, v in stage2_x.items()},
              "indiv": indiv["triplet_aggregate_fwd"]}, agg[16]), agg,
             agg_shapes,
@@ -3697,6 +4174,7 @@ def main() -> int:
         with_device(entry(
             "triplet_aggregate_bwd", ta.BWD_KERNEL_SOURCE, ta.BWD_REPLACES,
             {"training": trained[agx2.name]["bwd"], "cli": cli_x["bwd"],
+             "pair": pair["bwd"],
              **{k: v["bwd"] for k, v in stage2_x.items()}}, agg_bwd[16]),
             agg_bwd, agg_bwd_shapes,
             body_launches=trained[agx2.name]["bwd_body"] + cli_x["bwd_body"]
@@ -3706,10 +4184,10 @@ def main() -> int:
                 for b, row in agg_bwd.items()}),
         entry("triplet_attention_fwd", tl.KERNEL_SOURCE, tl.REPLACES,
               {"serving": served[at_l.name],
-               "training": trained[at_l.name]["fwd"]},
+               "training": trained[at_l.name]["fwd"], "pair": pair["fwd"]},
               legacy[FLAGSHIP], legacy[UNGATED], legacy[UNGATED_TRAIN]),
         entry("triplet_attention_bwd", tl.BWD_KERNEL_SOURCE, tl.BWD_REPLACES,
-              {"training": trained[at_l.name]["bwd"]},
+              {"training": trained[at_l.name]["bwd"], "pair": pair["bwd"]},
               legacy_bwd[FLAGSHIP], legacy_bwd[UNGATED],
               legacy_bwd[UNGATED_TRAIN]),
     ]})
@@ -3722,4 +4200,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-worker"]:       # one rank of phase 7d
         sys.exit(ddp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--pair-worker"]:      # one rank of phase 7q
+        sys.exit(pair_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -16,7 +16,8 @@ over gloo; ``tests/torch_dist_worker.py`` is one rank).
 - a NaN on one rank skips the step on both; a rank drawn from another
   seed ends with rank 0's weights; the ranks' step seeds differ, and at
   world size 1 they are the single-process seeds;
-- ``size_bucketed_batching`` and ``num_pair_devices: 2`` raise;
+- ``size_bucketed_batching`` at world size 2 and ``num_pair_devices: 3``
+  at world size 2 raise;
 - the CLI in two processes (``python -m tgt_torch.cli.run_training`` with
   ``jax_coordinator``, ``jax_num_processes: 2``, ``jax_process_id``):
   identical histories with an ``lr_scale`` the plateau moved, rank 0 alone
@@ -366,17 +367,18 @@ def test_gather_predictions_two_ranks(two_ranks):
                                     "num_pair_devices"])
 def test_options_that_cannot_split_over_ranks_raise(tmp_path, option):
     """Size buckets would give the ranks different numbers of batches (and
-    tgt_tpu's collectives hang there); the pair axis is not ported."""
+    tgt_tpu's collectives hang there); a pair axis of 3 does not divide a
+    world of 2 ranks (tgt_tpu's ``make_mesh`` raises there too)."""
     scheme = get_scheme("pcqm.dist_pred")(dict(
         SMALL, save_path_prefix=str(tmp_path),
         **{option: {"size_bucketed_batching": True,
-                    "num_pair_devices": 2}[option]}))
+                    "num_pair_devices": 3}[option]}))
     if option == "size_bucketed_batching":
         scheme.train_loader(0, 0, 1)         # one process may use them
         with pytest.raises(ValueError, match=option):
             scheme.train_loader(0, 0, 2)
     else:
-        with pytest.raises(NotImplementedError, match=option):
+        with pytest.raises(ValueError, match=option):
             Trainer(scheme, rank=0, world_size=2, device="cpu")
 
 

@@ -313,7 +313,8 @@ class TestImportRule:
                 "tgt_torch.cli.make_predictions, tgt_torch.cli.do_evaluations, "
                 "tgt_torch.data._native, tgt_torch.data.structural, "
                 "tgt_torch.utils.profiling, tgt_torch.models.convert, "
-                "tgt_torch.parallel, tgt_torch.parallel.mesh; "
+                "tgt_torch.parallel, tgt_torch.parallel.mesh, "
+                "tgt_torch.parallel.ring, tgt_torch.parallel.pair_layer; "
                 "assert tgt_torch.data.structural.backend() == 'native'; "
                 "from tgt_torch.models.convert import main\n"
                 "try:\n    main(['--help'])\nexcept SystemExit:\n    pass\n"
@@ -332,7 +333,8 @@ class TestImportRule:
         assert len(files) > 10
         for new in ("data/_native.py", "data/prepare.py",
                     "utils/profiling.py", "models/convert.py",
-                    "parallel/__init__.py", "parallel/mesh.py"):
+                    "parallel/__init__.py", "parallel/mesh.py",
+                    "parallel/ring.py", "parallel/pair_layer.py"):
             assert REPO / "tgt_torch" / new in files
         for path in files:
             for node in ast.walk(ast.parse(path.read_text())):

@@ -28,6 +28,12 @@ tgt_torch.cli.run_training <yaml> [--device cpu]``). Each rank evaluates
 and predicts its shard of a split; metrics come from the gathered
 predictions, and rank 0 alone writes the config, the trim and
 results.yaml.
+
+With ``num_pair_devices: P`` the world of ``D x P`` processes is the
+Trainer's (data, pair) grid: the P ranks of a data index run every
+forward together on their own i-rows, the shards of a split are the data
+indices' (``{split}_{data index:03d}``), and pair index 0 of each writes
+them.
 """
 from __future__ import annotations
 
@@ -129,19 +135,23 @@ def execute_train(scheme, trainer, config) -> Dict:
 def execute_predict(scheme, trainer) -> Dict:
     model = _load_eval_model(scheme, trainer)
     pred_path = os.path.join(trainer.model_path, "predictions")
+    writes = trainer.pair_index == 0
     if scheme.NAME == "dist_pred":
-        scheme.predict_and_save(model, rank=trainer.rank,
-                                world_size=trainer.world_size,
-                                base_path=pred_path, device=trainer.device)
+        scheme.predict_and_save(model, rank=trainer.data_index,
+                                world_size=trainer.num_data,
+                                base_path=pred_path, device=trainer.device,
+                                write=writes, axis_of=trainer.batch_axis)
         return {}
     os.makedirs(pred_path, exist_ok=True)
     results = {}
     for split in scheme.cfg.predict_on:
         preds = trainer.eval_epoch(model, scheme.test_loader(
-            split, trainer.rank, trainer.world_size))
-        out_file = os.path.join(pred_path, f"{split}_{trainer.rank:03d}.npz")
-        np.savez(out_file, **preds)
-        print(f"saved {split} predictions to {out_file}")
+            split, trainer.data_index, trainer.num_data))
+        if writes:
+            out_file = os.path.join(pred_path,
+                                    f"{split}_{trainer.data_index:03d}.npz")
+            np.savez(out_file, **preds)
+            print(f"saved {split} predictions to {out_file}")
         results[split] = preds
     if scheme.NAME in ("finetune", "gap_pred"):
         # the per-rank files above stay shards; the metrics cover the
@@ -153,14 +163,13 @@ def execute_predict(scheme, trainer) -> Dict:
 def execute_evaluate(scheme, trainer) -> Dict:
     model = _load_eval_model(scheme, trainer)
     results = {split: trainer.eval_epoch(model, scheme.test_loader(
-        split, trainer.rank, trainer.world_size))
+        split, trainer.data_index, trainer.num_data))
         for split in scheme.cfg.predict_on}
     return _write_results(scheme, trainer, _gathered(trainer, results))
 
 
 def _gathered(trainer, preds_by_split) -> Dict:
-    from tgt_torch.parallel import gather_predictions
-    return {split: gather_predictions(preds, trainer.world_size)
+    return {split: trainer.gather(preds)
             for split, preds in preds_by_split.items()}
 
 

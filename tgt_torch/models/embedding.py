@@ -13,10 +13,15 @@ Semantics of the reference EmbedInput (lib/models/pcqm/layers.py:11-83):
 Batch keys: node_features (b, N, 9), distance_matrix (b, N, N),
 feature_matrix (b, N, N, 3), node_mask (b, N), edge_mask (b, N, N), and
 dist_input (b, N, N) when embed_3d_type is not 'none'.
+
+On the pair axis (``rows``: this rank's i-rows) the edge state and the mask
+are built for those rows only: the pair tensors (``PAIR_TENSOR_KEYS``) are
+cut to them, and the atom-pair type ids pair row node i with every column
+node j; the node state stays whole.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -26,6 +31,7 @@ from tgt_torch.models import consts as C
 from tgt_torch.models.model_config import TGTConfig
 from tgt_torch.ops.common import embedding
 from tgt_torch.ops.embed3d import Fourier3DEmbed, Gaussian3DEmbed
+from tgt_torch.parallel.mesh import PAIR_TENSOR_KEYS
 
 
 class EmbedInput(nn.Module):
@@ -50,9 +56,13 @@ class EmbedInput(nn.Module):
         elif cfg.embed_3d_type != "none":
             raise ValueError(f"invalid embed_3d_type: {cfg.embed_3d_type}")
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Graph:
+    def forward(self, batch: Dict[str, torch.Tensor],
+                rows: Optional[slice] = None) -> Graph:
         cfg = self.cfg
         dtype = getattr(torch, cfg.compute_dtype)
+        if rows is not None:
+            batch = {k: v[:, rows] if k in PAIR_TENSOR_KEYS else v
+                     for k, v in batch.items()}
 
         nodef = batch["node_features"].long()                    # (b, N, 9)
         h = embedding(self.nodef_embed, nodef).sum(dim=2)        # (b, N, W_h)
@@ -66,8 +76,11 @@ class EmbedInput(nn.Module):
             b, n = nodef.shape[:2]
             nodes_i = nodef[:, :, 0]
             nodes_j = nodes_i + C.NODE_FEATURES_OFFSET
-            nodes_ij = torch.stack([nodes_i[:, :, None].expand(b, n, n),
-                                    nodes_j[:, None, :].expand(b, n, n)],
+            if rows is not None:            # the rows' nodes, every column
+                nodes_i = nodes_i[:, rows]
+            n_i = nodes_i.shape[1]
+            nodes_ij = torch.stack([nodes_i[:, :, None].expand(b, n_i, n),
+                                    nodes_j[:, None, :].expand(b, n_i, n)],
                                    dim=-1)                       # (b, N, N, 2)
             e = e + self.m3d_embed(batch["dist_input"].to(dtype), nodes_ij)
         elif cfg.embed_3d_type == "fourier":

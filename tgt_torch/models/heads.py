@@ -9,6 +9,11 @@ As the reference task heads
   the last layer has no edge branch and no triplet sub-layer;
 - multi: an encoder ended on both channels with both heads; returns
   (gap, dist_logits).
+
+Inside a ``pair_scope`` (``tgt_torch.parallel``) the models run on the
+pair axis: the embedding builds this rank's edge rows, the encoder is
+``encoder_pair_sharded``, the distance head returns the rows' logits (b,
+N/P, N, bins) and the gap head pools the whole node state.
 """
 from __future__ import annotations
 
@@ -23,6 +28,8 @@ from tgt_torch.models.embedding import EmbedInput
 from tgt_torch.models.encoder import TGTEncoder
 from tgt_torch.models.model_config import TGTConfig
 from tgt_torch.ops.common import init_module_, layernorm, linear
+from tgt_torch.parallel.mesh import current_pair_axis
+from tgt_torch.parallel.pair_layer import encoder_pair_sharded
 
 
 def _pool_nodes(h: torch.Tensor, node_mask: torch.Tensor) -> torch.Tensor:
@@ -47,8 +54,13 @@ class _TaskModel(nn.Module):
 
     def _encode(self, batch: Dict[str, torch.Tensor], deterministic: bool,
                 seed: Optional[int]):
-        g = self.input_embed(batch)
-        return self.encoder(g, deterministic=deterministic, seed=seed)
+        axis = current_pair_axis()
+        if axis is None:
+            g = self.input_embed(batch)
+            return self.encoder(g, deterministic=deterministic, seed=seed)
+        g = self.input_embed(batch, axis.rows(batch["node_mask"].shape[1]))
+        return encoder_pair_sharded(self.encoder, g, axis,
+                                    deterministic=deterministic, seed=seed)
 
     def _gap(self, g) -> torch.Tensor:
         h = layernorm(self.final_ln_node, g.h)

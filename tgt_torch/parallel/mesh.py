@@ -1,27 +1,38 @@
-"""Data parallelism across processes (counterpart of
-tgt_tpu/parallel/mesh.py, its data axis).
+"""The (data, pair) rank grid (counterpart of tgt_tpu/parallel/mesh.py).
 
-tgt_tpu runs one program over a named (data, pair) mesh: each process puts
-its rows into one global batch array, and GSPMD inserts the gradient
-all-reduce because the loss is a mean over that global batch. The port
-runs N processes with one device each, and each rank simply holds its own
-rows. So GSPMD's placement functions (``make_mesh``, ``batch_sharding``,
-``shard_batch``, ``spec_for_array``, ``make_global_batch``,
-``replicated``) have no counterpart here. What they achieve, a step equal
-to one process's step on the concatenated batch, is the Trainer's: the
-masked means of the losses divide by counts summed over the ranks, and one
-sum all-reduce per step adds up the ranks' gradients
-(``tgt_torch/training/harness.py``).
+tgt_tpu runs one program over a named (data, pair) mesh of devices, row
+major (``devices.reshape(num_data, num_pair)``): each process puts its rows
+into one global batch array, GSPMD inserts the gradient all-reduce because
+the loss is a mean over that global batch, and with ``num_pair_devices =
+P > 1`` the node-pair tensors also shard their first node axis over
+``pair``. The port runs ``D x P`` processes with one device each, and rank
+``r`` sits at data index ``r // P`` and pair index ``r % P``, the same
+row-major grid.
 
-The pair axis (``tgt_tpu/parallel/ring.py``, ``pair_layer.py``, the
-Trainer's ``num_pair_devices``) is not ported yet (ROADMAP.md, module
-item 5, the pair axis).
+- The data axis: each data index holds its own rows, and the Trainer makes
+  the step equal one process's step on the global batch (the masked means
+  divide by counts summed over the ranks; one sum all-reduce per step adds
+  up the ranks' gradients; ``tgt_torch/training/harness.py``).
+- The pair axis: the ``P`` ranks of a data index load the same samples;
+  each holds the i-rows ``[p N/P, (p+1) N/P)`` of the edge channel and the
+  whole node channel. ``pair_groups`` makes one process group per pair
+  group and returns this rank's ``PairAxis``; ``tgt_torch/parallel/ring.py``
+  holds its collectives and the triplet ring, ``pair_layer.py`` the layer.
+  As ``spec_for_array`` decides, a batch shards only when ``N % P == 0``;
+  any other bucket runs on whole rows, unsharded, on every rank of the
+  pair group, and only pair index 0 counts it (the Trainer), which gives
+  the unsharded result, as tgt_tpu's replicated placement does.
+
+GSPMD's placement functions (``make_mesh``, ``batch_sharding``,
+``shard_batch``, ``make_global_batch``, ``replicated``) have no counterpart:
+each rank simply holds its own rows.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -29,6 +40,97 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 PAIR_AXIS = "pair"
+
+# Batch keys that hold (b, N, N, ...) node-pair tensors, the only ones that
+# shard over 'pair' (tgt_tpu/parallel/mesh.py:46-49): by name, never by a
+# square shape. finetune/gap_pred's 'dist_bins' is (b, S, N, N), its dim 1
+# the MC sample axis, so it is not one of them.
+PAIR_TENSOR_KEYS = frozenset({
+    "distance_matrix", "feature_matrix", "dist_input", "edge_mask",
+})
+
+
+class PairAxis:
+    """This rank's place on the pair axis: ``size`` ranks (``P``) that hold
+    the i-row blocks of one data index's edge channel, ``index`` its own,
+    ``ranks`` their global ranks in pair order and ``group`` their process
+    group (None: a local axis, whose collectives move nothing; only a size
+    of 1 has one). ``stats`` counts what the pair collectives of
+    ``ring.py`` move out of this rank: calls and bytes."""
+
+    def __init__(self, size: int = 1, index: int = 0,
+                 ranks: Optional[List[int]] = None, group=None):
+        if group is None and size != 1:
+            raise ValueError(f"a pair axis of size {size} needs its process "
+                             "group")
+        self.size = size
+        self.index = index
+        self.ranks = list(ranks) if ranks is not None else [index]
+        self.group = group
+        self.reset_stats()
+
+    def reset_stats(self) -> None:
+        self.stats = {"calls": 0, "bytes": 0}
+
+    def shards(self, n: int) -> bool:
+        """Whether a bucket of ``n`` nodes shards over this axis: tgt_tpu's
+        ``spec_for_array`` (mesh.py:99-101) shards a pair tensor only when
+        ``P`` divides ``N``, and replicates it otherwise."""
+        return n % self.size == 0
+
+    def rows(self, n: int) -> slice:
+        """This rank's i-rows of an ``n``-node bucket."""
+        blk = n // self.size
+        return slice(self.index * blk, (self.index + 1) * blk)
+
+
+def pair_groups(world_size: int, num_pair: int
+                ) -> Tuple[int, int, PairAxis]:
+    """(data index, pair index, this rank's ``PairAxis``) on the row-major
+    ``(world_size / num_pair, num_pair)`` grid (tgt_tpu's ``make_mesh``).
+    Every rank makes every pair group, in the same order, as
+    ``dist.new_group`` requires. A world size that ``num_pair`` does not
+    divide raises; one process without a group gets a local axis."""
+    if num_pair < 1 or world_size % num_pair:
+        raise ValueError(f"num_pair_devices={num_pair} does not divide the "
+                         f"world size {world_size} (mesh "
+                         f"{world_size // max(num_pair, 1)}x{num_pair} != "
+                         f"{world_size} devices)")
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if world_size > 1 and (not dist.is_initialized()
+                           or dist.get_world_size() != world_size):
+        raise ValueError(f"a world size of {world_size} needs its process "
+                         "group (initialize_distributed)")
+    data_index, pair_index = divmod(rank, num_pair)
+    if not dist.is_initialized():
+        return 0, 0, PairAxis()         # one process: a local axis
+    mine = None
+    for d in range(world_size // num_pair):
+        ranks = list(range(d * num_pair, (d + 1) * num_pair))
+        group = dist.new_group(ranks)
+        if d == data_index:
+            mine = PairAxis(num_pair, pair_index, ranks, group)
+    return data_index, pair_index, mine
+
+
+_CURRENT: List[Optional[PairAxis]] = [None]
+
+
+@contextlib.contextmanager
+def pair_scope(axis: Optional[PairAxis]) -> Iterator[Optional[PairAxis]]:
+    """Run the models and schemes inside on ``axis`` (tgt_tpu: inside
+    ``shard_map`` over 'pair'); None runs them on whole rows."""
+    saved = _CURRENT[0]
+    _CURRENT[0] = axis
+    try:
+        yield axis
+    finally:
+        _CURRENT[0] = saved
+
+
+def current_pair_axis() -> Optional[PairAxis]:
+    """The axis of the enclosing ``pair_scope``, or None."""
+    return _CURRENT[0]
 
 
 def rank_device(device: Optional[Union[str, torch.device]] = None,
@@ -108,18 +210,22 @@ def initialize_distributed(coordinator: Optional[str] = None,
     return process_id, num_processes
 
 
-def gather_predictions(preds: Dict[str, np.ndarray],
-                       world_size: int) -> Dict[str, np.ndarray]:
+def gather_predictions(preds: Dict[str, np.ndarray], world_size: int,
+                       contribute: bool = True) -> Dict[str, np.ndarray]:
     """Every rank's prediction shard joined in rank order, the same on
     every rank; the identity at a world size of 1. Shards of unequal
     length (``np.array_split`` of a split, e.g. 5 and 4) keep their own
     lengths, and a rank with no rows of the split adds none; 0-d values
-    come back as ``(world_size,)``."""
+    come back as one entry per contributing rank. A rank with
+    ``contribute=False`` adds nothing: on the pair axis only pair index 0
+    of each data index gives its samples, whose other pair ranks hold the
+    same ones."""
     if world_size <= 1:
         return preds
     shards = [None] * world_size
     dist.all_gather_object(shards, {k: np.asarray(v)
-                                    for k, v in preds.items()})
+                                    for k, v in preds.items()}
+                           if contribute else {})
     shards = [s for s in shards if s]
     return {k: (np.stack([s[k] for s in shards]) if shards[0][k].ndim == 0
                 else np.concatenate([s[k] for s in shards], axis=0))

@@ -17,6 +17,13 @@ comes from ``seed``. The loss's masked means divide by the batch's
 ``pair_count`` and ``sample_count`` where the Trainer puts them there
 (their sums over the ranks, ``loss_counts``), else by its own counts. ``precompile_buckets`` is accepted and has no effect:
 the port runs eagerly, so there is no program to compile ahead.
+
+On the pair axis (inside the Trainer's ``pair_scope``) the distance logits
+hold this rank's i-rows: a loss takes the same rows of its targets and
+pair mask (``pair_rows``), and a per-sample term, which every rank of the
+pair group computes alike from the whole node state, counts on pair index
+0 alone (``own_samples``). Evaluation reads the whole rows
+(``full_rows``).
 """
 from __future__ import annotations
 
@@ -33,6 +40,8 @@ from tgt_torch.data.loader import (DataLoader, DistributedTestSampler,
 from tgt_torch.data.synthetic import SyntheticDataset
 from tgt_torch.models.heads import make_model
 from tgt_torch.models.model_config import TGTConfig
+from tgt_torch.parallel.mesh import current_pair_axis
+from tgt_torch.parallel.ring import _gather_rows
 from tgt_torch.training import schedules
 from tgt_torch.training.harness import derive_seed, resolve_grad_accum
 
@@ -334,15 +343,40 @@ class TGTScheme:
         nm = batch["node_mask"].float() * batch["sample_mask"].float()[:, None]
         return nm[:, :, None] * nm[:, None, :]
 
+    @staticmethod
+    def pair_rows(x: torch.Tensor) -> torch.Tensor:
+        """This rank's i-rows of a (b, N, N, ...) pair tensor on the pair
+        axis; ``x`` itself off it."""
+        axis = current_pair_axis()
+        return x if axis is None else x[:, axis.rows(x.shape[1])]
+
+    @staticmethod
+    def full_rows(x: torch.Tensor) -> torch.Tensor:
+        """The whole rows of a pair-sharded output (the distance logits)
+        on the pair axis; ``x`` itself off it."""
+        axis = current_pair_axis()
+        return x if axis is None else _gather_rows(x, axis)
+
+    @staticmethod
+    def own_samples(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The (b,) mask of the samples whose per-sample loss terms this
+        rank counts: ``sample_mask``, and zeros on a pair rank other than
+        index 0, whose terms pair index 0 counts already."""
+        axis = current_pair_axis()
+        mask = batch["sample_mask"]
+        return mask if axis is None or axis.index == 0 else \
+            torch.zeros_like(mask)
+
     def loss_counts(self, batch: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
         """The counts that ``loss_fn``'s masked means divide by: the valid
-        pairs (``edge_mask_of``) and the real samples (``sample_mask``).
-        Under a process group the Trainer sums them over the ranks and
-        passes the sums in the batch under these keys, so that each rank's
-        loss is its share of the global batch's."""
-        return {"pair_count": self.edge_mask_of(batch).sum(),
-                "sample_count": batch["sample_mask"].float().sum()}
+        pairs (``edge_mask_of``, this rank's rows on the pair axis) and the
+        real samples (``own_samples``). Under a process group the Trainer
+        sums them over the ranks and passes the sums in the batch under
+        these keys, so that each rank's loss is its share of the global
+        batch's."""
+        return {"pair_count": self.pair_rows(self.edge_mask_of(batch)).sum(),
+                "sample_count": self.own_samples(batch).float().sum()}
 
     # -- task hooks -------------------------------------------------------------
     def loss_fn(self, model, batch: Dict[str, torch.Tensor], seed: int):

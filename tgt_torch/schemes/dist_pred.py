@@ -24,6 +24,7 @@ import torch
 
 from tgt_torch.core.config import Config, Lazy
 from tgt_torch.data.bins import bins_dtype, pack_bins_multi
+from tgt_torch.parallel.mesh import pair_scope
 from tgt_torch.schemes.base import TGTScheme, default_scheme_config
 from tgt_torch.schemes.commons import (add_coords_noise, coords2dist,
                                        discrete_dist_loss)
@@ -107,7 +108,8 @@ class DistPredScheme(TGTScheme):
         feed = self._model_inputs(batch, edge_mask, gen)
         dist_targ = self._dist_target(batch, gen)
         logits = model(feed, deterministic=False, seed=derive_seed(seed, 1))
-        loss = discrete_dist_loss(logits, dist_targ, edge_mask,
+        loss = discrete_dist_loss(logits, self.pair_rows(dist_targ),
+                                  self.pair_rows(edge_mask),
                                   self.cfg.num_dist_bins,
                                   self.cfg.range_dist_bins,
                                   count=batch.get("pair_count"))
@@ -119,7 +121,7 @@ class DistPredScheme(TGTScheme):
         ``predict_in_train`` (reference tgt_training.py:42)."""
         logits = model(feed, deterministic=not self.cfg.predict_in_train,
                        seed=seed)
-        return torch.softmax(logits.float(), dim=-1)
+        return torch.softmax(self.full_rows(logits).float(), dim=-1)
 
     @torch.no_grad()
     def eval_fn(self, model, batch: Dict[str, torch.Tensor], seed: int):
@@ -160,20 +162,26 @@ class DistPredScheme(TGTScheme):
         return torch.stack(draws, dim=1)
 
     def predict_and_save(self, model, rank: int = 0, world_size: int = 1,
-                         base_path: str = None, device=None) -> None:
+                         base_path: str = None, device=None,
+                         write: bool = True, axis_of=None) -> None:
         """Bins draws for each ``predict_on`` split, written as per-rank
         parquet shards ``data/{split}_{rank:03d}.parquet`` (columns idx and
         bins: the draws' packed upper triangles over the molecule's own
         atoms, concatenated) + ``meta.json`` (reference
-        dist_pred/scheme.py:256-306)."""
+        dist_pred/scheme.py:256-306). On the pair axis ``rank`` and
+        ``world_size`` are the data index and count, every rank of the pair
+        group runs the draws on the axis ``axis_of(device batch)`` gives
+        (``Trainer.batch_axis``), and only pair index 0 writes
+        (``write``)."""
         import pyarrow as pa
         import pyarrow.parquet as pq
 
         base_path = base_path or os.path.join(self.cfg.save_path, "predictions")
         save_dir = os.path.join(base_path, self.cfg.save_pred_dir)
         data_dir = os.path.join(save_dir, "data")
-        os.makedirs(data_dir, exist_ok=True)
-        if rank == 0:
+        if write:
+            os.makedirs(data_dir, exist_ok=True)
+        if rank == 0 and write:
             with open(os.path.join(save_dir, "meta.json"), "w") as f:
                 json.dump({"num_bins": self.cfg.num_dist_bins,
                            "range_bins": self.cfg.range_dist_bins,
@@ -187,8 +195,9 @@ class DistPredScheme(TGTScheme):
                 db = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                       for k, v in self.device_batch(batch,
                                                     training=False).items()}
-                bins = self.predict_bins_fn(model, db, derive_seed(
-                    1234 + rank, i)).cpu().numpy().astype(dtype)
+                with pair_scope(None if axis_of is None else axis_of(db)):
+                    bins = self.predict_bins_fn(model, db, derive_seed(
+                        1234 + rank, i)).cpu().numpy().astype(dtype)
                 num_nodes = batch["node_mask"].sum(-1).astype(int)
                 for bi, n in enumerate(num_nodes):
                     all_bins.append(
@@ -196,6 +205,8 @@ class DistPredScheme(TGTScheme):
                 # global row ids: a running position would collide across
                 # rank shards and misjoin in the finetune stage
                 all_idx.append(np.asarray(batch["idx"]))
+            if not write:
+                continue
             table = pa.Table.from_pydict({"idx": np.concatenate(all_idx),
                                           "bins": all_bins})
             out = os.path.join(data_dir, f"{split}_{rank:03d}.parquet")

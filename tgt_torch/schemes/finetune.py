@@ -149,10 +149,11 @@ class FinetuneScheme(TGTScheme):
         gap, dist_logits = model(self._feed_from_bins(batch, edge_mask, bins),
                                  deterministic=False, seed=seed)
         prim = masked_l1(gap.float(), batch["target"].float(),
-                         batch["sample_mask"], batch.get("sample_count"))
-        dloss = discrete_dist_loss(dist_logits,
-                                   coords2dist(batch["dft_coords"].float()),
-                                   edge_mask, self.cfg.num_dist_bins,
+                         self.own_samples(batch), batch.get("sample_count"))
+        dist_targ = coords2dist(batch["dft_coords"].float())
+        dloss = discrete_dist_loss(dist_logits, self.pair_rows(dist_targ),
+                                   self.pair_rows(edge_mask),
+                                   self.cfg.num_dist_bins,
                                    self.cfg.range_dist_bins,
                                    count=batch.get("pair_count"))
         loss = prim + self.cfg.dist_loss_weight * dloss

@@ -74,10 +74,11 @@ class PretrainScheme(TGTScheme):
         gap, dist_logits = self._noisy_forward(model, batch, edge_mask, seed,
                                                deterministic=False)
         prim = masked_l1(gap.float(), batch["target"].float(),
-                         batch["sample_mask"], batch.get("sample_count"))
-        dloss = discrete_dist_loss(dist_logits,
-                                   coords2dist(batch["dft_coords"].float()),
-                                   edge_mask, self.cfg.num_dist_bins,
+                         self.own_samples(batch), batch.get("sample_count"))
+        dist_targ = coords2dist(batch["dft_coords"].float())
+        dloss = discrete_dist_loss(dist_logits, self.pair_rows(dist_targ),
+                                   self.pair_rows(edge_mask),
+                                   self.cfg.num_dist_bins,
                                    self.cfg.range_dist_bins,
                                    count=batch.get("pair_count"))
         loss = prim + self.cfg.dist_loss_weight * dloss
@@ -91,8 +92,8 @@ class PretrainScheme(TGTScheme):
         def one(s):
             gap, dist_logits = self._noisy_forward(model, batch, edge_mask,
                                                    s, deterministic=det)
-            return {"gap": gap,
-                    "probs": torch.softmax(dist_logits.float(), dim=-1)}
+            return {"gap": gap, "probs": torch.softmax(
+                self.full_rows(dist_logits).float(), dim=-1)}
 
         acc, valid = self.mc_sample(one, seed, self.nb_draw_samples)
         v = torch.clamp(valid, min=1).float()

@@ -34,6 +34,20 @@ of every rank's m-th chunk (tgt_tpu cuts the global rows into contiguous
 chunks instead; ROADMAP.md section 3). The weights after ``load_or_init``
 are rank 0's, evaluation gathers every rank's predictions before a metric
 is computed, and rank 0 alone writes.
+
+The pair axis (tgt_tpu's ``num_pair_devices = P``): the world is the
+row-major grid of ``D x P`` ranks (``parallel/mesh.py``); the ``P`` ranks
+of a data index load the same samples (the samplers split over the ``D``
+data indices), share their step seeds, and each holds its own i-rows of
+the edge channel (``pair_scope``: ``parallel/pair_layer.py``). A
+micro-batch's pair count sums the rows of every rank, and its per-sample
+terms count on pair index 0 alone; a bucket that ``P`` does not divide
+runs on whole rows on every rank, and only pair index 0 counts it. Each
+rank's gradient holds its own rows' share, so the one sum all-reduce over
+the world gives the global gradient, as at ``P = 1``. Evaluation gathers
+the pair rows, then the data indices' shards (pair index 0's). tgt_tpu
+refuses its Pallas kernels under a pair mesh, and the port raises where
+it does.
 """
 from __future__ import annotations
 
@@ -51,7 +65,9 @@ from tgt_torch.core.device import resolve_device
 from tgt_torch.models.convert import (jax_params_from_state_dict,
                                       opt_state_from_jax, opt_state_to_jax,
                                       state_dict_from_jax_params)
-from tgt_torch.parallel.mesh import gather_predictions
+from tgt_torch.parallel.mesh import (gather_predictions, pair_groups,
+                                     pair_scope)
+from tgt_torch.parallel.pair_layer import check_pair_config
 from tgt_torch.training.checkpoint import (CheckpointManager, flatten_tree,
                                            load_pretrained)
 from tgt_torch.training.progress import progbar
@@ -271,11 +287,28 @@ class Trainer:
                  device=None):
         self.scheme = scheme
         self.cfg = scheme.cfg
-        if int(self.cfg.num_pair_devices or 1) > 1:
-            raise NotImplementedError(
-                f"num_pair_devices={self.cfg.num_pair_devices}: the pair "
-                "axis is not ported yet (ROADMAP.md, module item 5, the "
-                "pair axis)")
+        self.num_pair = int(self.cfg.num_pair_devices or 1)
+        if self.num_pair < 1 or world_size % self.num_pair:
+            raise ValueError(
+                f"num_pair_devices={self.num_pair} does not divide the "
+                f"world size {world_size}")
+        use_pallas = self.cfg.use_pallas
+        # tgt_tpu/training/harness.py:241-265: Mosaic kernels cannot be
+        # partitioned by GSPMD; only the dense pair has a data-axis wrapper
+        if use_pallas == "dense" and self.num_pair > 1:
+            raise ValueError(
+                "use_pallas='dense' does not compose with num_pair_devices "
+                "> 1 (the shard_map wrapper covers the data axis only) - "
+                "use the plain triplet path (use_pallas: false) for "
+                "pair-sharded configs")
+        if use_pallas is True and (world_size > 1 or self.num_pair > 1):
+            raise ValueError(
+                "use_pallas=True (legacy fused kernel) does not compose "
+                "with several ranks (only use_pallas='dense' ships the "
+                "shard_map data-parallel wrapper) - switch to use_pallas: "
+                "dense, or the plain triplet path")
+        if self.num_pair > 1:
+            check_pair_config(scheme.model_cfg)
         self.group = dist.is_initialized()
         group = ((dist.get_rank(), dist.get_world_size()) if self.group
                  else (0, 1))
@@ -287,6 +320,11 @@ class Trainer:
         self.rank = rank
         self.world_size = world_size
         self.is_main = rank == 0
+        self.num_data = world_size // self.num_pair
+        # this rank's place on the (data, pair) grid, and its pair groups
+        self.data_index, self.pair_index = divmod(rank, self.num_pair)
+        self.pair = (pair_groups(world_size, self.num_pair)[2]
+                     if self.num_pair > 1 else None)
         self.device = resolve_device(device)
         self.model_path = self.cfg.save_path
         self.log_path = os.path.join(self.model_path, "logs")
@@ -307,7 +345,7 @@ class Trainer:
         self.recovery_tries = 0
         self.monitor_best = float("inf")
         self.monitor_best_epoch = -1
-        self.grad_accum = resolve_grad_accum(self.cfg, world_size)
+        self.grad_accum = resolve_grad_accum(self.cfg, self.num_data)
 
     def log(self, msg: str) -> None:
         if self.is_main:
@@ -414,11 +452,28 @@ class Trainer:
                 for k, v in device_batch.items()}
 
     # -- the step -----------------------------------------------------------
+    def batch_axis(self, batch: Tensors):
+        """The pair axis a device batch runs on: None off the pair axis,
+        and for a bucket that ``P`` does not divide (tgt_tpu replicates
+        such a batch's pair tensors), which runs on whole rows."""
+        n = batch["node_mask"].shape[1]
+        return self.pair if self.pair is not None and \
+            self.pair.shards(n) else None
+
+    def counts_here(self, batch: Tensors) -> bool:
+        """Whether this rank's terms of ``batch`` count: every rank's do,
+        except on a bucket run on whole rows by a pair group, whose pair
+        index 0 alone counts it."""
+        return self.pair_index == 0 or self.batch_axis(batch) is not None
+
     def global_counts(self, batch: Tensors) -> Tensors:
         """The scheme's ``loss_counts`` of this micro-batch summed over the
-        ranks: the denominators of the global batch's masked means."""
+        ranks: the denominators of the global batch's masked means. Call
+        it inside the batch's ``pair_scope``."""
         counts = self.scheme.loss_counts(batch)
         summed = torch.stack([c.float() for c in counts.values()])
+        if not self.counts_here(batch):
+            summed = torch.zeros_like(summed)
         dist.all_reduce(summed)
         return dict(zip(counts, summed))
 
@@ -442,8 +497,13 @@ class Trainer:
         every rank's micro-batch, its weight is their real samples, and the
         ranks' sums are added up: the result is the global batch's on
         every rank."""
+        with pair_scope(self.batch_axis(batch)):
+            return self._accumulated_grad(model, batch, seed)
+
+    def _accumulated_grad(self, model, batch: Tensors, seed: int):
         params = [p for p in model.parameters()]
         sizes = [p.numel() for p in params]
+        here = self.counts_here(batch)
 
         def grad_of(mb, s):
             loss, aux = self.scheme.loss_fn(model, mb, s)
@@ -464,7 +524,7 @@ class Trainer:
             counts = self.global_counts(batch)
             loss, aux, grads = grad_of({**batch, **counts}, seed)
             # a rank whose rows are all padding adds nothing
-            mine = batch["sample_mask"].float().sum() > 0
+            mine = (batch["sample_mask"].float().sum() > 0) & here
             flat, loss, aux = self.sum_over_ranks(
                 torch.where(mine, flat_of(grads), 0.0),
                 torch.where(mine, loss.float(), 0.0),
@@ -489,7 +549,7 @@ class Trainer:
         for m in range(accum):
             mb = {k: v[m * micro:(m + 1) * micro] if k in splittable else v
                   for k, v in batch.items()}
-            mine = mb["sample_mask"].float().sum()
+            mine = mb["sample_mask"].float().sum() * here
             w = mine
             if self.group:
                 counts = self.global_counts(mb)
@@ -580,11 +640,12 @@ class Trainer:
             n = self.scheme.batch_num_samples(batch)
             device_batch = self.to_device(
                 self.pad_device_batch(self.scheme.device_batch(batch)))
-            # each rank draws its own masks for its own rows
+            # each data index draws its own masks for its own rows; the
+            # ranks of a pair group share them
             state, metrics = self.train_step(
                 state, device_batch, self.global_step,
-                derive_seed(seed0, self.global_step * self.world_size
-                            + self.rank), self.scheme.lr_scale)
+                derive_seed(seed0, self.global_step * self.num_data
+                            + self.data_index), self.scheme.lr_scale)
             pending.append((metrics, n))
             stop_reason = drain()
             if stop_reason:
@@ -607,8 +668,9 @@ class Trainer:
         for i, batch in enumerate(self.progress(loader, "eval")):
             device_batch = self.to_device(
                 self.scheme.device_batch(batch, training=False))
-            out = self.scheme.eval_fn(model, device_batch,
-                                      derive_seed(seed + 1000, i))
+            with pair_scope(self.batch_axis(device_batch)):
+                out = self.scheme.eval_fn(model, device_batch,
+                                          derive_seed(seed + 1000, i))
             out = {k: v.cpu().numpy() for k, v in out.items()}
             if "valid_samples" in out and np.all(out["valid_samples"] == 0):
                 # reference: 'All predictions were NaN'
@@ -620,6 +682,12 @@ class Trainer:
                 collected.setdefault(k, []).append(v)
         return {k: np.concatenate(v, axis=0) if np.ndim(v[0]) > 0
                 else np.asarray(v) for k, v in collected.items()}
+
+    def gather(self, preds: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """Every data index's predictions, joined in order on every rank
+        (pair index 0's: its pair group holds the same ones)."""
+        return gather_predictions(preds, self.world_size,
+                                  contribute=self.pair_index == 0)
 
     def progress(self, loader, desc: str):
         """The loader, with a progress bar on rank 0."""
@@ -643,8 +711,8 @@ class Trainer:
             t0 = time.time()
             # finetune picks its bins sample by the epoch, a resumed one too
             self.scheme.current_epoch = self.epoch
-            loader = self.scheme.train_loader(self.epoch, self.rank,
-                                              self.world_size)
+            loader = self.scheme.train_loader(self.epoch, self.data_index,
+                                              self.num_data)
             state, train_logs, stop_reason = self.train_epoch(state, loader)
             if stop_reason == "nan":
                 if self.recovery_tries >= cfg.max_recovery_tries:
@@ -668,11 +736,11 @@ class Trainer:
                 t0 = time.time()
                 preds = self.eval_epoch(
                     state["model"],
-                    self.scheme.val_loader(self.rank, self.world_size),
+                    self.scheme.val_loader(self.data_index, self.num_data),
                     seed=self.epoch)
                 # the monitor and the plateau act on the whole split's
                 # metric, the same on every rank
-                preds = gather_predictions(preds, self.world_size)
+                preds = self.gather(preds)
                 val_metrics = self.scheme.evaluate_predictions(preds)
                 logs.update({f"val_{k}": float(v)
                              for k, v in val_metrics.items()})
