@@ -82,17 +82,38 @@ Phases, each of which fails the run (non-zero exit) on error:
    determinism and library times as in 2 and 2b. 2g reports the share of
    dv's error in max|ref|, and at N=48 in bf16 times the backward with and
    without the split of the weights for dv, in turns.
+2v. The forward kernels at the draw-stacked batches of ``mc_mode="vmap"``
+   (10 draws x 16 molecules = 160 rows): rows 1 (``triplet_dense_fwd``), 2
+   (the same at Path D's rate 0.1 with (160, 1) row seeds), 4
+   (``triplet_aggregate_fwd``) and 6 (``triplet_attention_fwd``) at N=48
+   and 56, and row 1 at the CLI evaluate's 10 x 64 = 640 rows, N=48; bf16,
+   gated; within 1e-2 of max|ref| of the plain version, bitwise equal on
+   repeat; per-call, back-to-back, plain and library times and the bound.
+2r. Row 1 past 2**31 elements per tensor (the published 50 prediction
+   draws x 64 reach 3,200 rows): 3,700 rows at N=48 (in place) and 2,800
+   at N=56 (head-major copies, rate 0.1); rows on both sides of element
+   2**31 must equal the kernel on those rows alone bit for bit (rows are
+   independent), or the wrapper must refuse the shape with a clear error
+   before launch.
 3. Serving at full width: the flagship TGT-At distance model of
    configs/pcqm/tgt_at_200m/dist_pred/tgt_at_dp_rdkit.yaml (24 layers,
    node 768, edge 256, 64 heads, 16 triplet heads, 256 bins, bf16) with
    weights from a seed, on the card; three timed requests of 64 new
    molecules, then one of 16 per bucket, through
    ``DistancePredictor.predict`` and ``predict_bins`` with batch_size 16
-   and 10 MC-dropout draws. Checks finite outputs, bins probabilities that
-   sum to 1, shapes, that every bucket was served, and that every
-   triplet core of every draw ran the kernel (48 launches per forward).
-   Then one device batch per bucket in deterministic f32 through the
-   kernel and through the plain path: logits agree to 1e-3 max|ref|.
+   and 10 MC-dropout draws, each request under ``mc_mode`` map and vmap
+   in turns (the order alternating). Checks finite outputs, bins
+   probabilities that sum to 1, shapes, that every bucket was served, and
+   that every triplet core ran the kernel: 48 launches per forward, one
+   forward per draw under map and one per device batch under vmap. Before
+   the requests, the first request of a fresh vmap predictor cold and
+   after ``warmup()``. Then, per bucket, one device batch under map and
+   vmap in turns (map, vmap, vmap, map): wall ms, molecules/s and peak
+   memory (``max_memory_allocated``) of each; and vmap against map in f32
+   at every bucket on one checkpoint of the config cut to 4 layers (full
+   width), 10 draws: within 1e-4 of max|ref|. Then one device batch per
+   bucket in deterministic f32 through the kernel and through the plain
+   path: logits agree to 1e-3 max|ref|.
 4. Training at full width and depth: the same config (bf16, remat, its
    dropouts and drop path) on synthetic molecules of up to 48 atoms,
    ``Trainer.train_epoch`` for one epoch of 256 molecules: 4 optimizer
@@ -190,6 +211,15 @@ Phases, each of which fails the run (non-zero exit) on error:
    triplet sub-layer (a forward hook), the closer output. Prints wall
    seconds per command, ms per finetune step (CUDA events), molecules/s
    evaluated, and the two-stage molecules/s and p50.
+7v. The MC-draw schedule through the CLI, in phase 7's directory on its
+   distance dir and phase 7b's gap_pred dir: ``execute("evaluate")`` under
+   ``mc_eval_mode`` map and vmap in turns, in bf16 (launches exact: 480
+   under map, 48 under vmap, whose one forward has 640 rows) and in f32
+   (val losses within 1e-4 relative), with each pass's molecules/s and
+   peak memory; three 64-molecule ``TwoStagePredictor`` requests under
+   ``mc_mode`` map and vmap in turns (launches exact: 3,760 and 376), and
+   one f32 request of 16 molecules, vmap against map within 1e-4 of
+   max|ref|.
 7x, 7bx. Phases 7 and 7b for TGT-Agx2, in the same directory on the same
    parquet: the published rdkit chain of ``configs/pcqm/tgt_agx2_100m/``
    (dist_pred, pretrain, finetune, gap_pred) with ``use_pallas: dense``
@@ -275,7 +305,12 @@ Phases, each of which fails the run (non-zero exit) on error:
    on each rank and one process's on the same batch, the pair collectives'
    calls, bytes and ms per step (CUDA events around each), each rank's
    peak memory against one process's, and the transport's name.
-8. The kernels line (six kernels, launches by path, with the dense pair's
+8. The kernels line (six kernels, launches by path, with the vmap paths
+   ``serving_vmap`` (TGT-At; TGT-Agx2's aggregate forward),
+   ``serving_dropout_vmap`` (Path D), ``serving_legacy_vmap`` (Path L),
+   ``evaluate_vmap`` and ``two_stage_vmap`` (phase 7v), the forward rows
+   at the draw-stacked batches (``vmap_batches``) and row 1 past 2**31
+   elements (``past_2_31``), with the dense pair's
    ``prep`` path (phase 7p), its ``ddp`` path (phase 7d, both ranks' train
    and evaluate), every kernel's ``pair`` path (phase 7q: 0, the pair path
    runs none), its stage-2 paths ``pretrain``, ``finetune``,
@@ -1299,6 +1334,175 @@ def legacy_backward_phase(card):
     return rows
 
 
+# -- phases 2v and 2r: the forward kernels at the draw-stacked batches ----------
+
+VMAP_DRAWS = 10     # the published evaluation_samples: draws per device batch
+# rows 1, 2, 4 and 6 at the draw-stacked batch of vmap serving, 10 draws x
+# 16 molecules, at N=48 (the in-place loader and 16-head aggregate blocks)
+# and bucket 56 (head-major copies, 8-head blocks); row 1 also at the CLI
+# evaluate's 10 draws x 64; bf16, gated
+VMAP_SERVE_B = VMAP_DRAWS * 16
+VMAP_CASES = [(VMAP_SERVE_B, n, WIDTH, torch.bfloat16, True)
+              for n in (48, 56)]
+VMAP_EVAL_CASES = [(VMAP_DRAWS * 64, 48, WIDTH, torch.bfloat16, True)]
+VMAP_RATE = 0.1     # Path D's triplet_dropout
+
+
+def vmap_kernel_row(card, name, case, kernel, plain, inputs, out_bound,
+                    library=None):
+    """One kernel against its plain version at a draw-stacked batch: the
+    bf16 tolerance of max|ref|, bitwise equal on repeat, its time per call
+    and back to back, the plain version's and the library call's, and the
+    bound."""
+    b, n, w, dtype, _ = case
+    out = kernel()
+    ref = plain()
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    same = torch.equal(out, kernel())
+    bound_ms, bound_by = out_bound(out)
+    row = {"case": name, "b": b, "n": n, "edge_width": w, "heads": 16,
+           "dtype": dtype_name(dtype), "max_abs_err": err,
+           "max_abs_ref": scale, "tol": KERNEL_TOL[dtype] * scale,
+           "bitwise_equal": same,
+           "ok": (bool(torch.isfinite(out.float()).all())
+                  and err <= KERNEL_TOL[dtype] * scale and same),
+           "ms": time_ms(kernel, reps=10), "plain_ms": time_ms(plain, reps=5),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": None if library is None else time_ms(library,
+                                                              reps=10),
+           "device_ms": device_ms(kernel, reps=10), "card": card}
+    emit(row)
+    if not row["ok"]:
+        fail(f"{name} disagrees with its plain version at b={b}: {row}")
+    return row
+
+
+def vmap_kernel_phase(card):
+    """Phase 2v: rows 1, 2, 4 and 6 at the draw-stacked batches; returns
+    {kernel name: {(b, N): row}}."""
+    from tgt_torch.ops.kernels.triplet_aggregate import (
+        triplet_aggregate_fwd, triplet_aggregate_fwd_reference)
+    from tgt_torch.ops.kernels.triplet_attention import (
+        triplet_attention_fwd, triplet_core_fwd_reference)
+    from tgt_torch.ops.kernels.triplet_dense import (
+        triplet_dense_fwd, triplet_dense_fwd_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = {k: {} for k in ("triplet_dense_fwd", "triplet_dense_fwd dropout",
+                            "triplet_aggregate_fwd", "triplet_attention_fwd")}
+    for case in VMAP_CASES + VMAP_EVAL_CASES:
+        b, n, w, dtype, gated = case
+        inputs = core_inputs(b, n, w, 16, dtype, gated, gen)
+        rows["triplet_dense_fwd"][b, n] = vmap_kernel_row(
+            card, "triplet_dense_fwd", case,
+            lambda: triplet_dense_fwd(*inputs),
+            lambda: triplet_dense_fwd_reference(*inputs), inputs,
+            lambda out: bound(inputs, out, dtype))
+        if case in VMAP_CASES:
+            seed = torch.randint(0, 2 ** 31 - 1, (b, 1), device="cuda",
+                                 generator=gen, dtype=torch.int32)
+            rows["triplet_dense_fwd dropout"][b, n] = vmap_kernel_row(
+                card, "triplet_dense_fwd dropout", case,
+                lambda: triplet_dense_fwd(*inputs, seed, VMAP_RATE),
+                lambda: triplet_dense_fwd_reference(*inputs, seed, VMAP_RATE),
+                inputs, lambda out: bound(inputs, out, dtype))
+        del inputs
+        if case not in VMAP_CASES:
+            continue
+        a, v = agg_inputs(b, n, w, 16, dtype, gen)
+        rows["triplet_aggregate_fwd"][b, n] = vmap_kernel_row(
+            card, "triplet_aggregate_fwd", case,
+            lambda: triplet_aggregate_fwd(a, v),
+            lambda: triplet_aggregate_fwd_reference(a, v), (a, v),
+            lambda out: agg_bound((a, v, out), 2.0, dtype),
+            lambda: torch.einsum("bikh,bjkdh->bjidh", a, v))
+        del a, v
+        legacy = legacy_inputs(b, n, w, 16, dtype, gated, gen)
+        scale = (w // 16) ** -0.5
+        rows["triplet_attention_fwd"][b, n] = vmap_kernel_row(
+            card, "triplet_attention_fwd", case,
+            lambda: triplet_attention_fwd(*legacy, scale),
+            lambda: triplet_core_fwd_reference(*legacy, scale), legacy,
+            lambda out: legacy_bound((*legacy, out), 4.0, dtype))
+        del legacy
+        torch.cuda.empty_cache()
+    return rows
+
+
+# Past 2**31 elements per tensor: the published prediction_samples (50)
+# at stage 1's eval batch (64) make 3,200 rows, and q, k, v at bucket 56
+# then hold 2.57e9 elements each. Rows are independent, so the kernel's
+# rows of a batch past 2**31 elements must equal, bit for bit, the kernel
+# on those rows alone (no N^3 plain version needed); the rows checked
+# straddle element 2**31. One shape per bf16 route of row 1: in place at
+# N=48 (3,700 rows) and the head-major copies at bucket 56 (2,800 rows,
+# at Path D's dropout rate, whose keep mask hashes per-row indices).
+BIG_CASES = [(3700, 48, 0.0), (2800, 56, VMAP_RATE)]
+
+
+def big_batch_phase(card):
+    """Phase 2r: row 1 (and row 2) at a batch past 2**31 elements, held
+    row for row against the same rows alone, or refused with a clear error
+    before launch; returns the rows."""
+    from tgt_torch.ops.kernels.triplet_dense import triplet_dense_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    out_rows = []
+    for b, n, rate in BIG_CASES:
+        torch.cuda.reset_peak_memory_stats()
+        h, d = 16, WIDTH // 16
+        bf = torch.bfloat16
+
+        def randn(*shape):
+            return torch.randn(*shape, device="cuda", generator=gen, dtype=bf)
+
+        q = randn(b, n, n, d, h) * d ** -0.5
+        k, v = randn(b, n, n, d, h), randn(b, n, n, d, h)
+        bias, gate = randn(b, n, n, h), randn(b, n, n, h)
+        seed = (torch.randint(0, 2 ** 31 - 1, (b, 1), device="cuda",
+                              generator=gen, dtype=torch.int32)
+                if rate else None)
+        per_row = n * n * d * h
+        mid = min(2 ** 31 // per_row, b - 2)    # the row of element 2**31
+        picked = torch.tensor([0, 1, mid - 1, mid, mid + 1, b - 1],
+                              device="cuda")
+        row = {"case": "triplet_dense_fwd past 2**31 elements", "b": b,
+               "n": n, "rate": rate, "elements_per_tensor": b * per_row,
+               "rows_checked": picked.tolist(), "card": card}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            out = triplet_dense_fwd(q, k, v, bias, gate, seed, rate)
+        except (ValueError, RuntimeError) as exc:
+            row.update(refused=str(exc), ok="2**31" in str(exc) or
+                       "at most" in str(exc))
+            emit(row)
+            if not row["ok"]:
+                fail(f"the kernel at {b} x {n} failed without a clear "
+                     f"error: {exc}")
+            out_rows.append(row)
+            continue
+        torch.cuda.synchronize()
+        row["ms"] = (time.perf_counter() - t0) * 1e3
+        alone = triplet_dense_fwd(
+            q[picked], k[picked], v[picked], bias[picked], gate[picked],
+            None if seed is None else seed[picked].contiguous(), rate)
+        row["bitwise_equal"] = torch.equal(out[picked], alone)
+        row["finite"] = bool(torch.isfinite(out[picked].float()).all())
+        row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        row["ok"] = row["bitwise_equal"] and row["finite"]
+        emit(row)
+        if not row["ok"]:
+            fail(f"rows of the batch past 2**31 elements differ from the "
+                 f"same rows alone: {row}")
+        out_rows.append(row)
+        del q, k, v, bias, gate, seed, out, alone
+        torch.cuda.empty_cache()
+    return out_rows
+
+
 # -- phase 3: serving ---------------------------------------------------------
 
 def random_molecule(rs: np.random.RandomState, n: int) -> dict:
@@ -1463,7 +1667,108 @@ def load_config(spec: ModelSpec, **extra) -> dict:
     return raw
 
 
+MODES = ("map", "vmap")     # the MC-draw schedules, timed in turns
+F32_SCHEDULE_HEIGHT = 4     # the f32 schedule check's depth (full width)
+
+
+def warmup_check(card, model, cfg, buckets, mc, bs):
+    """The first 16-molecule request of a fresh vmap predictor, cold (the
+    process's first request at the draw-stacked batch, on an emptied
+    allocator cache) and after ``warmup()`` on an emptied cache: wall
+    seconds of each and of the warmup."""
+    from tgt_torch.serving import DistancePredictor
+
+    mols = request(np.random.RandomState(5), 16)
+    row = {"serving": "warmup", "mc_mode": "vmap", "buckets": list(buckets),
+           "card": card}
+    for name in ("cold", "warmed"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        pred = DistancePredictor(model, cfg, mc_samples=mc, batch_size=bs,
+                                 buckets=buckets, seed=0, device="cuda",
+                                 mc_mode="vmap")
+        if name == "warmed":
+            t0 = time.perf_counter()
+            pred.warmup()
+            row["warmup_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = pred.predict(mols)
+        row[f"{name}_first_request_s"] = time.perf_counter() - t0
+        if not np.isfinite(out).all():
+            fail(f"the {name} first request returned non-finite values")
+    emit(row)
+    return row
+
+
+def bucket_schedule(card, spec, preds, sweep, buckets, bs):
+    """One device batch of ``bs`` molecules per bucket through map and vmap
+    in turns (map, vmap, vmap, map): wall ms of each request and its peak
+    memory (``max_memory_allocated`` after ``reset_peak_memory_stats``),
+    and the molecules/s of the faster schedule's median."""
+    out = {}
+    for t, nb in enumerate(buckets):
+        mols = sweep[t * bs:(t + 1) * bs]
+        ms = {m: [] for m in MODES}
+        peak = {m: 0.0 for m in MODES}
+        for mode in ("map", "vmap", "vmap", "map"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            preds[mode].predict(mols)
+            ms[mode].append((time.perf_counter() - t0) * 1e3)
+            peak[mode] = max(peak[mode],
+                             torch.cuda.max_memory_allocated() / 1e9)
+        out[nb] = {**{f"{m}_ms": ms[m] for m in MODES},
+                   **{f"{m}_peak_gb": peak[m] for m in MODES},
+                   **{f"{m}_molecules_per_s": bs * 1e3 / float(
+                       np.median(ms[m])) for m in MODES}}
+        out[nb]["faster"] = min(MODES, key=lambda m: np.median(ms[m]))
+    emit({"serving": "per bucket, in turns", "path": spec.name,
+          "batch": bs, "card": card,
+          "buckets": {str(k): v for k, v in out.items()}})
+    return out
+
+
+def f32_schedule_check(card, spec, cfg, buckets, mc, bs, rs):
+    """vmap against map in f32 at every bucket, one device batch of ``bs``
+    molecules and ``mc`` draws each, on one checkpoint (seed 1) at full
+    width cut to ``F32_SCHEDULE_HEIGHT`` layers: max|diff| <= 1e-4
+    max|ref| of the MC-averaged probabilities."""
+    from tgt_torch.models import make_model
+    from tgt_torch.serving import DistancePredictor
+
+    cfg32 = cfg.replace(compute_dtype="float32",
+                        model_height=F32_SCHEDULE_HEIGHT)
+    model = make_model("distance", cfg32, device="cuda", seed=1)
+    preds = {m: DistancePredictor(model, cfg32, mc_samples=mc, batch_size=bs,
+                                  buckets=buckets, seed=3, device="cuda",
+                                  mc_mode=m) for m in MODES}
+    sweep = bucket_sweep(rs, buckets, bs)
+    rows = {}
+    for t, nb in enumerate(buckets):
+        mols = sweep[t * bs:(t + 1) * bs]
+        got, ref = preds["vmap"].predict(mols), preds["map"].predict(mols)
+        bins_v = preds["vmap"].predict_bins(mols)
+        bins_m = preds["map"].predict_bins(mols)
+        err = float(np.abs(got - ref).max())
+        scale = float(np.abs(ref).max())
+        ok = (got.shape == ref.shape and got.shape[1] == nb
+              and bool(np.isfinite(got).all()) and err <= 1e-4 * scale)
+        rows[nb] = {"max_abs_err": err, "max_abs_ref": scale, "ok": ok,
+                    "bins_equal_share": float((bins_v == bins_m).mean())}
+        if not ok:
+            emit({"schedule_f32": "vmap vs map", "path": spec.name,
+                  "n": nb, **rows[nb]})
+            fail(f"f32 vmap disagrees with map at bucket {nb}")
+    emit({"schedule_f32": "vmap vs map", "path": spec.name,
+          "model_height": F32_SCHEDULE_HEIGHT, "draws": mc, "batch": bs,
+          "card": card, "buckets": {str(k): v for k, v in rows.items()}})
+    return rows
+
+
 def serving_phase(card, spec: ModelSpec):
+    """Phases 3, 3d, 3l and 5; returns the main path's forward launches
+    under each MC-draw schedule, {"map": n, "vmap": n}."""
     from tgt_torch.data.collate import pick_bucket
     from tgt_torch.models import make_model
     from tgt_torch.models.heads import DistanceModel
@@ -1492,64 +1797,81 @@ def serving_phase(card, spec: ModelSpec):
                       "use_pallas": cfg.use_pallas, "mc_samples": mc,
                       "batch_size": bs, "buckets": list(buckets),
                       "init_s": time.time() - t0})
-    pred = DistancePredictor(model, cfg, mc_samples=mc, batch_size=bs,
-                             buckets=buckets, seed=0, device="cuda")
+    preds = {m: DistancePredictor(model, cfg, mc_samples=mc, batch_size=bs,
+                                  buckets=buckets, seed=0, device="cuda",
+                                  mc_mode=m) for m in MODES}
     per_forward = spec.per_layer * cfg.model_height * cfg.layer_multiplier
     rs = np.random.RandomState(0)
 
-    pred.predict(request(rs, 16))          # warm-up: cuBLAS and kernel load
+    if spec.name == "TGT-At":              # before any vmap request
+        warmup_check(card, model, cfg, buckets, mc, bs)
+    warm = request(rs, 16)                 # warm-up: cuBLAS and kernel load
+    for m in MODES:
+        preds[m].predict(warm)
     torch.cuda.synchronize()
 
     # Size-sorted batches of the timed mix fill buckets 24, 32, 40 and 56
-    # but seldom 48; an untimed fourth request sweeps every bucket.
+    # but seldom 48; an untimed fourth request sweeps every bucket. Each
+    # request goes through map and vmap in turns (the order alternates).
     requests = [request(rs) for _ in range(3)]
     requests.append(bucket_sweep(rs, buckets, bs))
 
     reset_counts()                         # the main path starts here
-    lat, lat_bins, hit = [], [], set()
+    lat = {m: [] for m in MODES}
+    lat_bins = {m: [] for m in MODES}
+    launched_by = {m: 0 for m in MODES}
+    hit = set()
     for r, mols in enumerate(requests):
         sizes = sorted(m["num_nodes"] for m in mols)
         n_batches = math.ceil(len(mols) / bs)
         hit |= {pick_bucket(max(sizes[i:i + bs]), buckets)
                 for i in range(0, len(sizes), bs)}
         n_max = max(pick_bucket(s, buckets) for s in sizes)
-        expect = per_forward * mc * n_batches
-        for name, call in (("predict", pred.predict),
-                           ("predict_bins", pred.predict_bins)):
-            before = spec.launches(spec.fwd)
-            t0 = time.perf_counter()
-            out = call(mols)
-            dt = time.perf_counter() - t0
-            launched = spec.launches(spec.fwd) - before
-            if launched != expect:
-                fail(f"{name}: {launched} kernel launches, expected {expect}")
-            if name == "predict":
-                req_s = dt
-                if out.shape != (len(mols), n_max, n_max, cfg.num_dist_bins):
-                    fail(f"predict shape {out.shape}")
-                if not np.isfinite(out).all():
-                    fail("predict returned non-finite probabilities")
-                for i, m in enumerate(mols):
-                    n = m["num_nodes"]
-                    s = out[i, :n, :n].sum(-1)
-                    if np.abs(s - 1.0).max() > 1e-3:
-                        fail(f"probabilities of molecule {i} sum to "
-                             f"{s.min()}..{s.max()}")
-            else:
-                bins_s = dt
-                if out.shape != (len(mols), mc, n_max, n_max) or \
-                        out.dtype != np.int32:
-                    fail(f"predict_bins shape {out.shape} {out.dtype}")
-                if out.min() < 0 or out.max() >= cfg.num_dist_bins:
-                    fail("predict_bins out of range")
-        if r < 3:
-            lat.append(req_s)
-            lat_bins.append(bins_s)
-        emit({"request": r, "molecules": len(mols),
-                          "timed": r < 3, "device_batches": n_batches,
-                          "predict_s": req_s, "predict_bins_s": bins_s,
-                          "launches_per_call": expect})
+        times = {}
+        for mode in (MODES if r % 2 == 0 else MODES[::-1]):
+            # map: one forward per draw; vmap: one of S*b rows per batch
+            expect = per_forward * (mc if mode == "map" else 1) * n_batches
+            for name, call in (("predict", preds[mode].predict),
+                               ("predict_bins", preds[mode].predict_bins)):
+                before = spec.launches(spec.fwd)
+                t0 = time.perf_counter()
+                out = call(mols)
+                times[mode, name] = time.perf_counter() - t0
+                launched = spec.launches(spec.fwd) - before
+                launched_by[mode] += launched
+                if launched != expect:
+                    fail(f"{name} ({mode}): {launched} kernel launches, "
+                         f"expected {expect}")
+                if name == "predict":
+                    if out.shape != (len(mols), n_max, n_max,
+                                     cfg.num_dist_bins):
+                        fail(f"predict shape {out.shape}")
+                    if not np.isfinite(out).all():
+                        fail("predict returned non-finite probabilities")
+                    for i, m in enumerate(mols):
+                        n = m["num_nodes"]
+                        s = out[i, :n, :n].sum(-1)
+                        if np.abs(s - 1.0).max() > 1e-3:
+                            fail(f"probabilities of molecule {i} sum to "
+                                 f"{s.min()}..{s.max()}")
+                else:
+                    if out.shape != (len(mols), mc, n_max, n_max) or \
+                            out.dtype != np.int32:
+                        fail(f"predict_bins shape {out.shape} {out.dtype}")
+                    if out.min() < 0 or out.max() >= cfg.num_dist_bins:
+                        fail("predict_bins out of range")
+            if r < 3:
+                lat[mode].append(times[mode, "predict"])
+                lat_bins[mode].append(times[mode, "predict_bins"])
+        emit({"request": r, "molecules": len(mols), "timed": r < 3,
+              "device_batches": n_batches,
+              **{f"{name}_s_{mode}": v for (mode, name), v in times.items()},
+              "launches_per_call": {
+                  m: per_forward * (mc if m == "map" else 1) * n_batches
+                  for m in MODES}})
     main_launches = spec.launches(spec.fwd)  # the main path ends here
+    if main_launches != sum(launched_by.values()):
+        fail(f"{main_launches} forward launches, {launched_by} counted")
     body = (getattr(spec.fwd, spec.fwd_body_counter)
             if spec.fwd_body_counter else None)
     if body is not None and body != main_launches:
@@ -1558,19 +1880,26 @@ def serving_phase(card, spec: ModelSpec):
     if hit != set(buckets):
         fail(f"served buckets {sorted(hit)}, expected {list(buckets)}")
 
-    p50 = float(np.median(lat))
-    emit({
-        "serving": "DistancePredictor.predict", "path": spec.name,
-        "model": os.path.relpath(spec.yaml, REPO), "card": card,
-        "molecules_per_s": 64 / p50, "p50_request_s": p50,
-        "request_s": lat, "predict_bins_p50_s": float(np.median(lat_bins)),
-        "buckets_hit": sorted(hit), "kernel_launches": main_launches,
-        "kernel_body_launches": body})
+    for m in MODES:
+        p50 = float(np.median(lat[m]))
+        emit({
+            "serving": "DistancePredictor.predict", "mc_mode": m,
+            "path": spec.name, "model": os.path.relpath(spec.yaml, REPO),
+            "card": card, "molecules_per_s": 64 / p50, "p50_request_s": p50,
+            "request_s": lat[m],
+            "predict_bins_p50_s": float(np.median(lat_bins[m])),
+            "buckets_hit": sorted(hit), "kernel_launches": launched_by[m],
+            "kernel_body_launches": body})
+    bucket_schedule(card, spec, preds, bucket_sweep(rs, buckets, bs),
+                    buckets, bs)
+    del preds
+    f32_schedule_check(card, spec, cfg, buckets, mc, bs, rs)
+    torch.cuda.empty_cache()
 
     if spec.counter != "launches":
         # a deterministic forward runs no dropout: the rate-0 checks below
         # would repeat those of the path without it
-        return main_launches
+        return launched_by
 
     # one deterministic bf16 forward at N=48, b=16: the kernel's share
     feed48 = device_batch([random_molecule(rs, int(n))
@@ -1583,7 +1912,7 @@ def serving_phase(card, spec: ModelSpec):
     # every bucket, deterministic f32: kernel path against the plain path
     cfg32 = cfg.replace(compute_dtype="float32")
     state = model.state_dict()
-    del pred, model
+    del model
     paths = {}
     for use_pallas in (cfg.use_pallas, False):
         m = DistanceModel(cfg32.replace(use_pallas=use_pallas), device="cuda")
@@ -1608,7 +1937,7 @@ def serving_phase(card, spec: ModelSpec):
                           "ok": ok})
         if not ok:
             fail(f"f32 logits disagree at bucket {nb}")
-    return main_launches
+    return launched_by
 
 
 # -- phase 4: training ----------------------------------------------------------
@@ -2633,6 +2962,153 @@ def stage2_phase(card, spec: ModelSpec, root: str):
         total["gap_pred"][key] += n
     total["two_stage"] = {"fwd": served, "bwd": 0, **bodies["two_stage"]}
     return total
+
+
+# -- phase 7v: the MC-draw schedule through the CLI and the two-stage request -----
+
+def schedule_cli_phase(card, spec: ModelSpec, root: str):
+    """Phase 7v, in phase 7's directory on its distance dir and phase 7b's
+    gap_pred dir: ``execute("evaluate")`` under ``mc_eval_mode`` map and
+    vmap in turns, in bf16 with exact launches (per draw and eval batch
+    ``per_forward`` under map, per eval batch under vmap) and in f32 (val
+    losses within 1e-4 relative); three 64-molecule ``TwoStagePredictor``
+    requests under ``mc_mode`` map and vmap in turns (batch 16, 10 draws
+    in each stage; launches exact), and one f32 request of 16 molecules,
+    vmap against map within 1e-4 of max|ref|. Returns the vmap launches by
+    path, with the body counts where the path counts them."""
+    from tgt_torch.cli.execute import execute
+    from tgt_torch.core.config import load_yaml
+    from tgt_torch.models import make_model
+    from tgt_torch.serving import (DistancePredictor, GapPredictor,
+                                   TwoStagePredictor)
+
+    data, models = os.path.join(root, "data"), os.path.join(root, "models")
+    cfg = load_config(spec, dataset_path=data, global_batch_size=64,
+                      save_path_prefix=models, num_epochs=1)
+    dist_dir = os.path.join(models, cfg["model_prefix"], cfg["model_name"])
+    gp = load_yaml(spec.stage2["gap_pred"])
+    gp.update(spec.overrides)
+    gp_dir = os.path.join(models, gp["model_prefix"], gp["model_name"])
+    with np.load(os.path.join(data, "splits.npz")) as splits:
+        n_val = len(splits["valid-3d"])
+    per_fwd = spec.per_forward(cfg)
+    gap_fwd = spec.per_forward(gp) - spec.per_layer_applied(gp)
+    mc = cfg["evaluation_samples"]
+    eval_b = cfg["batch_size"] * cfg["prediction_bmult"]
+    batches = math.ceil(n_val / eval_b)
+    forwards = {"map": mc, "vmap": 1}       # per device batch
+    out = {"evaluate_vmap": {}, "two_stage_vmap": {}}
+
+    # the evaluate command, bf16 then f32, the order alternating
+    evals = {}
+    with recorded_trainer() as rec:
+        for precision, extra, modes in (
+                ("bf16", {}, MODES),
+                ("f32", {"mixed_precision": False}, MODES[::-1])):
+            for mode in modes:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                metrics = execute("evaluate", dict(
+                    cfg, mc_eval_mode=mode, **extra))
+                torch.cuda.synchronize()
+                launched = {"fwd": spec.launches(spec.fwd), "bwd": 0}
+                check_only(spec)
+                expect = batches * forwards[mode] * per_fwd
+                if launched["fwd"] != expect or rec["plain_core"]:
+                    fail(f"evaluate ({precision}, {mode}): {launched} "
+                         f"launches, expected {expect}; "
+                         f"{rec['plain_core']} plain-core calls")
+                check_bodies(spec, launched, f"evaluate ({precision})")
+                if precision == "bf16" and mode == "vmap":
+                    out["evaluate_vmap"] = {"fwd": launched["fwd"]}
+                eval_s, molecules = rec["evals"][-1]
+                evals[precision, mode] = {
+                    "val_loss": metrics["val"]["loss"], "eval_s": eval_s,
+                    "molecules_per_s": molecules / eval_s,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "launches": launched["fwd"]}
+                metrics.pop("state", None)
+                torch.cuda.empty_cache()
+    loss = {k: v["val_loss"] for k, v in evals.items()}
+    rel = abs(loss["f32", "vmap"] - loss["f32", "map"]) / abs(loss["f32",
+                                                                   "map"])
+    emit({"evaluate": "mc_eval_mode map and vmap", "path": spec.name,
+          "eval_batch": eval_b, "draws": mc, "card": card,
+          "runs": {f"{p}_{m}": v for (p, m), v in evals.items()},
+          "val_loss_f32_rel_diff": rel})
+    if not all(math.isfinite(v) for v in loss.values()) or rel > 1e-4:
+        fail(f"evaluate under vmap: val losses {loss}, f32 relative "
+             f"difference {rel}")
+
+    # the two-stage request
+    twos = {m: TwoStagePredictor.from_model_dirs(
+        dist_dir, gp_dir, mc_samples=mc, batch_size=SERVE_BATCH,
+        buckets=tuple(gp["buckets"]), mc_mode=m) for m in MODES}
+    rs = np.random.RandomState(13)
+    warm = request(rs, SERVE_BATCH)
+    for m in MODES:
+        twos[m].predict(warm)                   # warm-up
+    requests = [request(rs) for _ in range(3)]
+    n_batches = math.ceil(len(requests[0]) / SERVE_BATCH)
+    torch.cuda.synchronize()
+    reset_counts()                              # the main path starts
+    lat = {m: [] for m in MODES}
+    launched_by = {m: 0 for m in MODES}
+    for r, mols in enumerate(requests):
+        for mode in (MODES if r % 2 == 0 else MODES[::-1]):
+            before = spec.launches(spec.fwd)
+            t0 = time.perf_counter()
+            gaps = twos[mode].predict(mols)
+            lat[mode].append(time.perf_counter() - t0)
+            launched = spec.launches(spec.fwd) - before
+            launched_by[mode] += launched
+            expect = n_batches * forwards[mode] * (per_fwd + gap_fwd)
+            if launched != expect:
+                fail(f"two-stage request {r} ({mode}): {launched} kernel "
+                     f"launches, expected {expect}")
+            if gaps.shape != (len(mols),) or not np.isfinite(gaps).all():
+                fail(f"two-stage request {r} ({mode}): gaps {gaps.shape}")
+    check_bodies(spec, {"fwd": spec.launches(spec.fwd), "bwd": 0},
+                 "two-stage")                   # the main path ends
+    check_only(spec)
+    out["two_stage_vmap"] = {"fwd": launched_by["vmap"]}
+
+    # f32: the same weights, vmap against map on one request
+    f32 = {}
+    models32 = {}
+    for stage, kind in (("distance", "distance"), ("gap", "gap")):
+        src = getattr(twos["map"], stage)
+        cfg32 = src.cfg.replace(compute_dtype="float32")
+        model = make_model(kind, cfg32, device="cuda")
+        model.load_state_dict(src.model.state_dict())
+        models32[stage] = (model, cfg32)
+    mols = request(rs, SERVE_BATCH)
+    for m in MODES:
+        kw = dict(mc_samples=mc, batch_size=SERVE_BATCH,
+                  buckets=tuple(gp["buckets"]), device="cuda", mc_mode=m)
+        two = TwoStagePredictor(
+            DistancePredictor(*models32["distance"], seed=21, **kw),
+            GapPredictor(*models32["gap"], seed=22, **kw),
+            range_bins=twos["map"].range_bins)
+        f32[m] = two.predict(mols)
+    err = float(np.abs(f32["vmap"] - f32["map"]).max())
+    scale = float(np.abs(f32["map"]).max())
+    row = {"two_stage": "TwoStagePredictor.predict, mc_mode map and vmap",
+           "path": spec.name, "card": card, "batch": SERVE_BATCH,
+           "draws": mc, **{f"p50_request_s_{m}": float(np.median(lat[m]))
+                           for m in MODES},
+           **{f"molecules_per_s_{m}": 64 / float(np.median(lat[m]))
+              for m in MODES},
+           "request_s": lat, "launches": launched_by,
+           "f32_max_abs_err": err, "f32_max_abs_ref": scale}
+    emit(row)
+    if err > 1e-4 * scale or not np.isfinite(f32["vmap"]).all():
+        fail(f"f32 two-stage gaps under vmap against map: max|diff| {err}, "
+             f"max|ref| {scale}")
+    del twos, models32
+    torch.cuda.empty_cache()
+    return out
 
 
 # -- phase 7p: the real-data runbook on a PCQM4Mv2 stand-in ---------------------
@@ -4056,6 +4532,9 @@ def main() -> int:
                                     aggregate_backward_phase, card)
     legacy = phase("2f legacy fwd kernel", legacy_forward_phase, card)
     legacy_bwd = phase("2g legacy bwd kernel", legacy_backward_phase, card)
+    vk = phase("2v forward kernels at the draw-stacked batches",
+               vmap_kernel_phase, card)
+    big = phase("2r row 1 past 2**31 elements", big_batch_phase, card)
 
     served, trained = {}, {}
     for tag, spec in (("3", at), ("3d", at_d), ("3l", at_l),
@@ -4068,7 +4547,7 @@ def main() -> int:
         phase(f"{int(tag[0]) + 1}b{tag[1:]} {spec.name} f32 gradients",
               gradient_phase, card, spec, weights)
         del weights
-    if not all(served.values()):
+    if not all(all(v.values()) for v in served.values()):
         fail(f"a served path never launched its triplet kernel: {served}")
     remat = phase("4r TGT-At remat policies", remat_policy_phase, card, at)
     indiv = phase("4r TGT-At IndivConfig serving", indiv_serving_phase, card,
@@ -4079,6 +4558,8 @@ def main() -> int:
         cli_x = phase("7x TGT-Agx2 CLI", cli_phase, card, agx2, root)
         stage2_x = phase("7bx TGT-Agx2 stage 2", stage2_phase, card, agx2,
                          root)
+        sched = phase("7v TGT-At MC-draw schedule", schedule_cli_phase, card,
+                      at, root)
         prep = phase("7p TGT-At prepared data", prep_phase, card, at, root)
         ddp = phase("7d TGT-At data parallelism", ddp_phase, card, at, root)
         pair = phase("7q TGT-At pair axis", pair_phase, card, at, root)
@@ -4129,21 +4610,39 @@ def main() -> int:
             for (b, n), row in sorted(by_shape.items())})
         return out
 
+    def at_batches(rows):
+        """A kernel's rows at the draw-stacked batches of phase 2v."""
+        return {f"b{b}_n{n}": {k: row.get(k) for k in (
+            "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "device_ms", "bitwise_equal")}
+            for (b, n), row in sorted(rows.items())}
+
     d_serve, d_train = served[at_d.name], trained[at_d.name]
     print(f"card: {card}", flush=True)
     emit({"kernels": [
         dict(with_dropout(entry(
             "triplet_dense_fwd", td.KERNEL_SOURCE, td.REPLACES,
-            {"serving": served[at.name], "training": trained[at.name]["fwd"],
-             "serving_dropout": d_serve, "training_dropout": d_train["fwd"],
+            {"serving": served[at.name]["map"],
+             "serving_vmap": served[at.name]["vmap"],
+             "training": trained[at.name]["fwd"],
+             "serving_dropout": d_serve["map"],
+             "serving_dropout_vmap": d_serve["vmap"],
+             "training_dropout": d_train["fwd"],
              "cli": cli["fwd"], "prep": prep["fwd"], "ddp": ddp["fwd"],
              "pair": pair["fwd"],
              **{k: v["fwd"] for k, v in stage2.items()},
              **{f"remat_{k}": v["fwd"] for k, v in remat.items()},
-             "indiv": indiv["triplet_dense_fwd"]},
+             "indiv": indiv["triplet_dense_fwd"],
+             "evaluate_vmap": sched["evaluate_vmap"]["fwd"],
+             "two_stage_vmap": sched["two_stage_vmap"]["fwd"]},
             dense[FLAGSHIP], dense[UNGATED], dense[UNGATED_TRAIN]),
-            drop["fwd"], {"serving": d_serve, "training": d_train["fwd"]}),
-            eval_batches=shapes(dense, EVAL_CASES)),
+            drop["fwd"], {"serving": d_serve["map"],
+                          "serving_vmap": d_serve["vmap"],
+                          "training": d_train["fwd"]}),
+            eval_batches=shapes(dense, EVAL_CASES),
+            vmap_batches=at_batches(vk["triplet_dense_fwd"]),
+            dropout_vmap_batches=at_batches(vk["triplet_dense_fwd dropout"]),
+            past_2_31=big),
         dict(with_dropout(entry(
             "triplet_dense_bwd", td.BWD_KERNEL_SOURCE, td.BWD_REPLACES,
             {"training": trained[at.name]["bwd"],
@@ -4157,15 +4656,18 @@ def main() -> int:
             stage2_micro_batch=shapes(dense_bwd, STAGE2_BWD_CASES)),
         with_device(entry(
             "triplet_aggregate_fwd", ta.KERNEL_SOURCE, ta.REPLACES,
-            {"serving": served[agx2.name],
+            {"serving": served[agx2.name]["map"],
+             "serving_vmap": served[agx2.name]["vmap"],
              "training": trained[agx2.name]["fwd"], "cli": cli_x["fwd"],
              "pair": pair["fwd"],
              **{k: v["fwd"] for k, v in stage2_x.items()},
              "indiv": indiv["triplet_aggregate_fwd"]}, agg[16]), agg,
             agg_shapes,
+            vmap_batches=at_batches(vk["triplet_aggregate_fwd"]),
             # every phase of the path fails unless all its bf16 launches
             # took the body; the f32 checks take the panel route
-            body_launches=served[agx2.name] + trained[agx2.name]["fwd_body"]
+            body_launches=sum(served[agx2.name].values())
+            + trained[agx2.name]["fwd_body"]
             + cli_x["fwd_body"] + sum(v["fwd_body"] for v in stage2_x.values())
             + indiv["triplet_aggregate_fwd_body"],
             panel_route={f"b{b}": {k: row[k] for k in (
@@ -4182,10 +4684,13 @@ def main() -> int:
             panel_route={f"b{b}": {k: row[k] for k in (
                 "ms_body", "ms_panel_route", "device_ms_panel_route")}
                 for b, row in agg_bwd.items()}),
-        entry("triplet_attention_fwd", tl.KERNEL_SOURCE, tl.REPLACES,
-              {"serving": served[at_l.name],
-               "training": trained[at_l.name]["fwd"], "pair": pair["fwd"]},
-              legacy[FLAGSHIP], legacy[UNGATED], legacy[UNGATED_TRAIN]),
+        dict(entry("triplet_attention_fwd", tl.KERNEL_SOURCE, tl.REPLACES,
+                   {"serving": served[at_l.name]["map"],
+                    "serving_legacy_vmap": served[at_l.name]["vmap"],
+                    "training": trained[at_l.name]["fwd"],
+                    "pair": pair["fwd"]},
+                   legacy[FLAGSHIP], legacy[UNGATED], legacy[UNGATED_TRAIN]),
+             vmap_batches=at_batches(vk["triplet_attention_fwd"])),
         entry("triplet_attention_bwd", tl.BWD_KERNEL_SOURCE, tl.BWD_REPLACES,
               {"training": trained[at_l.name]["bwd"], "pair": pair["bwd"]},
               legacy_bwd[FLAGSHIP], legacy_bwd[UNGATED],

@@ -13,7 +13,8 @@ port's ``write_synthetic_dataset``).
 - NaN rollback to the last checkpoint, bounded by ``max_recovery_tries``;
 - the dist_pred ``eval_fn`` with ``predict_in_train: false`` against
   tgt_tpu's on the same weights and batch (1e-5 relative);
-- ``mc_sample`` skips non-finite draws.
+- ``mc_sample`` skips non-finite draws, under ``mc_eval_mode`` map and
+  vmap alike.
 
 ``dataset_source: pcqm`` and ``size_bucketed_batching: true`` against
 tgt_tpu's batches are tested in ``test_torch_port_training.py``.
@@ -315,10 +316,8 @@ def test_eval_fn_matches_tgt_tpu(tmp_path, data_dir):
 
 
 def test_mc_sample_skips_non_finite_draws(tmp_path, data_dir):
-    # mc_eval_mode is accepted for config parity with tgt_tpu; the port's
-    # mc_sample runs the same loop for both values, so one mode is enough
-    scheme = get_scheme("pcqm.dist_pred")(flagship(tmp_path, data_dir,
-                                                   mc_eval_mode="vmap"))
+    # mc_eval_mode: map calls the one-seed draw per seed; vmap calls the
+    # draw-stacked form once, with the same sums and valid count
     bad = set()
 
     def draw(seed):
@@ -328,10 +327,24 @@ def test_mc_sample_skips_non_finite_draws(tmp_path, data_dir):
             v[1] = float("nan")
         return {"a": v, "b": torch.ones(2)}
 
-    sums, valid = scheme.mc_sample(draw, 5, 8)
-    good = 8 - len(bad)
-    assert 0 < len(bad) < 8 and int(valid) == good
-    assert torch.equal(sums["b"], torch.full((2,), float(good)))
-    none, zero = scheme.mc_sample(lambda s: {"a": torch.full((2,), np.nan)},
-                                  5, 3)
-    assert int(zero) == 0 and torch.equal(none["a"], torch.zeros(2))
+    def stacked(seeds):
+        draws = [draw(s) for s in seeds]
+        return {k: torch.stack([d[k] for d in draws]) for k in draws[0]}
+
+    runs = {}
+    for mode in ("map", "vmap"):
+        scheme = get_scheme("pcqm.dist_pred")(flagship(
+            tmp_path, data_dir, mc_eval_mode=mode))
+        bad.clear()
+        runs[mode] = scheme.mc_sample(draw, 5, 8, stacked)
+        sums, valid = runs[mode]
+        good = 8 - len(bad)
+        assert 0 < len(bad) < 8 and int(valid) == good
+        assert torch.equal(sums["b"], torch.full((2,), float(good)))
+        none, zero = scheme.mc_sample(
+            lambda s: {"a": torch.full((2,), np.nan)}, 5, 3,
+            lambda seeds: {"a": torch.full((len(seeds), 2), np.nan)})
+        assert int(zero) == 0 and torch.equal(none["a"], torch.zeros(2))
+    assert int(runs["map"][1]) == int(runs["vmap"][1])
+    for k in ("a", "b"):
+        assert torch.equal(runs["map"][0][k], runs["vmap"][0][k])

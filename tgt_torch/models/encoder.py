@@ -15,7 +15,11 @@ lib/tgt/encoder.py:24-90):
 The layers run as a Python loop. Randomness: one seed gives a table of
 per-layer seeds, drawn in layer order; each layer application gets its own
 ``torch.Generator`` on the device and draws its dropout masks from it in
-forward order.
+forward order. A sequence of S seeds runs a draw-stacked batch (S MC draws
+of b molecules as S*b rows, draw-major; tgt_tpu's ``vmap`` over the draws'
+keys): S tables, and S generators per layer application, row block s
+drawing from generator s (``ops/common.py``), so that draw s equals the
+forward of b rows under seed s.
 
 Per-layer configs (IndivConfig, tgt_tpu/models/encoder.py:262-296): layer
 i is built from ``cfg.layer_cfg(i)``, so layers may differ in triplet
@@ -39,7 +43,7 @@ output of a random op.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -49,9 +53,12 @@ from tgt_torch.core.graph import Graph
 from tgt_torch.models.model_config import TGTConfig
 from tgt_torch.ops.attention import EdgeUpdate, EGTAttention
 from tgt_torch.ops import remat as remat_policies
-from tgt_torch.ops.common import drop_path
+from tgt_torch.ops.common import Generators, drop_path
 from tgt_torch.ops.ffn import FFN
 from tgt_torch.ops.triplet import get_triplet_module
+
+# one seed, or one per draw of a draw-stacked batch
+Seeds = Union[int, Sequence[int], None]
 
 
 class TGTLayer(nn.Module):
@@ -82,7 +89,7 @@ class TGTLayer(nn.Module):
 
     def forward(self, g: Graph, *, drop_path_rate: float = 0.0,
                 deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> Graph:
+                generator: Generators = None) -> Graph:
         """One TGT layer (reference forward: layers.py:262-294)."""
         cfg = self.cfg
         h, e, mask = g.h, g.e, g.mask
@@ -126,16 +133,14 @@ class TGTEncoder(nn.Module):
             for i in range(cfg.model_height))
 
     def forward(self, g: Graph, *, deterministic: bool = True,
-                seed: Optional[int] = None) -> Graph:
+                seed: Seeds = None) -> Graph:
         cfg = self.cfg
         reps = cfg.layer_multiplier
         seeds = None
         if not deterministic:
             if seed is None:
                 raise ValueError("a stochastic forward needs a seed")
-            seeds = torch.randint(
-                0, 2**62, (cfg.model_height * reps,),
-                generator=torch.Generator().manual_seed(seed)).tolist()
+            seeds = seed_table(seed, cfg.model_height * reps)
         remat = cfg.remat and torch.is_grad_enabled()
         # tgt_tpu's unrolled (IndivConfig) path remats every layer
         n_remat = len(self.TGT_layers) - (not cfg.has_indiv)
@@ -156,18 +161,37 @@ class TGTEncoder(nn.Module):
         return g
 
 
+def seed_table(seed: Union[int, Sequence[int]], count: int) -> list:
+    """The ``count`` per-layer-application seeds of one seed, drawn in
+    layer order; for a sequence of S seeds, one S-tuple per application,
+    entry s from seed s's table."""
+    if isinstance(seed, (list, tuple)):
+        return list(zip(*(seed_table(s, count) for s in seed)))
+    return torch.randint(0, 2**62, (count,),
+                         generator=torch.Generator().manual_seed(seed)).tolist()
+
+
+def make_generator(seed: Union[int, tuple], device) -> Generators:
+    """A generator on ``device`` seeded with ``seed``, or a tuple of them
+    for a tuple of per-draw seeds."""
+    if isinstance(seed, tuple):
+        return tuple(make_generator(s, device) for s in seed)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
 def _apply_layer(layer: TGTLayer, g: Graph, drop_path_rate: float,
-                 deterministic: bool, seeds: Optional[Sequence[int]],
+                 deterministic: bool, seeds: Optional[Sequence],
                  cache: Optional[remat_policies.RematCache] = None) -> Graph:
     """``layer_multiplier`` applications of one layer, each with a generator
-    made here from its seed (so that a remat replay draws the same masks);
-    the values the remat policy names go to ``cache``."""
+    (or one per draw) made here from its seed (so that a remat replay draws
+    the same masks); the values the remat policy names go to ``cache``."""
     with remat_policies.policy_scope(cache):
         for m in range(layer.cfg.layer_multiplier):
             gen = None
             if seeds is not None:
-                gen = torch.Generator(device=g.e.device)
-                gen.manual_seed(seeds[m])
+                gen = make_generator(seeds[m], g.e.device)
             g = layer(g, drop_path_rate=drop_path_rate,
                       deterministic=deterministic, generator=gen)
     return g

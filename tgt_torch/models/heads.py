@@ -10,14 +10,19 @@ As the reference task heads
 - multi: an encoder ended on both channels with both heads; returns
   (gap, dist_logits).
 
+``seed`` is one seed, or a sequence of S seeds for a draw-stacked batch:
+S MC draws of b molecules as one batch of S*b rows, row ``s*b + r`` draw s
+of molecule r, each draw's masks those of the one-seed forward
+(``models/encoder.py``).
+
 Inside a ``pair_scope`` (``tgt_torch.parallel``) the models run on the
-pair axis: the embedding builds this rank's edge rows, the encoder is
-``encoder_pair_sharded``, the distance head returns the rows' logits (b,
-N/P, N, bins) and the gap head pools the whole node state.
+pair axis, under one seed: the embedding builds this rank's edge rows, the
+encoder is ``encoder_pair_sharded``, the distance head returns the rows'
+logits (b, N/P, N, bins) and the gap head pools the whole node state.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
@@ -25,7 +30,7 @@ from torch import nn
 from tgt_torch.core.device import resolve_device
 from tgt_torch.models import consts as C
 from tgt_torch.models.embedding import EmbedInput
-from tgt_torch.models.encoder import TGTEncoder
+from tgt_torch.models.encoder import Seeds, TGTEncoder
 from tgt_torch.models.model_config import TGTConfig
 from tgt_torch.ops.common import init_module_, layernorm, linear
 from tgt_torch.parallel.mesh import current_pair_axis
@@ -53,11 +58,14 @@ class _TaskModel(nn.Module):
         self.encoder = TGTEncoder(cfg, device=device)
 
     def _encode(self, batch: Dict[str, torch.Tensor], deterministic: bool,
-                seed: Optional[int]):
+                seed: Seeds):
         axis = current_pair_axis()
         if axis is None:
             g = self.input_embed(batch)
             return self.encoder(g, deterministic=deterministic, seed=seed)
+        if isinstance(seed, (list, tuple)):
+            raise ValueError("a draw-stacked forward (a sequence of seeds) "
+                             "does not run on the pair axis")
         g = self.input_embed(batch, axis.rows(batch["node_mask"].shape[1]))
         return encoder_pair_sharded(self.encoder, g, axis,
                                     deterministic=deterministic, seed=seed)
@@ -78,7 +86,7 @@ class DistanceModel(_TaskModel):
 
     def forward(self, batch: Dict[str, torch.Tensor], *,
                 deterministic: bool = True,
-                seed: Optional[int] = None) -> torch.Tensor:
+                seed: Seeds = None) -> torch.Tensor:
         g = self._encode(batch, deterministic, seed)
         return linear(self.dist_pred, layernorm(self.final_ln_edge, g.e))
 
@@ -93,7 +101,7 @@ class GapModel(_TaskModel):
 
     def forward(self, batch: Dict[str, torch.Tensor], *,
                 deterministic: bool = True,
-                seed: Optional[int] = None) -> torch.Tensor:
+                seed: Seeds = None) -> torch.Tensor:
         return self._gap(self._encode(batch, deterministic, seed))
 
 
@@ -109,7 +117,7 @@ class MultiModel(_TaskModel):
                                    device=device)
 
     def forward(self, batch: Dict[str, torch.Tensor], *,
-                deterministic: bool = True, seed: Optional[int] = None
+                deterministic: bool = True, seed: Seeds = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         g = self._encode(batch, deterministic, seed)
         dist_logits = linear(self.dist_pred, layernorm(self.final_ln_edge, g.e))

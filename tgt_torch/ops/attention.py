@@ -11,7 +11,8 @@ Semantics of the reference EGT_Attention / EdgeUpdate
 
 The feature axis splits as (dot_dim, num_heads) with the head index fastest,
 as the reference's ``.view(b, N, dot, heads)`` does. Source dropout adds
-MASK_VALUE to whole source columns, a (b, 1, N, 1) draw.
+MASK_VALUE to whole source columns, a (b, 1, N, 1) draw (per row block
+from a tuple of generators: ``ops/common.py``).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import torch
 from torch import nn
 
 from tgt_torch.core.graph import MASK_VALUE
-from tgt_torch.ops.common import layernorm, linear
+from tgt_torch.ops.common import Generators, layernorm, linear, rand
 
 
 class EGTAttention(nn.Module):
@@ -41,7 +42,7 @@ class EGTAttention(nn.Module):
     def forward(self, h: torch.Tensor, e: torch.Tensor, mask: torch.Tensor,
                 *, scale_degree: bool = True, source_dropout: float = 0.0,
                 deterministic: bool = True,
-                generator: Optional[torch.Generator] = None
+                generator: Generators = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Gated pairwise attention -> (node_update, edge_update or None)."""
         b, n, node_width = h.shape
@@ -55,8 +56,7 @@ class EGTAttention(nn.Module):
         e_bias, g_bias = linear(self.lin_EG, e_ln).chunk(2, dim=-1)
 
         if source_dropout > 0.0 and not deterministic:
-            drop = torch.rand((b, 1, n, 1), generator=generator,
-                              device=h.device) < source_dropout
+            drop = rand((b, 1, n, 1), generator, h.device) < source_dropout
             mask = mask + drop.to(mask.dtype) * MASK_VALUE
 
         q = q.reshape(b, n, dot_dim, heads) * scale

@@ -11,16 +11,26 @@ Initialisation follows torch.nn's defaults, as tgt_tpu's does: Linear
 U(+-1/sqrt(fan_in)) for weight and bias, Embedding N(0, 1) with the padding
 row zeroed, LayerNorm ones and zeros. Every draw takes an explicit
 ``torch.Generator``.
+
+A forward's random draws (:func:`rand`, :func:`randint`) take one
+generator, or a tuple of S generators for a draw-stacked batch: S MC draws
+of b molecules as one batch of S*b rows, row ``s*b + r`` draw s of molecule
+r. Row block s of every draw of shape (S*b, ...) then comes from generator
+s with the shape (b, ...) that draw s alone draws, so every mask equals the
+one-draw forward's bit for bit.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 LN_EPS = 1e-5  # torch.nn.LayerNorm default
+
+# one generator, or one per draw of a draw-stacked batch
+Generators = Union[torch.Generator, Tuple[torch.Generator, ...], None]
 
 
 # ---------------------------------------------------------------------------
@@ -89,23 +99,58 @@ def embedding(emb: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
                        emb.weight)
 
 
+def _per_draw(shape: Sequence[int], generators: Tuple[torch.Generator, ...],
+              device, dtype, fill) -> torch.Tensor:
+    """A (S*b, ...) buffer whose row block s ``fill(block, generator s)``
+    writes: one contiguous (b, ...) slice per draw, no concatenation."""
+    draws = len(generators)
+    if shape[0] % draws:
+        raise ValueError(f"a draw-stacked batch of {shape[0]} rows does not "
+                         f"split into {draws} draws")
+    out = torch.empty(tuple(shape), device=device, dtype=dtype)
+    for block, gen in zip(out.view(draws, -1, *shape[1:]), generators):
+        fill(block, gen)
+    return out
+
+
+def rand(shape: Sequence[int], generator: Generators,
+         device) -> torch.Tensor:
+    """``torch.rand(shape)`` from ``generator``, or per row block from a
+    tuple of generators (see the module note)."""
+    if not isinstance(generator, tuple):
+        return torch.rand(shape, generator=generator, device=device)
+    return _per_draw(shape, generator, device, torch.get_default_dtype(),
+                     lambda block, gen: block.uniform_(generator=gen))
+
+
+def randint(high: int, shape: Sequence[int], generator: Generators, device,
+            dtype=torch.int64) -> torch.Tensor:
+    """``torch.randint(0, high, shape)`` from ``generator``, or per row
+    block from a tuple of generators (see the module note)."""
+    if not isinstance(generator, tuple):
+        return torch.randint(0, high, shape, generator=generator,
+                             device=device, dtype=dtype)
+    return _per_draw(shape, generator, device, dtype,
+                     lambda block, gen: block.random_(0, high, generator=gen))
+
+
 def dropout(x: torch.Tensor, rate: float, deterministic: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Generators) -> torch.Tensor:
     """Inverted dropout (scale by 1/keep at train time)."""
     if deterministic or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    keep = rand(x.shape, generator, x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def drop_path(x: torch.Tensor, rate: float, deterministic: bool,
-              generator: Optional[torch.Generator]) -> torch.Tensor:
+              generator: Generators) -> torch.Tensor:
     """Per-sample stochastic depth (reference: lib/tgt/layers/layers.py:163-174)."""
     if deterministic or rate == 0.0:
         return x
     keep_prob = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    u = torch.rand(shape, generator=generator, device=x.device)
+    u = rand(shape, generator, x.device)
     keep = (u < keep_prob).to(x.dtype)
     return x / keep_prob * keep
 

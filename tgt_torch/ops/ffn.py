@@ -6,13 +6,11 @@ Reference: lib/tgt/layers/layers.py:134-160 — LN -> W1 (width*mult*act_mul)
 """
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 from torch import nn
 
 from tgt_torch.ops.activations import get_activation
-from tgt_torch.ops.common import dropout, layernorm, linear
+from tgt_torch.ops.common import Generators, dropout, layernorm, linear
 
 
 class FFN(nn.Module):
@@ -28,7 +26,7 @@ class FFN(nn.Module):
 
     def forward(self, x: torch.Tensor, *, act_dropout: float = 0.0,
                 deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Generators = None) -> torch.Tensor:
         act_fn, _ = get_activation(self.activation)
         y = layernorm(self.ffn_ln, x)
         y = act_fn(linear(self.lin_W1, y))

@@ -50,7 +50,8 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
-from tgt_torch.ops.common import dropout, layernorm, linear, siglin
+from tgt_torch.ops.common import (Generators, dropout, layernorm, linear,
+                                  randint, siglin)
 from tgt_torch.ops.remat import checkpoint_name
 from tgt_torch.ops.kernels.triplet_aggregate import (
     triplet_aggregate_core, triplet_aggregate_fwd_reference)
@@ -59,14 +60,16 @@ from tgt_torch.ops.kernels.triplet_dense import (dense_weights, triplet_dense,
                                                  triplet_dense_fwd_reference)
 
 
-def dropout_seeds(b: int, generator: Optional[torch.Generator],
+def dropout_seeds(b: int, generator: Generators,
                   device) -> Dict[str, torch.Tensor]:
     """One (b, 1) int32 seed tensor per direction, "in" then "out", in
     [0, 2**31 - 1), from the layer's generator: the counterpart of the rng
     split of ``triplet_attention_dense`` (``triplet_dense.py:700-705``).
-    Drawn inside the layer, so a remat replay draws the same seeds."""
-    return {which: torch.randint(0, 2 ** 31 - 1, (b, 1), generator=generator,
-                                 device=device, dtype=torch.int32)
+    Drawn inside the layer, so a remat replay draws the same seeds. For a
+    draw-stacked batch (a tuple of S generators, ``b`` = S*b rows) row
+    block s comes from generator s, "in" before "out" as in one draw."""
+    return {which: randint(2 ** 31 - 1, (b, 1), generator, device,
+                           dtype=torch.int32)
             for which in ("in", "out")}
 
 
@@ -90,7 +93,7 @@ class TripletAttention(nn.Module):
 
     def forward(self, e: torch.Tensor, mask: torch.Tensor, *,
                 attention_dropout: float = 0.0, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None,
+                generator: Generators = None,
                 use_pallas=False) -> torch.Tensor:
         # the routing of tgt_tpu/ops/triplet.py:274-371
         rate = 0.0 if deterministic else float(attention_dropout)
@@ -200,7 +203,7 @@ class TripletAggregate(nn.Module):
 
     def forward(self, e: torch.Tensor, mask: torch.Tensor, *,
                 attention_dropout: float = 0.0, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None,
+                generator: Generators = None,
                 use_pallas=False) -> torch.Tensor:
         core = (triplet_aggregate_core if use_pallas == "dense"
                 else triplet_aggregate_fwd_reference)
@@ -254,7 +257,7 @@ class TriangularUpdate(nn.Module):
 
     def forward(self, e: torch.Tensor, mask: torch.Tensor, *,
                 attention_dropout: float = 0.0, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None,
+                generator: Generators = None,
                 use_pallas=False) -> torch.Tensor:
         e_ln = layernorm(self.tri_ln_e, e)
         v_in_g, v_in_l, v_out_g, v_out_l = linear(self.lin_V, e_ln).chunk(4, -1)
@@ -284,7 +287,7 @@ class AxialAttention(nn.Module):
 
     def forward(self, e: torch.Tensor, mask: torch.Tensor, *,
                 attention_dropout: float = 0.0, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None,
+                generator: Generators = None,
                 use_pallas=False) -> torch.Tensor:
         b, n, _, w = e.shape
         h = self.num_heads

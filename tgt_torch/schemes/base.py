@@ -399,19 +399,32 @@ class TGTScheme:
 
     # -- MC sampling ------------------------------------------------------------
     def mc_sample(self, fn: Callable[[int], Dict[str, torch.Tensor]],
-                  seed: int, num_samples: int
+                  seed: int, num_samples: int,
+                  stacked: Optional[Callable[[List[int]],
+                                             Dict[str, torch.Tensor]]] = None
                   ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """Sum ``fn(seed_k)`` in f32 over ``num_samples`` draws, the k-th
         under ``derive_seed(seed, k)``, skipping every draw with a
         non-finite value (reference dist_pred/scheme.py:139-167, its
         NaN-resample loop). Returns (sums, count of the valid draws).
-        tgt_tpu's two ``mc_eval_mode`` values schedule the same draws on
-        the TPU (one program or a scan); the port runs either as a loop of
-        eager draws, with the same result."""
+
+        ``mc_eval_mode`` schedules the draws (tgt_tpu/schemes/base.py:
+        421-455): ``map`` calls ``fn`` once per draw; ``vmap`` calls
+        ``stacked(seeds)`` once, a draw-stacked forward of all the draws'
+        seeds that returns each value with a leading draw axis, entry k
+        ``fn(seed_k)``'s. Each draw is then finite or not on its own, and
+        the sums run in the same order as the loop's. A caller without a
+        draw-stacked form (``stacked`` None) runs the loop in either mode."""
+        seeds = [derive_seed(seed, k) for k in range(num_samples)]
+        if stacked is not None and self.cfg.mc_eval_mode == "vmap":
+            outs = stacked(seeds)
+            draws = ({n: v[k] for n, v in outs.items()}
+                     for k in range(num_samples))
+        else:
+            draws = (fn(s) for s in seeds)
         acc: Optional[Dict[str, torch.Tensor]] = None
         valid = None
-        for k in range(num_samples):
-            out = fn(derive_seed(seed, k))
+        for out in draws:
             finite = torch.stack([torch.isfinite(v).all()
                                   for v in out.values()]).all()
             if acc is None:

@@ -1,10 +1,10 @@
 """Shared task math of the PCQM schemes (counterpart of
 tgt_tpu/schemes/commons.py): ``coords2dist``, ``add_coords_noise``,
-``discrete_dist``, ``discrete_dist_loss``, ``bins2dist`` and
-``masked_l1``."""
+``discrete_dist``, ``discrete_dist_loss``, ``bins2dist``, ``masked_l1``,
+and ``stack_draws``, the feed of a draw-stacked MC forward."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -87,3 +87,11 @@ def masked_l1(pred: torch.Tensor, target: torch.Tensor,
         return err.mean()
     m = sample_mask.to(err.dtype)
     return (err * m).sum() / ((m.sum() if count is None else count) + 1e-9)
+
+
+def stack_draws(feed: Dict[str, torch.Tensor],
+                draws: int) -> Dict[str, torch.Tensor]:
+    """The feed of a draw-stacked forward of ``draws`` MC draws: every
+    input repeated along the batch axis, draw-major (row ``s*b + r`` is
+    draw s of molecule r)."""
+    return {k: v.repeat(draws, *(1,) * (v.dim() - 1)) for k, v in feed.items()}

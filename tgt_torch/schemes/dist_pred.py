@@ -24,10 +24,10 @@ import torch
 
 from tgt_torch.core.config import Config, Lazy
 from tgt_torch.data.bins import bins_dtype, pack_bins_multi
-from tgt_torch.parallel.mesh import pair_scope
+from tgt_torch.parallel.mesh import current_pair_axis, pair_scope
 from tgt_torch.schemes.base import TGTScheme, default_scheme_config
 from tgt_torch.schemes.commons import (add_coords_noise, coords2dist,
-                                       discrete_dist_loss)
+                                       discrete_dist_loss, stack_draws)
 from tgt_torch.training.harness import derive_seed
 
 
@@ -126,13 +126,21 @@ class DistPredScheme(TGTScheme):
     @torch.no_grad()
     def eval_fn(self, model, batch: Dict[str, torch.Tensor], seed: int):
         """Per-graph cross-entropy of the log of the draws' mean
-        symmetrised probabilities, and the count of finite draws."""
+        symmetrised probabilities, and the count of finite draws. Under
+        ``mc_eval_mode: vmap`` the draws run as one draw-stacked forward
+        (off the pair axis, whose forward takes one seed)."""
         edge_mask = self.edge_mask_of(batch)
         feed = self._model_inputs(batch, edge_mask, None, training=False)
         dist_targ = self._dist_target(batch, None, training=False)
+
+        def stacked(seeds):
+            p = self._probs(model, stack_draws(feed, len(seeds)), seeds)
+            return {"p": p.view(len(seeds), -1, *p.shape[1:])}
+
         sums, valid = self.mc_sample(
             lambda s: {"p": self._probs(model, feed, s)}, seed,
-            self.nb_draw_samples)
+            self.nb_draw_samples,
+            stacked if current_pair_axis() is None else None)
         probs = sums["p"] + sums["p"].transpose(-2, -3)
         probs = probs / (2.0 * torch.clamp(valid, min=1).float())
         logits = torch.log(probs + 1e-9)

@@ -14,6 +14,8 @@ As the reference (lib/training_schemes/pcqm/pretrain/scheme.py):
 
 Each draw's noise comes from ``derive_seed(seed, 0)`` and its dropout from
 ``derive_seed(seed, 1)``, so a resumed run repeats an uninterrupted one.
+Under ``mc_eval_mode: vmap`` the eval draws run as one draw-stacked
+forward, each draw on its own noise and dropout.
 """
 from __future__ import annotations
 
@@ -23,9 +25,11 @@ import numpy as np
 import torch
 
 from tgt_torch.core.config import Config
+from tgt_torch.parallel.mesh import current_pair_axis
 from tgt_torch.schemes.base import TGTScheme, default_scheme_config
 from tgt_torch.schemes.commons import (add_coords_noise, coords2dist,
-                                       discrete_dist_loss, masked_l1)
+                                       discrete_dist_loss, masked_l1,
+                                       stack_draws)
 from tgt_torch.training.harness import derive_seed
 
 
@@ -53,21 +57,45 @@ class PretrainScheme(TGTScheme):
         return ("node_features", "distance_matrix", "feature_matrix",
                 "node_mask", "target", "dft_coords")
 
-    def _noisy_forward(self, model, batch: Dict[str, torch.Tensor],
-                       edge_mask: torch.Tensor, seed: int,
-                       deterministic: bool):
-        """(gap, dist_logits) of one forward on noisy DFT distances."""
+    @staticmethod
+    def _clean_feed(batch: Dict[str, torch.Tensor],
+                    edge_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The model inputs but the distances."""
         feed = {k: batch[k] for k in ("node_features", "distance_matrix",
                                       "feature_matrix", "node_mask")}
         feed["edge_mask"] = edge_mask
+        return feed
+
+    def _noisy_dist(self, batch: Dict[str, torch.Tensor],
+                    edge_mask: torch.Tensor, seed: int) -> torch.Tensor:
+        """The noisy DFT distances of one draw."""
         gen = torch.Generator(device=edge_mask.device)
         gen.manual_seed(derive_seed(seed, 0))
         coords = add_coords_noise(batch["dft_coords"].float(), edge_mask,
                                   self.cfg.coords_noise,
                                   self.cfg.coords_noise_smooth, gen)
-        feed["dist_input"] = coords2dist(coords)
+        return coords2dist(coords)
+
+    def _noisy_forward(self, model, batch: Dict[str, torch.Tensor],
+                       edge_mask: torch.Tensor, seed: int,
+                       deterministic: bool):
+        """(gap, dist_logits) of one forward on noisy DFT distances."""
+        feed = self._clean_feed(batch, edge_mask)
+        feed["dist_input"] = self._noisy_dist(batch, edge_mask, seed)
         return model(feed, deterministic=deterministic,
                      seed=derive_seed(seed, 1))
+
+    def _stacked_forward(self, model, batch: Dict[str, torch.Tensor],
+                         edge_mask: torch.Tensor, seeds: List[int],
+                         deterministic: bool):
+        """(gap, dist_logits) of the draws ``seeds`` as one draw-stacked
+        forward of S*b rows: draw k's rows on draw k's noisy distances,
+        under ``derive_seed(seeds[k], 1)``."""
+        feed = stack_draws(self._clean_feed(batch, edge_mask), len(seeds))
+        feed["dist_input"] = torch.cat([self._noisy_dist(batch, edge_mask, s)
+                                        for s in seeds])
+        return model(feed, deterministic=deterministic,
+                     seed=[derive_seed(s, 1) for s in seeds])
 
     def loss_fn(self, model, batch: Dict[str, torch.Tensor], seed: int):
         edge_mask = self.edge_mask_of(batch)
@@ -95,7 +123,16 @@ class PretrainScheme(TGTScheme):
             return {"gap": gap, "probs": torch.softmax(
                 self.full_rows(dist_logits).float(), dim=-1)}
 
-        acc, valid = self.mc_sample(one, seed, self.nb_draw_samples)
+        def stacked(seeds):
+            gap, dist_logits = self._stacked_forward(model, batch, edge_mask,
+                                                     seeds, deterministic=det)
+            probs = torch.softmax(dist_logits.float(), dim=-1)
+            return {"gap": gap.view(len(seeds), -1),
+                    "probs": probs.view(len(seeds), -1, *probs.shape[1:])}
+
+        acc, valid = self.mc_sample(
+            one, seed, self.nb_draw_samples,
+            stacked if current_pair_axis() is None else None)
         v = torch.clamp(valid, min=1).float()
         gap_loss = torch.abs(acc["gap"] / v - batch["target"].float())
         probs = acc["probs"] + acc["probs"].transpose(-2, -3)
