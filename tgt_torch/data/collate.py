@@ -2,13 +2,17 @@
 tgt_tpu/data/collate.py).
 
 Node axes pad to the smallest bucket that holds the batch's largest graph,
-so a server sees a handful of shapes.
+so a server sees a handful of shapes. ``padded_collate`` runs inside a
+``data.collate`` span (``rows``, ``bucket``; ``tgt_torch.utils.tracing``,
+recorded while torch's profiler runs).
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from tgt_torch.utils import tracing
 
 # Node-count axes per batch key (dims after the leading batch dim).
 _NODE_AXES = {
@@ -62,14 +66,17 @@ def padded_collate(batch: List[Dict[str, np.ndarray]],
         max_nodes = max(int(np.asarray(row["num_nodes"])) if "num_nodes" in row
                         else len(row["node_mask"]) for row in batch)
         bucket = pick_bucket(max_nodes, buckets)
-    out = {}
-    for k in batch[0].keys():
-        arrays = [np.asarray(row[k]) for row in batch]
-        pad_to = None
-        if bucket is not None and k in _NODE_AXES:
-            pad_to = {d: bucket for d in _NODE_AXES[k]}
-        out[k] = stack_with_pad(arrays, pad_to)
-    return out
+    with tracing.span("data.collate") as span:
+        if span is not None:
+            span.update(rows=len(batch), bucket=bucket)
+        out = {}
+        for k in batch[0].keys():
+            arrays = [np.asarray(row[k]) for row in batch]
+            pad_to = None
+            if bucket is not None and k in _NODE_AXES:
+                pad_to = {d: bucket for d in _NODE_AXES[k]}
+            out[k] = stack_with_pad(arrays, pad_to)
+        return out
 
 
 def add_edge_mask(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:

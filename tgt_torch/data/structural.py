@@ -13,6 +13,9 @@ As the reference's numba kernels (lib/data/pcqm/structural_transform.py:8-75):
 arrays as its numpy version ``preprocess_graph_numpy``. The numpy version
 runs only when no C++ compiler is on PATH, and then it warns once; a
 compiler whose build or load fails raises. ``backend()`` says which ran.
+
+``AddStructuralData`` runs inside a ``data.transform`` span (``atoms``;
+``tgt_torch.utils.tracing``, recorded while torch's profiler runs).
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ import warnings
 from typing import Dict
 
 import numpy as np
+
+from tgt_torch.utils import tracing
 
 NODE_FEATURES_OFFSET = 128
 EDGE_FEATURES_OFFSET = 8
@@ -94,12 +99,15 @@ class AddStructuralData:
 
     def __call__(self, item: Dict) -> Dict:
         num_nodes = int(item["num_nodes"])
-        edges = item.pop("edges")
-        node_feats = item.pop("node_features")
-        edge_feats = item.pop("edge_features")
-        nf, dist, fmat = preprocess_graph(num_nodes, edges, node_feats,
-                                          edge_feats)
-        item["node_features"] = nf
-        item["distance_matrix"] = dist
-        item["feature_matrix"] = fmat
-        return item
+        with tracing.span("data.transform") as span:
+            if span is not None:
+                span["atoms"] = num_nodes
+            edges = item.pop("edges")
+            node_feats = item.pop("node_features")
+            edge_feats = item.pop("edge_features")
+            nf, dist, fmat = preprocess_graph(num_nodes, edges, node_feats,
+                                              edge_feats)
+            item["node_features"] = nf
+            item["distance_matrix"] = dist
+            item["feature_matrix"] = fmat
+            return item

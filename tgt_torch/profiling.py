@@ -11,20 +11,23 @@ configs/pcqm/tgt_agx2_100m/dist_pred/tgt_agx2_dp_rdkit.yaml with
 ``--use-pallas dense``, which that config leaves unset; ``--use-pallas true``
 profiles the legacy fused triplet kernels) with weights from a seed and
 traces, with ``torch.profiler`` after a warm-up:
-- ``serve``: ``--steps`` MC-dropout forwards (the serving forward) of one
-  device batch of ``--batch`` random molecules at bucket ``--n``; the
-  Chrome trace is written as ``profile_serving_<config>_n<N>.json`` into
-  the repository's git-ignored output directory;
+- ``serve``: ``--steps`` calls of ``DistancePredictor.predict`` on one
+  device batch of ``--batch`` random molecules at bucket ``--n``, each one
+  MC-dropout forward of ``--batch`` rows; the Chrome trace is written as
+  ``profile_serving_<config>_n<N>.json`` into the repository's git-ignored
+  output directory;
 - ``train``: ``--steps`` optimizer steps of ``Trainer.train_step`` on one
   batch of 64 synthetic molecules of up to 48 atoms (2 accumulated
   micro-batches of 32, bf16, remat), as ``chip_smoke.py`` phase 4 trains.
   No trace is written: a step launches tens of thousands of kernels.
 
-Prints JSON lines: the wall time per forward or step, the device busy share
-of the window (sum of kernel times over the wall time, so the rest is the
-device idle while the host enqueues), the kernels that take the most device
-time, the launches per forward or step, and the device time of each of the
-package's own CUDA kernels.
+Prints JSON lines: the wall time per call or step, the device busy share
+of the window (the union of the device operations' intervals over the wall
+time, so the rest is the device idle while the host enqueues), the kernels
+that take the most device time, the launches per call or step, the device
+time of each of the package's own CUDA kernels, and the host time of each
+of the port's spans (``tgt_torch.utils.tracing``) per call or step, total
+and self (less the spans directly under it).
 """
 from __future__ import annotations
 
@@ -33,9 +36,12 @@ import json
 import os
 import subprocess
 import time
+from typing import Dict, List
 
 import numpy as np
 import torch
+
+from tgt_torch.utils import tracing
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # name fragments of the package's own CUDA kernels (tgt_torch/csrc), listed
@@ -45,30 +51,65 @@ FLAGSHIP_YAML = os.path.join(
     REPO, "configs", "pcqm", "tgt_at_200m", "dist_pred", "tgt_at_dp_rdkit.yaml")
 
 
-def _batch(rs, n_bucket: int, b: int, device):
-    from tgt_torch.data.collate import add_edge_mask, padded_collate
-    from tgt_torch.data.structural import AddStructuralData
-    from tgt_torch.schemes.commons import coords2dist
-
-    rows = []
+def _molecules(rs, n_bucket: int, b: int) -> List[Dict]:
+    """``b`` random chain molecules of ``n_bucket - 7`` to ``n_bucket``
+    atoms with coordinates, as a request gives them."""
+    mols = []
     for n in rs.randint(n_bucket - 7, n_bucket + 1, size=b):
         n = int(n)
         edges = np.array([(i, i + 1) for i in range(n - 1)]
                          + [(i + 1, i) for i in range(n - 1)], np.int64)
-        row = AddStructuralData()({
+        mols.append({
             "num_nodes": n, "edges": edges,
             "node_features": rs.randint(0, 60, (n, 9)).astype(np.int16),
-            "edge_features": rs.randint(0, 5, (len(edges), 3)).astype(np.int16)})
-        row["node_mask"] = np.ones(n, np.uint8)
-        row["coords"] = (rs.randn(n, 3) * 1.5).astype(np.float32)
-        rows.append(row)
-    batch = add_edge_mask(padded_collate(rows, buckets=(n_bucket,)))
-    feed = {k: torch.from_numpy(batch[k]).to(device)
-            for k in ("node_features", "distance_matrix", "feature_matrix",
-                      "node_mask", "edge_mask")}
-    feed["dist_input"] = coords2dist(torch.from_numpy(batch["coords"])
-                                     .to(device).float())
-    return feed
+            "edge_features": rs.randint(0, 5, (len(edges), 3)).astype(np.int16),
+            "coords": (rs.randn(n, 3) * 1.5).astype(np.float32)})
+    return mols
+
+
+def device_busy_s(events) -> float:
+    """Seconds in which an operation ran on the device: the union of the
+    device operations' intervals (``prof.events()``), less the profiler
+    ranges that the device timeline also shows, which are not work."""
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == cuda and not _annotation(e))
+    busy_us, cursor = 0.0, float("-inf")
+    for start, end in spans:
+        if end > cursor:
+            busy_us += end - max(start, cursor)
+            cursor = end
+    return busy_us / 1e6
+
+
+def _annotation(e) -> bool:
+    """Whether a profiler event (or average) is a range of
+    ``record_function`` rather than an operation."""
+    name = getattr(e, "key", None) or e.name
+    return bool(getattr(e, "is_user_annotation", False)) or \
+        name.startswith(tracing.PREFIX)
+
+
+def span_table(rows: List[Dict], per: int) -> List[Dict]:
+    """Each span name's calls and host ms, total and self (less the spans
+    directly under it), per call or step of ``per``, most total first."""
+    child_ms: Dict[int, float] = {}
+    for r in rows:
+        if r["parent"] is not None:
+            child_ms[r["parent"]] = (child_ms.get(r["parent"], 0.0)
+                                     + (r["t1"] - r["t0"]) / 1e6)
+    table: Dict[str, Dict] = {}
+    for r in rows:
+        ms = (r["t1"] - r["t0"]) / 1e6
+        t = table.setdefault(r["name"], {"span": r["name"], "calls": 0,
+                                         "host_ms": 0.0, "self_ms": 0.0})
+        t["calls"] += 1
+        t["host_ms"] += ms
+        t["self_ms"] += ms - child_ms.get(r["id"], 0.0)
+    out = [{"span": t["span"], "calls_per_step": t["calls"] / per,
+            "host_ms_per_step": t["host_ms"] / per,
+            "self_ms_per_step": t["self_ms"] / per} for t in table.values()]
+    return sorted(out, key=lambda t: t["host_ms_per_step"], reverse=True)
 
 
 def parse_use_pallas(value: str):
@@ -88,20 +129,24 @@ def _raw_config(args, **extra):
 
 
 def _serving(args):
-    """(run(i), description) of one MC-dropout forward."""
+    """(run(i), description) of one served call."""
     from tgt_torch.models import make_model
     from tgt_torch.schemes import get_scheme
+    from tgt_torch.serving import DistancePredictor
 
     raw = _raw_config(args)
     cfg = get_scheme(raw["scheme"])(raw, command="evaluate").model_cfg
     model = make_model("distance", cfg, device="cuda", seed=0)
-    feed = _batch(np.random.RandomState(0), args.n, args.batch, "cuda")
+    pred = DistancePredictor(model, cfg, mc_samples=1,
+                             batch_size=args.batch, buckets=(args.n,),
+                             device="cuda")
+    mols = _molecules(np.random.RandomState(0), args.n, args.batch)
 
     def run(i):
-        with torch.inference_mode():
-            model(feed, deterministic=False, seed=i)
+        pred.predict(mols)
 
-    return run, {"profile": "serving forward (MC dropout on)", "n": args.n,
+    return run, {"profile": "served call (DistancePredictor.predict, one "
+                            "MC-dropout forward)", "n": args.n,
                  "batch": args.batch, "use_pallas": cfg.use_pallas}
 
 
@@ -153,6 +198,7 @@ def main() -> int:
     for i in range(2):
         run(i)
     torch.cuda.synchronize()
+    tracing.clear()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -162,14 +208,16 @@ def main() -> int:
         wall = time.perf_counter() - t0
     events = prof.key_averages()
     cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in events if e.device_type == cuda]
+    kernels = [e for e in events
+               if e.device_type == cuda and not _annotation(e)]
     device_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
     print(json.dumps({**desc, "config": os.path.relpath(args.config, REPO),
                       "card": card, "steps": args.steps,
                       "wall_ms_per_step": wall * 1e3 / args.steps,
                       "device_ms_per_step": device_us / 1e3 / args.steps,
-                      "device_busy_share": device_us / 1e6 / wall,
+                      "device_busy_share":
+                          device_busy_s(prof.events()) / wall,
                       "kernel_launches_per_step":
                           sum(e.count for e in kernels) / args.steps}),
           flush=True)
@@ -187,6 +235,8 @@ def main() -> int:
             own[e.key[:90]] = {"calls": e.count, "device_ms_per_step":
                                e.self_device_time_total / 1e3 / args.steps}
     print(json.dumps({"package_kernels": own}), flush=True)
+    for row in span_table(tracing.recorded(), args.steps):
+        print(json.dumps(row), flush=True)
     if args.path == "serve":
         out_dir = os.path.join(REPO, "chiprun_out")
         os.makedirs(out_dir, exist_ok=True)

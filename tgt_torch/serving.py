@@ -37,9 +37,21 @@ schedule, so that the first request finds the kernels loaded and the
 allocator's blocks in place. tgt_tpu's TPU-only machinery is not ported:
 the persistent compile cache, the dense kernels' data mesh, and warmup's
 relay probe and watchdog thread (PyTorch runs eagerly: nothing compiles).
+
+Spans (``tgt_torch.utils.tracing``, recorded while torch's profiler
+runs): ``serve.predict`` around each public call (``molecules``;
+``request``, the id that every span of the request shares: a call inside
+another keeps the outer one's), and inside it ``serve.prepare`` (the
+structural transform), per device batch ``serve.collate`` (collation,
+padding, the draw seeds and the host-to-device copies; ``bucket``,
+``rows_real``, ``rows``) and ``serve.forward`` (``schedule``, ``draws``,
+``rows_real``: real molecules x draws, ``rows_run``: device rows x draws),
+then ``serve.copy_back`` (the wait for the card in ``.cpu()``) and
+``serve.scatter``.
 """
 from __future__ import annotations
 
+import itertools
 import os
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -56,9 +68,22 @@ from tgt_torch.models.heads import make_model
 from tgt_torch.models.model_config import TGTConfig
 from tgt_torch.schemes import get_scheme
 from tgt_torch.schemes.commons import bins2dist, coords2dist, stack_draws
+from tgt_torch.utils import tracing
 
 _FEED_KEYS = ("node_features", "distance_matrix", "feature_matrix",
               "node_mask", "edge_mask")
+
+_request_ids = itertools.count()
+
+
+def _request(span: Optional[Dict], molecules: List[Dict]) -> None:
+    """A public call's ``serve.predict`` row (None while no profiler
+    records): its molecules and a new request id, unless a call open
+    around it gave it one."""
+    if span is not None:
+        span["molecules"] = len(molecules)
+        if "request" not in span:
+            span["request"] = next(_request_ids)
 
 
 class _BasePredictor:
@@ -141,36 +166,55 @@ class _BasePredictor:
         for start in range(0, len(order), self.batch_size):
             idx = order[start:start + self.batch_size]
             chunk = [rows[i] for i in idx]
-            batch = add_edge_mask(padded_collate(chunk, buckets=self.buckets))
-            batch, _ = pad_batch_dim(batch, self.batch_size)
-            seeds = torch.randint(0, 2**62, (self.mc_samples,),
-                                  generator=self._seeds).tolist()
-            with torch.inference_mode():
-                out = forward(self._feed_of(batch), seeds)
+            with tracing.span("serve.collate") as span:
+                batch = add_edge_mask(padded_collate(chunk,
+                                                     buckets=self.buckets))
+                batch, _ = pad_batch_dim(batch, self.batch_size)
+                seeds = torch.randint(0, 2**62, (self.mc_samples,),
+                                      generator=self._seeds).tolist()
+                with torch.inference_mode():
+                    feed = self._feed_of(batch)
+                if span is not None:
+                    span.update(bucket=int(batch["node_mask"].shape[1]),
+                                rows_real=len(chunk), rows=self.batch_size)
+            with tracing.span("serve.forward") as span, \
+                    torch.inference_mode():
+                if span is not None:
+                    draws = len(seeds)
+                    span.update(schedule=self._mc_schedule(feed), draws=draws,
+                                rows_real=len(chunk) * draws,
+                                rows_run=int(feed["node_mask"].shape[0])
+                                * draws)
+                out = forward(feed, seeds)
             pending.append((idx, out[:len(chunk)]))
 
-        outs = [(idx, out.cpu().numpy()) for idx, out in pending]
-        # per-molecule node axes differ across buckets: zero-pad the
-        # declared node axes to the largest before scattering back
-        n_max = max((o.shape[a] for _, o in outs for a in node_axes
-                     if o.ndim > a), default=0)
-        result = None
-        for idx, out in outs:
-            out = self._pad_nodes(out, n_max, node_axes)
-            if result is None:
-                result = np.zeros((len(rows),) + out.shape[1:], out.dtype)
-            result[idx] = out
-        return result
+        with tracing.span("serve.copy_back"):
+            outs = [(idx, out.cpu().numpy()) for idx, out in pending]
+        with tracing.span("serve.scatter"):
+            # per-molecule node axes differ across buckets: zero-pad the
+            # declared node axes to the largest before scattering back
+            n_max = max((o.shape[a] for _, o in outs for a in node_axes
+                         if o.ndim > a), default=0)
+            result = None
+            for idx, out in outs:
+                out = self._pad_nodes(out, n_max, node_axes)
+                if result is None:
+                    result = np.zeros((len(rows),) + out.shape[1:],
+                                      out.dtype)
+                result[idx] = out
+            return result
 
     def _prepare_rows(self, molecules: List[Dict]) -> List[Dict]:
-        rows = []
-        for mol in molecules:
-            row = dict(mol)
-            if "distance_matrix" not in row:
-                row = self._transform(row)
-            row.setdefault("node_mask", np.ones(row["num_nodes"], np.uint8))
-            rows.append(row)
-        return rows
+        with tracing.span("serve.prepare"):
+            rows = []
+            for mol in molecules:
+                row = dict(mol)
+                if "distance_matrix" not in row:
+                    row = self._transform(row)
+                row.setdefault("node_mask",
+                               np.ones(row["num_nodes"], np.uint8))
+                rows.append(row)
+            return rows
 
     def _warmup_one(self, nb: int) -> None:
         """One dummy predict at bucket ``nb`` (tgt_tpu/serving.py:227-237)."""
@@ -277,14 +321,18 @@ class DistancePredictor(_BasePredictor):
     def predict(self, molecules: List[Dict]) -> np.ndarray:
         """MC-averaged symmetric bin probabilities (M, Nmax, Nmax, bins)
         float32, input order preserved."""
-        return self._run(self._prepare_rows(molecules), self._mc_forward,
-                         self.NODE_AXES)
+        with tracing.span("serve.predict") as span:
+            _request(span, molecules)
+            return self._run(self._prepare_rows(molecules),
+                             self._mc_forward, self.NODE_AXES)
 
     def predict_bins(self, molecules: List[Dict]) -> np.ndarray:
         """Per-draw argmax bins samples (M, mc_samples, Nmax, Nmax) int32,
         input order preserved."""
-        return self._run(self._prepare_rows(molecules), self._bins_forward,
-                         (2, 3))
+        with tracing.span("serve.predict") as span:
+            _request(span, molecules)
+            return self._run(self._prepare_rows(molecules),
+                             self._bins_forward, (2, 3))
 
 
 class GapPredictor(_BasePredictor):
@@ -350,8 +398,10 @@ class GapPredictor(_BasePredictor):
 
     def predict(self, molecules: List[Dict]) -> np.ndarray:
         """MC-averaged gaps (M,) float32, input order preserved."""
-        return self._run(self._prepare_rows(molecules), self._mc_forward,
-                         self.NODE_AXES)
+        with tracing.span("serve.predict") as span:
+            _request(span, molecules)
+            return self._run(self._prepare_rows(molecules),
+                             self._mc_forward, self.NODE_AXES)
 
 
 class TwoStagePredictor:
@@ -392,18 +442,21 @@ class TwoStagePredictor:
 
     def predict(self, molecules: List[Dict]) -> np.ndarray:
         """Gaps (M,) float32, input order preserved."""
-        # the structural transform runs once; both stages take its rows
-        rows = self.distance._prepare_rows(molecules)
-        if not rows:
-            return np.zeros((0,), np.float32)
-        bins = self.distance.predict_bins(rows)       # (M, S, Nmax, Nmax)
-        gap_rows = []
-        for row, b in zip(rows, bins):
-            n = int(row["num_nodes"])
-            g = {k: v for k, v in row.items()
-                 if k not in ("coords", "rdkit_coords", "dist_input")}
-            # bins2dist reads the strict upper triangle (the packed
-            # on-disk convention) and symmetrises
-            g["dist_bins"] = np.triu(b[:, :n, :n], k=1).astype(np.float32)
-            gap_rows.append(g)
-        return self.gap.predict(gap_rows)
+        with tracing.span("serve.predict") as span:
+            _request(span, molecules)
+            # the structural transform runs once; both stages take its rows
+            rows = self.distance._prepare_rows(molecules)
+            if not rows:
+                return np.zeros((0,), np.float32)
+            bins = self.distance.predict_bins(rows)   # (M, S, Nmax, Nmax)
+            gap_rows = []
+            for row, b in zip(rows, bins):
+                n = int(row["num_nodes"])
+                g = {k: v for k, v in row.items()
+                     if k not in ("coords", "rdkit_coords", "dist_input")}
+                # bins2dist reads the strict upper triangle (the packed
+                # on-disk convention) and symmetrises
+                g["dist_bins"] = np.triu(b[:, :n, :n],
+                                         k=1).astype(np.float32)
+                gap_rows.append(g)
+            return self.gap.predict(gap_rows)

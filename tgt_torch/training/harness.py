@@ -48,6 +48,15 @@ the world gives the global gradient, as at ``P = 1``. Evaluation gathers
 the pair rows, then the data indices' shards (pair index 0's). tgt_tpu
 refuses its Pallas kernels under a pair mesh, and the port raises where
 it does.
+
+Spans (``tgt_torch.utils.tracing``, recorded while torch's profiler runs;
+``step`` is the global step they belong to): in ``train_epoch``
+``train.input_wait`` (the next batch from the loader), ``train.batch_prep``
+(``device_batch``, ``pad_device_batch``, ``to_device``; ``rows``,
+``rows_real``, ``bucket``) and ``train.drain`` (the delayed metric read);
+in ``train_step`` ``train.step`` with ``train.grad`` (the forwards and
+backwards) and ``train.update`` (the optimizer, the NaN guard's selects
+and copies, the state rebuild).
 """
 from __future__ import annotations
 
@@ -72,6 +81,7 @@ from tgt_torch.training.checkpoint import (CheckpointManager, flatten_tree,
                                            load_pretrained)
 from tgt_torch.training.progress import progbar
 from tgt_torch.training.schedules import PlateauController
+from tgt_torch.utils import tracing
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -86,6 +96,9 @@ def derive_seed(*words: int) -> int:
 
 class StopTraining(Exception):
     pass
+
+
+_END = object()     # the end of a loader
 
 
 _COND_OPS = {
@@ -580,12 +593,21 @@ class Trainer:
         times ``lr_scale`` (the plateau controller's); updates ``state`` in
         place and returns ``(state, metrics)``. A non-finite loss leaves
         the parameters and the optimizer state as they were."""
+        with tracing.span("train.step") as span:
+            if span is not None:
+                span["step"] = step
+            # the step's temporaries (gradients, updates, the replaced
+            # optimizer state) are freed inside the span, as _step returns
+            return self._step(state, batch, step, seed, lr_scale)
+
+    def _step(self, state, batch, step, seed, lr_scale):
         model = state["model"]
-        loss, aux, grads = self.accumulated_grad(model, batch, seed)
+        with tracing.span("train.grad"):
+            loss, aux, grads = self.accumulated_grad(model, batch, seed)
         # f32, as tgt_tpu multiplies them inside its step
         lr = float(np.float32(self.schedule(step)) * np.float32(lr_scale))
         named = dict(model.named_parameters())
-        with torch.no_grad():
+        with tracing.span("train.update"), torch.no_grad():
             params = {k: p.detach() for k, p in named.items()}
             updates, new_opt = self.opt_update(
                 dict(zip(named, grads)), state["opt_state"], params, lr)
@@ -618,28 +640,43 @@ class Trainer:
         def drain(flush=False):
             nonlocal total_loss, total_samples, nan_streak, last_lr
             limit = 0 if flush else 2
-            while len(pending) > limit:
-                m, n = pending.pop(0)
-                loss = float(m["loss"])
-                last_lr = float(m["lr"])
-                if np.isfinite(loss):
-                    nan_streak = 0
-                    total_loss += loss * n
-                    total_samples += n
-                else:
-                    nan_streak += 1
-                    # tolerate up to 10 consecutive NaN steps
-                    # (reference tgt_training.py:159-168)
-                    if nan_streak > 10:
-                        return "nan"
+            with tracing.span("train.drain") as span:
+                if span is not None:
+                    span["step"] = self.global_step
+                while len(pending) > limit:
+                    m, n = pending.pop(0)
+                    loss = float(m["loss"])
+                    last_lr = float(m["lr"])
+                    if np.isfinite(loss):
+                        nan_streak = 0
+                        total_loss += loss * n
+                        total_samples += n
+                    else:
+                        nan_streak += 1
+                        # tolerate up to 10 consecutive NaN steps
+                        # (reference tgt_training.py:159-168)
+                        if nan_streak > 10:
+                            return "nan"
             return None
 
         stop_reason = None
         seed0 = getattr(self.cfg, "random_seed", 0) or 0
-        for batch in self.progress(loader, f"epoch {self.epoch + 1}"):
-            n = self.scheme.batch_num_samples(batch)
-            device_batch = self.to_device(
-                self.pad_device_batch(self.scheme.device_batch(batch)))
+        batches = iter(self.progress(loader, f"epoch {self.epoch + 1}"))
+        while True:
+            with tracing.span("train.input_wait") as span:
+                if span is not None:
+                    span["step"] = self.global_step
+                batch = next(batches, _END)
+            if batch is _END:
+                break
+            with tracing.span("train.batch_prep") as span:
+                n = self.scheme.batch_num_samples(batch)
+                device_batch = self.to_device(
+                    self.pad_device_batch(self.scheme.device_batch(batch)))
+                if span is not None:
+                    span.update(step=self.global_step, rows_real=n,
+                                rows=int(device_batch["sample_mask"].shape[0]),
+                                bucket=int(device_batch["node_mask"].shape[1]))
             # each data index draws its own masks for its own rows; the
             # ranks of a pair group share them
             state, metrics = self.train_step(

@@ -2,7 +2,9 @@
 
 - ``trace(logdir)``: ``torch.profiler`` around a block, with the CPU and,
   when there is a card, the CUDA activities; writes a Chrome trace into
-  ``logdir`` (open it in chrome://tracing or Perfetto);
+  ``logdir`` (open it in chrome://tracing or Perfetto), and beside it the
+  rows of the port's spans recorded in the block (``tgt_torch.utils.
+  tracing``: the serving, trainer and data layers);
 - ``StepTimer``: wall time per step with a warm-up discard and summary
   statistics;
 - ``flops_estimate``: the floating-point operations of one call, counted
@@ -13,6 +15,7 @@
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 from typing import Any, Callable, Dict, List, Mapping, Optional
@@ -22,6 +25,7 @@ import torch
 from torch import nn
 
 from tgt_torch.training.harness import model_summary
+from tgt_torch.utils import tracing
 
 __all__ = ["trace", "StepTimer", "flops_estimate", "count_params",
            "model_summary"]
@@ -30,19 +34,24 @@ __all__ = ["trace", "StepTimer", "flops_estimate", "count_params",
 @contextlib.contextmanager
 def trace(logdir: str):
     """Profile the block and write its Chrome trace to
-    ``logdir/trace_<pid>_<ns>.json``."""
+    ``logdir/trace_<pid>_<ns>.json`` and the spans recorded in it to
+    ``logdir/spans_<pid>_<ns>.json`` (a JSON list of ``tracing`` rows)."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    start = time.time_ns()      # the spans' clock
     with profile(activities=activities) as prof:
         yield
         if torch.cuda.is_available():
             torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(
-        logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+    stamp = f"{os.getpid()}_{time.time_ns()}"
+    prof.export_chrome_trace(os.path.join(logdir, f"trace_{stamp}.json"))
+    rows = [r for r in tracing.recorded() if r["t0"] >= start]
+    with open(os.path.join(logdir, f"spans_{stamp}.json"), "w") as f:
+        json.dump(rows, f)
 
 
 class StepTimer:
