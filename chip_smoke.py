@@ -2,17 +2,19 @@
 """Smoke run of tgt_torch on one NVIDIA card (built for the H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --layernorm    # phases 1 (its kernel), 2n, 5n
 
 Phases, each of which fails the run (non-zero exit) on error:
 
 1. Environment and build: versions, the card's name and power limit, and
-   the build of the six CUDA kernel sources of the package from this
+   the build of the seven CUDA kernel sources of the package from this
    checkout (``nvcc`` for sm_90a, one process per source, started
    together), with each kernel's ptxas report (registers and spill bytes
    per function); a spill in any tensor-core body (the attention backward
    ``triplet_bwd_mma.cuh``, the attention forward ``triplet_fwd_mma.cuh``,
    the aggregate bodies in ``triplet_aggregate_bwd.cu`` and
-   ``triplet_aggregate_fwd.cu``) fails the run.
+   ``triplet_aggregate_fwd.cu``) or in the layer norm
+   (``layernorm_fwd.cu``) fails the run.
 2. Kernel against plain: ``triplet_dense_fwd`` against its plain PyTorch
    version on the card at b=16, N in {24, 40, 48, 56}, edge width 256,
    16 triplet heads; gated and ungated; bf16 and f32; plus the training
@@ -95,6 +97,19 @@ Phases, each of which fails the run (non-zero exit) on error:
    2**31 must equal the kernel on those rows alone bit for bit (rows are
    independent), or the wrapper must refuse the shape with a clear error
    before launch.
+2n. The one-pass layer norm (``layernorm_fwd``, csrc/layernorm_fwd.cu)
+   against its plain version and against the composite it replaces in the
+   no-grad forward (widen, ``F.layer_norm`` in f32, narrow) at the main
+   paths' shapes: a served forward's 160 draw-stacked rows at buckets 24,
+   40 and 56, edge (width 256) and node (160 N rows, width 768), and
+   evaluation's b=32, N=48, in bf16, and one fp16 case: within one step of
+   the output type at max|ref| of both (and the share of elements equal to
+   the composite's), bitwise equal on repeat, one launch a call;
+   per call and back to back the kernel, the composite, the plain version
+   and PyTorch's one-launch layer norm in the input's type (the
+   yardstick), against the bound (x read and y written once at 3.35 TB/s);
+   and the host microseconds a call of ``ops/common.layernorm`` takes
+   through each route, on an input too small to hold the host back.
 3. Serving at full width: the flagship TGT-At distance model of
    configs/pcqm/tgt_at_200m/dist_pred/tgt_at_dp_rdkit.yaml (24 layers,
    node 768, edge 256, 64 heads, 16 triplet heads, 256 bins, bf16) with
@@ -150,6 +165,12 @@ Phases, each of which fails the run (non-zero exit) on error:
    over the run; every bf16 forward and backward launch of the served and
    trained paths through the bodies (``body_launches``), and the f32
    forwards of 6b through the panel route.
+5n. A served TGT-Agx2 request of one molecule under ``mc_mode`` vmap at
+   buckets 24 and 56, through the layer-norm kernel and through the
+   composite in turns, on the same draw seeds: every layer norm of the
+   forward takes the kernel (its ``launches`` equal the calls), a profiled
+   request runs no PyTorch layer-norm kernel, and the two routes'
+   probabilities agree within a mean total variation of 0.005.
 4r. The remat policies and IndivConfig at full width and depth: the
    flagship TGT-At config trains 3 optimizer steps of one micro-batch of
    32 (N up to 48, bf16) under each ``remat_policy`` (``none``, ``dots``,
@@ -305,7 +326,8 @@ Phases, each of which fails the run (non-zero exit) on error:
    on each rank and one process's on the same batch, the pair collectives'
    calls, bytes and ms per step (CUDA events around each), each rank's
    peak memory against one process's, and the transport's name.
-8. The kernels line (six kernels, launches by path, with the vmap paths
+8. The kernels line (six kernels, then the layer norm's entry from
+   phases 2n and 5n; launches by path, with the vmap paths
    ``serving_vmap`` (TGT-At; TGT-Agx2's aggregate forward),
    ``serving_dropout_vmap`` (Path D), ``serving_legacy_vmap`` (Path L),
    ``evaluate_vmap`` and ``two_stage_vmap`` (phase 7v), the forward rows
@@ -389,8 +411,9 @@ def emit(row: dict) -> None:
 # spill: the attention backward (tgt_torch/csrc/triplet_bwd_mma.cuh,
 # namespace tbwd), the attention forward (triplet_fwd_mma.cuh, namespace
 # tfwd), the aggregate backward (triplet_aggregate_bwd.cu, namespace tagb)
-# and the aggregate forward (triplet_aggregate_fwd.cu, namespace tagf)
-BODY_PREFIXES = ("_ZN4tbwd", "_ZN4tfwd", "_ZN4tagb", "_ZN4tagf")
+# and the aggregate forward (triplet_aggregate_fwd.cu, namespace tagf);
+# and the layer norm (layernorm_fwd.cu, namespace lnfwd)
+BODY_PREFIXES = ("_ZN4tbwd", "_ZN4tfwd", "_ZN4tagb", "_ZN4tagf", "_ZN5lnfwd")
 
 
 def ptxas_report(log: str) -> list:
@@ -1501,6 +1524,241 @@ def big_batch_phase(card):
         del q, k, v, bias, gate, seed, out, alone
         torch.cuda.empty_cache()
     return out_rows
+
+
+# -- phases 2n and 5n: the one-pass layer norm -----------------------------------
+
+# The main paths' layer-norm shapes: a served TGT-Agx2 forward's edge rows
+# (10 MC draws of a 16-row device batch, 160 rows, width 256) and node rows
+# (160 N, width 768) at buckets 24, 40 and 56, and evaluation's (b=32,
+# N=48); fp16 at one shape.
+LN_EPS = 1e-5
+LN_CASES = ([("serve edge", (160, n, n, 256), torch.bfloat16)
+             for n in (24, 40, 56)]
+            + [("serve node", (160 * n, 768), torch.bfloat16)
+               for n in (24, 40, 56)]
+            + [("evaluate edge", (32, 48, 48, 256), torch.bfloat16),
+               ("evaluate node", (32 * 48, 768), torch.bfloat16),
+               ("serve edge fp16", (160, 56, 56, 256), torch.float16)])
+LN_SERVED_SIZES = (20, 56)   # one molecule per request: buckets 24 and 56
+
+
+def dtype_steps(got, want) -> float:
+    """max |got - want| in steps of the output type at max |want| (two f32
+    computations of one layer norm differ by f32 rounding, ~1e-6 of the
+    inputs' scale, which is many steps of an output near 0)."""
+    scale = want.float().abs().max()
+    _, exp = torch.frexp(scale)
+    step = torch.ldexp(torch.tensor(torch.finfo(got.dtype).eps,
+                                    device=scale.device), exp - 1)
+    return float((got.float() - want.float()).abs().max() / step)
+
+
+def ln_composite(x, weight, bias):
+    """Today's route for calls that need a gradient: widen, F.layer_norm
+    in f32, narrow (three launches)."""
+    return torch.nn.functional.layer_norm(
+        x.float(), (x.shape[-1],), weight, bias, LN_EPS).to(x.dtype)
+
+
+def ln_library(x, weight, bias):
+    """PyTorch's one-launch layer norm of x in its own type, the
+    parameters cast to it (it refuses f32 ones): the yardstick, which the
+    port does not call."""
+    return torch.nn.functional.layer_norm(x, (x.shape[-1],), weight, bias,
+                                          LN_EPS)
+
+
+def layernorm_phase(card):
+    """Phase 2n: ``layernorm_fwd`` against its plain version and against
+    the composite at the main paths' shapes: within one step of the output
+    type of each, bitwise equal on repeat; per call and back to back, the
+    kernel, the composite, the plain version and the library call, against
+    the bound (x read and y written once, the parameters read once, at
+    3.35 TB/s). Returns the rows by case name."""
+    from tgt_torch.ops.kernels import layernorm as lnk
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = {}
+    for name, shape, dtype in LN_CASES:
+        width = shape[-1]
+        x = (torch.randn(shape, device="cuda", generator=gen) * 3
+             + torch.randn(shape[:-1] + (1,), device="cuda", generator=gen)
+             * 5).to(dtype)
+        weight = 1 + 0.5 * torch.randn(width, device="cuda", generator=gen)
+        bias = torch.randn(width, device="cuda", generator=gen)
+        before = lnk.layernorm_fwd.launches
+        y = lnk.layernorm_fwd(x, weight, bias, LN_EPS)
+        again = lnk.layernorm_fwd(x, weight, bias, LN_EPS)
+        torch.cuda.synchronize()
+        kernel = lambda: lnk.layernorm_fwd(x, weight, bias, LN_EPS)
+        plain = lambda: lnk.layernorm_fwd_reference(x, weight, bias, LN_EPS)
+        composite = lambda: ln_composite(x, weight, bias)
+        row = {"phase": "2n", "case": name, "shape": list(shape),
+               "dtype": dtype_name(dtype), "card": card,
+               "launches": lnk.layernorm_fwd.launches - before,
+               "steps_from_plain": dtype_steps(y, plain()),
+               "steps_from_composite": dtype_steps(y, composite()),
+               "bitwise_equal": torch.equal(y, again),
+               "finite": bool(torch.isfinite(y).all())}
+        row["equal_share_composite"] = float((y == composite()).float()
+                                             .mean())
+        w_x, b_x = weight.to(dtype), bias.to(dtype)
+        library = lambda: ln_library(x, w_x, b_x)
+        row["steps_library"] = dtype_steps(library(), composite())
+        nbytes = 2 * x.numel() * x.element_size() + 8 * width
+        row.update(bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+                   bound_by="bytes", ms=time_ms(kernel),
+                   composite_ms=time_ms(composite), plain_ms=time_ms(plain),
+                   device_ms=device_ms(kernel),
+                   composite_device_ms=device_ms(composite),
+                   plain_device_ms=device_ms(plain))
+        row.update(library_ms=time_ms(library),
+                   library_device_ms=device_ms(library))
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
+        row["ok"] = (row["launches"] == 2 and row["bitwise_equal"]
+                     and row["finite"] and row["steps_from_plain"] <= 1
+                     and row["steps_from_composite"] <= 1)
+        emit(row)
+        if not row["ok"]:
+            fail(f"layernorm_fwd at {name} {shape}: {row}")
+        rows[name if name not in rows else f"{name} {shape}"] = row
+        del x, y, again
+        torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def layernorm_routes(force_composite: bool = False):
+    """Count ``ops/common.layernorm``'s calls by route (its route is asked
+    once a call); with ``force_composite``, send every call to the
+    composite, as before the kernel existed."""
+    from tgt_torch.ops import common
+
+    saved = common.layernorm_route
+    counts = {"kernel": 0, "composite": 0}
+
+    def route(*args):
+        r = "composite" if force_composite else saved(*args)
+        counts[r] += 1
+        return r
+
+    common.layernorm_route = route
+    try:
+        yield counts
+    finally:
+        common.layernorm_route = saved
+
+
+def layernorm_host_cost(card):
+    """Host microseconds a call of ``ops/common.layernorm`` takes through
+    each route on a (2, 256) bf16 input, whose device work is too small to
+    hold the host back: 2,000 calls enqueued without a synchronise, wall
+    time over the count, in turns (composite, kernel, kernel, composite)
+    twice."""
+    from tgt_torch.ops import common
+
+    ln = torch.nn.LayerNorm(256, device="cuda")
+    x = torch.randn(2, 256, device="cuda").to(torch.bfloat16)
+    us = {"composite": [], "kernel": []}
+    with torch.inference_mode():
+        for route in ("composite", "kernel", "kernel", "composite") * 2:
+            with layernorm_routes(route == "composite"):
+                for _ in range(50):
+                    common.layernorm(ln, x)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(2000):
+                    common.layernorm(ln, x)
+                us[route].append((time.perf_counter() - t0) / 2000 * 1e6)
+                torch.cuda.synchronize()
+    row = {"phase": "2n host", "card": card, "host_us": us,
+           **{f"{r}_host_us_median": float(np.median(v))
+              for r, v in us.items()}}
+    emit(row)
+    return row
+
+
+def served_layernorm_phase(card, spec: ModelSpec):
+    """Phase 5n: a served vmap request of one molecule (10 draws, 160 rows)
+    at buckets 24 and 56, through the kernel and through the composite in
+    turns (composite, kernel, kernel, composite) on the same draw seeds:
+    every layer norm of the forward takes the kernel (``launches`` equals
+    the calls), the profiled request launches no PyTorch layer-norm kernel
+    and as many ``lnfwd`` kernels as calls, and the two routes'
+    probabilities agree (mean total variation over the molecule's pairs
+    within 0.005). Returns the kernel's launches per request by bucket."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tgt_torch.data.collate import pick_bucket
+    from tgt_torch.models import make_model
+    from tgt_torch.ops.kernels import layernorm as lnk
+    from tgt_torch.schemes import get_scheme
+    from tgt_torch.serving import DistancePredictor
+
+    raw = load_config(spec)
+    scheme = get_scheme(raw["scheme"])(raw, command="evaluate")
+    cfg = scheme.model_cfg
+    buckets = tuple(scheme.cfg.buckets)
+    mc = scheme.cfg.evaluation_samples
+    model = make_model("distance", cfg, device="cuda", seed=0)
+    pred = DistancePredictor(model, cfg, mc_samples=mc, batch_size=16,
+                             buckets=buckets, seed=0, device="cuda",
+                             mc_mode="vmap")
+    rs = np.random.RandomState(7)
+    out = {}
+    for n in LN_SERVED_SIZES:
+        mols = [random_molecule(rs, n)]
+        nb = pick_bucket(n, buckets)
+        for force in (True, False):
+            with layernorm_routes(force):
+                pred.predict(mols)                      # warm
+        torch.cuda.synchronize()
+        ms = {"composite": [], "kernel": []}
+        got = {}
+        for route in ("composite", "kernel", "kernel", "composite"):
+            before = lnk.layernorm_fwd.launches
+            pred._seeds.manual_seed(n)          # the same dropout masks
+            with layernorm_routes(route == "composite") as counts:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got[route] = pred.predict(mols)
+                ms[route].append((time.perf_counter() - t0) * 1e3)
+            launched = lnk.layernorm_fwd.launches - before
+            calls = counts["kernel"] + counts["composite"]
+            want = calls if route == "kernel" else 0
+            if counts[route] != calls or launched != want:
+                fail(f"bucket {nb}, {route}: {counts} layer-norm calls by "
+                     f"route, {launched} kernel launches")
+        with layernorm_routes() as counts, profile(
+                activities=[ProfilerActivity.CUDA]) as prof:
+            before = lnk.layernorm_fwd.launches
+            pred.predict(mols)
+            torch.cuda.synchronize()
+        launched = lnk.layernorm_fwd.launches - before
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        torch_ln = sum("layer_norm" in k or "LayerNorm" in k for k in names)
+        ours = sum("lnfwd::" in k for k in names)
+        diff = np.abs(got["kernel"] - got["composite"])[0, :n, :n]
+        tv = float(0.5 * diff.sum(-1).mean())
+        row = {"phase": "5n", "path": spec.name, "bucket": nb, "draws": mc,
+               "card": card, "layernorm_calls": counts["kernel"],
+               "launches": launched, "lnfwd_kernels_traced": ours,
+               "torch_layer_norm_kernels_traced": torch_ln,
+               "device_ops_traced": len(names),
+               "request_ms": ms, "prob_max_abs_diff": float(diff.max()),
+               "prob_mean_total_variation": tv}
+        # the benchmark's prob_gap limit against its f32 reference: 0.005
+        row["ok"] = (launched == counts["kernel"] == ours and torch_ln == 0
+                     and counts["composite"] == 0 and tv <= 0.005)
+        emit(row)
+        if not row["ok"]:
+            fail(f"served layer norms at bucket {nb}: {row}")
+        out[f"n{nb}"] = launched
+    del pred, model
+    torch.cuda.empty_cache()
+    return out
 
 
 # -- phase 3: serving ---------------------------------------------------------
@@ -3509,10 +3767,13 @@ def converted_checkpoint_check(card, spec: ModelSpec, root: str):
             served.model(feed48)
         flops = flops_estimate(served.model, feed48)
     n_traced = spec.launches(spec.fwd)
-    files = [f for f in os.listdir(logdir) if f.endswith(".json")]
-    if len(files) != 1 or n_traced != 2 * per_fwd:
+    # trace() writes the Chrome trace and, beside it, the program's spans
+    files = sorted(f for f in os.listdir(logdir) if f.endswith(".json"))
+    traces = [f for f in files if f.startswith("trace_")]
+    if (len(traces) != 1 or len(files) != 2
+            or not files[0].startswith("spans_") or n_traced != 2 * per_fwd):
         fail(f"trace(): files {files}, launches {n_traced}")
-    with open(os.path.join(logdir, files[0])) as f:
+    with open(os.path.join(logdir, traces[0])) as f:
         events = json.load(f)["traceEvents"]
     named = sorted({e["name"] for e in events if e.get("cat") == "kernel"
                     and any(k in e["name"] for k in DENSE_FWD_KERNELS)})
@@ -3524,7 +3785,7 @@ def converted_checkpoint_check(card, spec: ModelSpec, root: str):
            "convert_s": convert_s, "convert_stdout": res.stdout.strip(),
            "served_launches": n_served, "logits_bitwise_equal": True,
            "predictions_bitwise_equal": True,
-           "trace_file": os.path.relpath(os.path.join(logdir, files[0]),
+           "trace_file": os.path.relpath(os.path.join(logdir, traces[0]),
                                          REPO),
            "trace_events": len(events), "trace_dense_kernels": named,
            "flops_estimate": {"b": SERVE_BATCH, "n": n, **flops}}
@@ -4535,6 +4796,8 @@ def main() -> int:
     vk = phase("2v forward kernels at the draw-stacked batches",
                vmap_kernel_phase, card)
     big = phase("2r row 1 past 2**31 elements", big_batch_phase, card)
+    ln = phase("2n layer-norm kernel", layernorm_phase, card)
+    ln["host"] = layernorm_host_cost(card)
 
     served, trained = {}, {}
     for tag, spec in (("3", at), ("3d", at_d), ("3l", at_l),
@@ -4549,6 +4812,8 @@ def main() -> int:
         del weights
     if not all(all(v.values()) for v in served.values()):
         fail(f"a served path never launched its triplet kernel: {served}")
+    ln_served = phase("5n TGT-Agx2 served layer norms",
+                      served_layernorm_phase, card, agx2)
     remat = phase("4r TGT-At remat policies", remat_policy_phase, card, at)
     indiv = phase("4r TGT-At IndivConfig serving", indiv_serving_phase, card,
                   at)
@@ -4695,6 +4960,7 @@ def main() -> int:
               {"training": trained[at_l.name]["bwd"], "pair": pair["bwd"]},
               legacy_bwd[FLAGSHIP], legacy_bwd[UNGATED],
               legacy_bwd[UNGATED_TRAIN]),
+        layernorm_entry(ln, ln_served),
     ]})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4702,7 +4968,71 @@ def main() -> int:
     return 0
 
 
+def layernorm_entry(rows, served) -> dict:
+    """The layer norm's entry of the kernels line."""
+    from tgt_torch.ops.kernels import layernorm as lnk
+
+    keep = ("shape", "dtype", "steps_from_plain", "steps_from_composite",
+            "bitwise_equal", "ms", "composite_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "device_ms", "composite_device_ms",
+            "plain_device_ms", "library_device_ms", "bound_share")
+    return {"name": "layernorm_fwd", "route": "cuda",
+            "source": lnk.KERNEL_SOURCE, "replaces": lnk.REPLACES,
+            "launches_by_path": {f"serving_vmap_{k}": v
+                                 for k, v in served.items()},
+            "host_us": {k: v for k, v in rows["host"].items()
+                        if k.endswith("_median")},
+            "shapes": {name: {k: row.get(k) for k in keep}
+                       for name, row in rows.items() if name != "host"}}
+
+
+def layernorm_main() -> int:
+    """Phases 1 (the layer norm's source alone), 2n and 5n."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    from tgt_torch.ops.kernels import _build
+    from tgt_torch.ops.kernels import triplet_aggregate as ta
+
+    os.makedirs(os.path.dirname(ROWS_PATH), exist_ok=True)
+    open(ROWS_PATH, "w").close()
+    card = card_line()
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda}", flush=True)
+    print(f"card: {card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.time()
+    _build.build_libraries(["layernorm_fwd"])
+    report = ptxas_report((_build.BUILD_DIR / "layernorm_fwd.log").read_text())
+    emit({"phase": "1 build layernorm_fwd", "wall_s": time.time() - t0,
+          "ptxas": report})
+    if any(f[2] or f[3] for f in report):
+        fail(f"the layer norm spills registers: {report}")
+    agx2 = ModelSpec("TGT-Agx2", AGX2_YAML, {"use_pallas": "dense"},
+                     ta.triplet_aggregate_fwd, ta.triplet_aggregate_bwd,
+                     body_counter="body_launches",
+                     fwd_body_counter="body_launches",
+                     core="triplet_aggregate_core")
+    t0 = time.time()
+    rows = layernorm_phase(card)
+    rows["host"] = layernorm_host_cost(card)
+    emit({"phase": "2n layer-norm kernel", "wall_s": time.time() - t0})
+    t0 = time.time()
+    served = served_layernorm_phase(card, agx2)
+    emit({"phase": "5n TGT-Agx2 served layer norms",
+          "wall_s": time.time() - t0})
+    print(f"card: {card}", flush=True)
+    emit({"kernels": [layernorm_entry(rows, served)]})
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--layernorm"]:        # phases 1, 2n and 5n
+        sys.exit(layernorm_main())
     if sys.argv[1:2] == ["--ddp-worker"]:       # one rank of phase 7d
         sys.exit(ddp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     if sys.argv[1:2] == ["--pair-worker"]:      # one rank of phase 7q

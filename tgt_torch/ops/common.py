@@ -4,7 +4,10 @@ initialisers (counterpart of tgt_tpu/ops/common.py).
 Parameters live in ``torch.nn`` modules (``nn.Linear`` weights are
 (out, in)); these functions apply them with tgt_tpu's numerics:
 - ``linear`` casts the f32 weight to the input's dtype;
-- ``layernorm`` normalises in f32 with eps 1e-5 and casts back;
+- ``layernorm`` normalises in f32 with eps 1e-5 and casts back: in one
+  kernel (``ops/kernels/layernorm.py``) where autograd records nothing and
+  the kernel takes the call (:func:`layernorm_route`), else as three
+  launches (widen, ``F.layer_norm``, narrow);
 - ``embedding`` clamps ids into [0, vocab-1] (``F.embedding`` would raise).
 
 Initialisation follows torch.nn's defaults, as tgt_tpu's does: Linear
@@ -26,6 +29,8 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tgt_torch.ops.kernels import layernorm as layernorm_kernel
 
 LN_EPS = 1e-5  # torch.nn.LayerNorm default
 
@@ -85,8 +90,33 @@ def linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
 
 
+def records_grad(ln: nn.LayerNorm, x: torch.Tensor) -> bool:
+    """Whether autograd would record a layer norm of x by ``ln``."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or ln.weight.requires_grad or ln.bias.requires_grad)
+
+
+def layernorm_route(device_type: str, dtype: torch.dtype, width: int,
+                    grad: bool) -> str:
+    """How :func:`layernorm` runs a call, from what it can observe:
+    ``"kernel"`` (one launch of ``csrc/layernorm_fwd.cu``) for a CUDA
+    tensor in bf16 or fp16 of a width the kernel takes, where autograd
+    records nothing (``grad`` False: the no-grad forward of serving and
+    evaluation); ``"composite"`` (widen, ``F.layer_norm``, narrow) for
+    everything else: training and remat's replay, f32, the CPU."""
+    if (device_type == "cuda" and not grad
+            and layernorm_kernel.takes(dtype, width)):
+        return "kernel"
+    return "composite"
+
+
 def layernorm(ln: nn.LayerNorm, x: torch.Tensor,
               eps: float = LN_EPS) -> torch.Tensor:
+    if layernorm_route(x.device.type, x.dtype, x.shape[-1],
+                       records_grad(ln, x)) == "kernel":
+        if not x.is_contiguous():
+            x = x.contiguous()
+        return layernorm_kernel.layernorm_fwd(x, ln.weight, ln.bias, eps)
     # normalise in f32 whatever the compute dtype
     y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
                      ln.bias.float(), eps)

@@ -8,6 +8,7 @@
 | ops/pallas/triplet_dense.py:_agg_bwd_kernel         | triplet_aggregate.triplet_aggregate_bwd |
 | ops/pallas/triplet_attention.py:_fwd_kernel         | triplet_attention.triplet_attention_fwd |
 | ops/pallas/triplet_attention.py:_bwd_kernel         | triplet_attention.triplet_attention_bwd |
+| none: ops/common.py:layernorm, which XLA fuses      | layernorm.layernorm_fwd   |
 
 ``triplet_dense.TripletDenseCore`` joins the first two as the custom VJP
 ``_dense_core`` does (its dropout hash ``_hash_keepf`` is
@@ -24,5 +25,7 @@ The aggregate forward and backward each have two routes, chosen by shape
 tensor-core pass (their partitions in plain PyTorch are
 ``triplet_aggregate.agg_fwd_body_reference`` and ``agg_bwd_body_reference``),
 in f32 and at shapes outside the bodies the panel loop (forward) and three
-CUDA-core kernels (backward).
+CUDA-core kernels (backward). The layer norm replaces no Pallas kernel: it
+is the one pass that XLA fuses tgt_tpu's widen-normalise-narrow chain into,
+taken by ``ops/common.layernorm`` for the calls autograd does not record.
 """
