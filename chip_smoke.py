@@ -2,7 +2,8 @@
 """Smoke run of tgt_torch on one NVIDIA card (built for the H100).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --layernorm    # phases 1 (its kernel), 2n, 5n
+    python3 chip_smoke.py --phases 2,2b,2t   # phase 1 and the phases named
+    python3 chip_smoke.py --layernorm        # as --phases 2n,5n
 
 Phases, each of which fails the run (non-zero exit) on error:
 
@@ -560,16 +561,16 @@ def legacy_as_sdpa(q_t, k_t, v_t, bias, dout=None):
     return out if dout is None else out + (heads(dout),)
 
 
-def sdpa_call(scale, q, k, v, mask, dout=None):
+def sdpa_call(scale, q, k, v, mask, dout=None, backends=SDPA_BACKENDS):
     """(call, backend): SDPA's forward on these inputs or, given the output
-    cotangent ``dout``, its backward, under the first backend of
-    SDPA_BACKENDS that runs it; (None, None) if none does."""
+    cotangent ``dout``, its backward, under the first of ``backends`` that
+    runs it; (None, None) if none does."""
     import warnings
 
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
-    for name in SDPA_BACKENDS:
+    for name in backends:
         backend = getattr(SDPBackend, name, None)
         if backend is None:
             continue
@@ -871,6 +872,114 @@ def backward_kernel_phase(card):
             fail(f"backward kernel disagrees on the transposed k/v views "
                  f"in {dtype}")
         del q, k, v, bias, gate, dva, got, ref
+    return rows
+
+
+# -- phase 2t: the dense pair's key-tiled route past 128 nodes ---------------
+
+# (b, N, d, h): the Pairformer's triangle attention at AlphaFold 3's first
+# crop (384 tokens) and its largest fine-tuning crop (768), ungated, bf16
+TILED_CASES = [(1, 384, 32, 4), (1, 768, 32, 4)]
+
+
+def tiled_inputs(b, n, d, h, gen):
+    """q (pre-scaled), k, v, bias and the cotangent in bf16; the last 5 keys
+    of the bias masked at -1e9, as padding past a crop's tokens."""
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    q = randn(b, n, n, d, h) * d ** -0.5
+    k, v, dva = randn(b, n, n, d, h), randn(b, n, n, d, h), randn(
+        b, n, n, d, h)
+    bias = randn(b, n, n, h)
+    bias[:, :, n - 5:] = -1e9
+    return tuple(x.to(torch.bfloat16) for x in (q, k, v, bias, dva))
+
+
+def tiled_phase(card):
+    """Phase 2t: forward and backward of the key-tiled route against the
+    plain core within 1e-2 of max|plain| (rows 1 and 3's tolerance in
+    bf16), bitwise equal on repeat, counted on ``tiled_launches`` alone; per
+    call and back to back beside the bound and beside SDPA's
+    memory-efficient backend on the same operands (the library); then one
+    call at n = 128, which must still take the body (``launches``)."""
+    from tgt_torch.ops.kernels import triplet_dense as td
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    for b, n, d, h in TILED_CASES:
+        q, k, v, bias, dva = tiled_inputs(b, n, d, h, gen)
+        counts = (td.triplet_dense_fwd.tiled_launches,
+                  td.triplet_dense_bwd.tiled_launches,
+                  td.triplet_dense_fwd.launches, td.triplet_dense_bwd.launches)
+        out = td.triplet_dense_fwd(q, k, v, bias)
+        grads = td.triplet_dense_bwd(q, k, v, bias, None, dva)
+        repeat = (torch.equal(out, td.triplet_dense_fwd(q, k, v, bias))
+                  and same_outputs(grads, td.triplet_dense_bwd(
+                      q, k, v, bias, None, dva)))
+        after = (td.triplet_dense_fwd.tiled_launches,
+                 td.triplet_dense_bwd.tiled_launches,
+                 td.triplet_dense_fwd.launches, td.triplet_dense_bwd.launches)
+        torch.cuda.synchronize()
+        ref = td.triplet_dense_fwd_reference(q, k, v, bias)
+        fwd_err = float((out.float() - ref.float()).abs().max())
+        fwd_tol = KERNEL_TOL[torch.bfloat16] * float(ref.float().abs().max())
+        del ref
+        torch.cuda.empty_cache()
+        ref = td.triplet_dense_bwd_reference(q, k, v, bias, None, dva)
+        errs, ok = compare_bwd(grads, ref, torch.bfloat16)
+        del ref
+        torch.cuda.empty_cache()
+        nbytes, flops = (4 * q.numel() + bias.numel()) * 2, 4.0 * b * n ** 3 * h * d
+        bwd_bytes = (7 * q.numel() + 2 * bias.numel()) * 2
+        row = {"case": "triplet_dense tiled", "b": b, "n": n, "d": d,
+               "heads": h, "dtype": "bfloat16", "gated": False,
+               "fwd_err": [fwd_err, fwd_tol], "bwd_errs": errs,
+               "ok": ok and fwd_err <= fwd_tol, "bitwise_equal": repeat,
+               "launches": [a - c for a, c in zip(after, counts)],
+               "fwd_ms": time_ms(lambda: td.triplet_dense_fwd(q, k, v, bias)),
+               "fwd_device_ms": device_ms(
+                   lambda: td.triplet_dense_fwd(q, k, v, bias)),
+               "bwd_ms": time_ms(
+                   lambda: td.triplet_dense_bwd(q, k, v, bias, None, dva)),
+               "bwd_device_ms": device_ms(
+                   lambda: td.triplet_dense_bwd(q, k, v, bias, None, dva)),
+               "fwd_bound_ms": max(nbytes / PEAK_BYTES_PER_S,
+                                   flops / PEAK_FLOPS[torch.bfloat16]) * 1e3,
+               "bwd_bound_ms": max(bwd_bytes / PEAK_BYTES_PER_S, 2.5 * flops
+                                   / PEAK_FLOPS[torch.bfloat16]) * 1e3,
+               "card": card}
+        operands = dense_as_sdpa(q, k, v, bias, dva)
+        fwd, name = sdpa_call(1.0, *operands[:4],
+                              backends=("EFFICIENT_ATTENTION",))
+        bwd, _ = sdpa_call(1.0, *operands, backends=("EFFICIENT_ATTENTION",))
+        if fwd is not None:
+            row.update(library=name, library_fwd_ms=time_ms(fwd),
+                       library_fwd_device_ms=device_ms(fwd))
+        if bwd is not None:
+            row.update(library_bwd_ms=time_ms(bwd),
+                       library_bwd_device_ms=device_ms(bwd))
+        emit(row)
+        if not row["ok"]:
+            fail(f"the tiled route disagrees with the plain core: {row}")
+        if not repeat:
+            fail(f"two tiled launches on the same inputs differ: {row}")
+        if row["launches"] != [2, 2, 0, 0]:
+            fail(f"the tiled route's calls were counted elsewhere: {row}")
+        rows.append(row)
+        del q, k, v, bias, dva, out, grads, operands, fwd, bwd
+        torch.cuda.empty_cache()
+    q, k, v, bias, dva = tiled_inputs(2, td.MAX_NODES, 32, 4, gen)
+    before = (td.triplet_dense_fwd.tiled_launches, td.triplet_dense_fwd.launches,
+              td.triplet_dense_bwd.tiled_launches, td.triplet_dense_bwd.launches)
+    td.triplet_dense_fwd(q, k, v, bias)
+    td.triplet_dense_bwd(q, k, v, bias, None, dva)
+    after = (td.triplet_dense_fwd.tiled_launches, td.triplet_dense_fwd.launches,
+             td.triplet_dense_bwd.tiled_launches, td.triplet_dense_bwd.launches)
+    routed = [a - c for a, c in zip(after, before)]
+    emit({"case": "triplet_dense at n = 128", "launches": routed})
+    if routed != [0, 1, 0, 1]:
+        fail(f"a call at n = {td.MAX_NODES} left the bodies: {routed}")
     return rows
 
 
@@ -4730,7 +4839,9 @@ def pair_phase(card, spec: ModelSpec, root: str):
     return {"fwd": 0, "bwd": 0}
 
 
-def main() -> int:
+def main(only=None) -> int:
+    """Every phase, or with ``only`` (a set of phase tags such as "2t")
+    phase 1 and those phases alone, without the kernels line."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -4749,6 +4860,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     def phase(name, fn, *args):
+        if only is not None and name.split()[0] not in only | {"1"}:
+            return None
         t0 = time.time()
         out = fn(*args)
         emit({"phase": name, "wall_s": time.time() - t0})
@@ -4785,19 +4898,22 @@ def main() -> int:
 
     dense = phase("2 attention fwd kernel", kernel_phase, card)
     dense_bwd = phase("2b attention bwd kernel", backward_kernel_phase, card)
+    phase("2t attention kernels past 128 nodes", tiled_phase, card)
     drop = phase("2c attention kernels at rate > 0", dropout_kernel_phase,
                  card)
     agg, agg_shapes = phase("2d aggregate fwd kernel",
-                            aggregate_kernel_phase, card)
+                            aggregate_kernel_phase, card) or (None, None)
     agg_bwd, agg_bwd_shapes = phase("2e aggregate bwd kernel",
-                                    aggregate_backward_phase, card)
+                                    aggregate_backward_phase,
+                                    card) or (None, None)
     legacy = phase("2f legacy fwd kernel", legacy_forward_phase, card)
     legacy_bwd = phase("2g legacy bwd kernel", legacy_backward_phase, card)
     vk = phase("2v forward kernels at the draw-stacked batches",
                vmap_kernel_phase, card)
     big = phase("2r row 1 past 2**31 elements", big_batch_phase, card)
     ln = phase("2n layer-norm kernel", layernorm_phase, card)
-    ln["host"] = layernorm_host_cost(card)
+    if ln is not None:
+        ln["host"] = layernorm_host_cost(card)
 
     served, trained = {}, {}
     for tag, spec in (("3", at), ("3d", at_d), ("3l", at_l),
@@ -4806,11 +4922,12 @@ def main() -> int:
                                   serving_phase, card, spec)
         trained[spec.name], weights = phase(
             f"{int(tag[0]) + 1}{tag[1:]} {spec.name} training",
-            training_phase, card, spec)
-        phase(f"{int(tag[0]) + 1}b{tag[1:]} {spec.name} f32 gradients",
-              gradient_phase, card, spec, weights)
+            training_phase, card, spec) or (None, None)
+        if weights is not None:      # the f32 gradients start from them
+            phase(f"{int(tag[0]) + 1}b{tag[1:]} {spec.name} f32 gradients",
+                  gradient_phase, card, spec, weights)
         del weights
-    if not all(all(v.values()) for v in served.values()):
+    if not all(all(v.values()) for v in served.values() if v is not None):
         fail(f"a served path never launched its triplet kernel: {served}")
     ln_served = phase("5n TGT-Agx2 served layer norms",
                       served_layernorm_phase, card, agx2)
@@ -4828,6 +4945,9 @@ def main() -> int:
         prep = phase("7p TGT-At prepared data", prep_phase, card, at, root)
         ddp = phase("7d TGT-At data parallelism", ddp_phase, card, at, root)
         pair = phase("7q TGT-At pair axis", pair_phase, card, at, root)
+    if only is not None:
+        print(json.dumps({"ok": True, "phases": sorted(only)}), flush=True)
+        return 0
 
     def entry(name, source, replaces, by_path, row, ungated=None,
               ungated_train=None):
@@ -4986,53 +5106,11 @@ def layernorm_entry(rows, served) -> dict:
                        for name, row in rows.items() if name != "host"}}
 
 
-def layernorm_main() -> int:
-    """Phases 1 (the layer norm's source alone), 2n and 5n."""
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 1
-    from tgt_torch.ops.kernels import _build
-    from tgt_torch.ops.kernels import triplet_aggregate as ta
-
-    os.makedirs(os.path.dirname(ROWS_PATH), exist_ok=True)
-    open(ROWS_PATH, "w").close()
-    card = card_line()
-    print(f"python {sys.version.split()[0]} torch {torch.__version__} "
-          f"cuda {torch.version.cuda}", flush=True)
-    print(f"card: {card}", flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t0 = time.time()
-    _build.build_libraries(["layernorm_fwd"])
-    report = ptxas_report((_build.BUILD_DIR / "layernorm_fwd.log").read_text())
-    emit({"phase": "1 build layernorm_fwd", "wall_s": time.time() - t0,
-          "ptxas": report})
-    if any(f[2] or f[3] for f in report):
-        fail(f"the layer norm spills registers: {report}")
-    agx2 = ModelSpec("TGT-Agx2", AGX2_YAML, {"use_pallas": "dense"},
-                     ta.triplet_aggregate_fwd, ta.triplet_aggregate_bwd,
-                     body_counter="body_launches",
-                     fwd_body_counter="body_launches",
-                     core="triplet_aggregate_core")
-    t0 = time.time()
-    rows = layernorm_phase(card)
-    rows["host"] = layernorm_host_cost(card)
-    emit({"phase": "2n layer-norm kernel", "wall_s": time.time() - t0})
-    t0 = time.time()
-    served = served_layernorm_phase(card, agx2)
-    emit({"phase": "5n TGT-Agx2 served layer norms",
-          "wall_s": time.time() - t0})
-    print(f"card: {card}", flush=True)
-    emit({"kernels": [layernorm_entry(rows, served)]})
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
-
-
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phases"]:           # phase 1 and these
+        sys.exit(main(set(sys.argv[2].split(","))))
     if sys.argv[1:2] == ["--layernorm"]:        # phases 1, 2n and 5n
-        sys.exit(layernorm_main())
+        sys.exit(main({"2n", "5n"}))
     if sys.argv[1:2] == ["--ddp-worker"]:       # one rank of phase 7d
         sys.exit(ddp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     if sys.argv[1:2] == ["--pair-worker"]:      # one rank of phase 7q

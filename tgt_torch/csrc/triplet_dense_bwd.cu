@@ -66,6 +66,7 @@
 #include "dropout_hash.cuh"
 #include "triplet_bwd_mma.cuh"
 #include "triplet_common.cuh"
+#include "triplet_tiled_mma.cuh"
 
 namespace {
 
@@ -435,4 +436,43 @@ extern "C" int triplet_dense_bwd_mma(
   if (gate != nullptr) return tbwd::launch<true, false>(a, o, s);
   if (seeds != nullptr) return tbwd::launch<false, true>(a, o, s);
   return tbwd::launch<false, false>(a, o, s);
+}
+
+// bf16 past 128 nodes, ungated, at rate 0 (the key-tiled route of
+// triplet_tiled_mma.cuh: ttil::tiled_bwd_q_kernel, tiled_bwd_kv_kernel and
+// tiled_reduce_kernel). q_t, k_t, v_t, do_t: head-major (bh, n, n, dp)
+// contiguous, dp 16 or 32; bias_t: head-major (bh, n, n8), the key axis
+// zero-padded to a multiple of 8; dq_t, dk_t, dv_t as q_t. stats: bh x n x n
+// float4 and partial: chunks x bh x n x n floats of scratch; rows j go in
+// chunks of jc. dbias: (b, i, k, h) at the element strides of its (b, h, i,
+// k) axes in so. Returns the first CUDA error (0 when all three launches went
+// out).
+// Rows i per block of the tiled dQ kernel at n nodes, for the caller's
+// partition of rows j into chunks.
+extern "C" int triplet_dense_bwd_tiled_rows(int n) { return 16 * ttil::q_warps(n); }
+
+extern "C" int triplet_dense_bwd_tiled(const void* q_t, const void* k_t, const void* v_t,
+                                       const void* do_t, const void* bias_t, void* dq_t,
+                                       void* dk_t, void* dv_t, void* stats, void* partial,
+                                       void* dbias, const long long* so, int batch, int h,
+                                       int n, int dp, int jc, int chunks, void* stream) {
+  using tmma::bf16;
+  ttil::Args a{};
+  a.q = (const bf16*)q_t;
+  a.k = (const bf16*)k_t;
+  a.v = (const bf16*)v_t;
+  a.dout = (const bf16*)do_t;
+  a.bias = (const bf16*)bias_t;
+  a.dq = (bf16*)dq_t;
+  a.dk = (bf16*)dk_t;
+  a.dv = (bf16*)dv_t;
+  a.stats = (float4*)stats;
+  a.partial = (float*)partial;
+  a.bh = batch * h;
+  a.n = n;
+  a.dp = dp;
+  a.jc = jc;
+  a.chunks = chunks;
+  if (!ttil::valid(a) || batch < 1 || h < 1) return (int)cudaErrorInvalidValue;
+  return ttil::launch_bwd(a, (bf16*)dbias, so, batch, h, (cudaStream_t)stream);
 }

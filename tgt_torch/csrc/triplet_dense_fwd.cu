@@ -58,6 +58,7 @@
 #include "dropout_hash.cuh"
 #include "triplet_common.cuh"
 #include "triplet_fwd_mma.cuh"
+#include "triplet_tiled_mma.cuh"
 
 namespace {
 
@@ -306,4 +307,29 @@ extern "C" int triplet_dense_fwd_inplace(const void* q, const void* k, const voi
   if (gate != nullptr) return tfwd::launch_inplace<true, false>(a, s);
   if (seeds != nullptr) return tfwd::launch_inplace<false, true>(a, s);
   return tfwd::launch_inplace<false, false>(a, s);
+}
+
+// bf16 past 128 nodes, ungated, at rate 0 (ttil::tiled_fwd_kernel, the
+// key-tiled route of triplet_tiled_mma.cuh). q_t, k_t, v_t: head-major (bh, n,
+// n, dp) contiguous copies as for triplet_dense_fwd_mma, dp 16 or 32; bias_t:
+// a head-major (bh, n, n8) copy of the bias, its key axis zero-padded to a
+// multiple of 8; out_t as q_t. Takes n <= ttil::kMaxNodes. Returns the
+// launch's CUDA error (0 when it went out).
+extern "C" int triplet_dense_fwd_tiled(const void* q_t, const void* k_t, const void* v_t,
+                                       const void* bias_t, void* out_t, int bh, int n, int dp,
+                                       void* stream) {
+  using tmma::bf16;
+  ttil::Args a{};
+  a.q = (const bf16*)q_t;
+  a.k = (const bf16*)k_t;
+  a.v = (const bf16*)v_t;
+  a.bias = (const bf16*)bias_t;
+  a.out = (bf16*)out_t;
+  a.bh = bh;
+  a.n = n;
+  a.dp = dp;
+  a.jc = n;
+  a.chunks = 1;
+  if (!ttil::valid(a)) return (int)cudaErrorInvalidValue;
+  return ttil::launch_fwd(a, (cudaStream_t)stream);
 }

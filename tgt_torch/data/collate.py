@@ -26,6 +26,9 @@ _NODE_AXES = {
     "dft_coords": (0,),
     "rdkit_coords": (0,),
     "dist_bins": (1, 2),   # (S, N, N)
+    "restype": (0,),
+    "residue_index": (0,),
+    "asym_id": (0,),
 }
 
 DEFAULT_BUCKETS = (16, 24, 32, 48, 64)

@@ -6,6 +6,13 @@ Random connected molecule-like graphs (spanning tree + extra ring bonds),
 OGB-style integer features, 3D coordinates and a scalar target correlated
 with graph statistics: the record schema of the PCQM dataset, so the
 training path runs without the real download.
+
+:class:`SyntheticStructures` is the structure source of the
+``structure.distogram`` scheme (the Pairformer): one chain per structure,
+residue types drawn from the 20 standard amino acids (ids 0-19 of 32),
+residue index 0..n-1, and a representative atom per residue on a
+persistent random walk of 3.8 A steps (the C-alpha spacing), whose
+distances the distogram is trained on.
 """
 from __future__ import annotations
 
@@ -65,6 +72,48 @@ class SyntheticDataset:
             row["idx"] = i                   # global row id
             self._cache.append(transform(row))
         # per-row node counts, read by the size-bucketed sampler
+        self.sizes = np.asarray([r["num_nodes"] for r in self._cache])
+
+    def __len__(self):
+        return len(self._cache)
+
+    def __getitem__(self, idx: int) -> Dict:
+        return dict(self._cache[idx])
+
+
+STANDARD_RESIDUES = 20
+CA_STEP = 3.8           # A between consecutive representative atoms
+
+
+def make_structure(rng: np.random.Generator, num_tokens: int) -> Dict:
+    """One chain of ``num_tokens`` residues: ``restype``,
+    ``residue_index``, ``asym_id`` (all int32) and ``coords`` (float32,
+    A), a walk whose each step keeps most of the last one's direction."""
+    steps = np.empty((num_tokens, 3))
+    direction = rng.standard_normal(3)
+    for t in range(num_tokens):
+        direction = direction / np.linalg.norm(direction)
+        steps[t] = direction
+        direction = direction + 1.2 * rng.standard_normal(3)
+    coords = np.cumsum(steps * CA_STEP, axis=0)
+    return {"num_nodes": num_tokens,
+            "restype": rng.integers(0, STANDARD_RESIDUES,
+                                    num_tokens).astype(np.int32),
+            "residue_index": np.arange(num_tokens, dtype=np.int32),
+            "asym_id": np.zeros(num_tokens, np.int32),
+            "coords": (coords - coords.mean(0)).astype(np.float32),
+            "node_mask": np.ones(num_tokens, np.uint8)}
+
+
+class SyntheticStructures:
+    """Map-style dataset of ``num_samples`` chains of ``min_tokens`` to
+    ``max_tokens`` residues, drawn from ``seed``."""
+
+    def __init__(self, num_samples: int = 64, min_tokens: int = 16,
+                 max_tokens: int = 32, seed: int = 0):
+        rng = np.random.default_rng(seed)
+        self._cache = [make_structure(rng, int(rng.integers(
+            min_tokens, max_tokens + 1))) for _ in range(num_samples)]
         self.sizes = np.asarray([r["num_nodes"] for r in self._cache])
 
     def __len__(self):

@@ -8,7 +8,9 @@ As the reference task heads
   masked mean pool -> Linear(node_width, 1), bias initialised to HL_MEAN;
   the last layer has no edge branch and no triplet sub-layer;
 - multi: an encoder ended on both channels with both heads; returns
-  (gap, dist_logits).
+  (gap, dist_logits);
+- pairformer: AlphaFold 3's Pairformer trunk and distogram head
+  (``models/pairformer.py``), built from a ``PairformerConfig``.
 
 ``seed`` is one seed, or a sequence of S seeds for a draw-stacked batch:
 S MC draws of b molecules as one batch of S*b rows, row ``s*b + r`` draw s
@@ -32,6 +34,7 @@ from tgt_torch.models import consts as C
 from tgt_torch.models.embedding import EmbedInput
 from tgt_torch.models.encoder import Seeds, TGTEncoder
 from tgt_torch.models.model_config import TGTConfig
+from tgt_torch.models.pairformer import PairformerModel
 from tgt_torch.ops.common import init_module_, layernorm, linear
 from tgt_torch.parallel.mesh import current_pair_axis
 from tgt_torch.parallel.pair_layer import encoder_pair_sharded
@@ -124,19 +127,21 @@ class MultiModel(_TaskModel):
         return self._gap(g), dist_logits
 
 
-MODELS = {"distance": DistanceModel, "gap": GapModel, "multi": MultiModel}
+MODELS = {"distance": DistanceModel, "gap": GapModel, "multi": MultiModel,
+          "pairformer": PairformerModel}
 
 
-def make_model(name: str, cfg: TGTConfig, *, device=None,
+def make_model(name: str, cfg, *, device=None,
                seed: int = 0) -> nn.Module:
     """Build task model ``name`` with weights initialised from ``seed``, on
-    the card unless ``device`` names another device."""
+    the card unless ``device`` names another device: a ``TGTConfig`` for
+    the TGT models, a ``PairformerConfig`` for ``pairformer``."""
     if name not in MODELS:
         raise ValueError(f"unknown model '{name}'; available: {list(MODELS)}")
     device = resolve_device(device)
     model = MODELS[name](cfg, device=device)
     init_module_(model, torch.Generator(device=device).manual_seed(seed))
-    if name != "distance":         # the gap head starts at the mean gap
+    if name in ("gap", "multi"):   # the gap head starts at the mean gap
         with torch.no_grad():
             model.pred.bias.fill_(C.HL_MEAN)
     return model

@@ -46,7 +46,8 @@ Generators = Union[torch.Generator, Tuple[torch.Generator, ...], None]
 def linear_init_(lin: nn.Linear, generator: torch.Generator) -> None:
     bound = lin.in_features ** -0.5
     lin.weight.uniform_(-bound, bound, generator=generator)
-    lin.bias.uniform_(-bound, bound, generator=generator)
+    if lin.bias is not None:
+        lin.bias.uniform_(-bound, bound, generator=generator)
 
 
 @torch.no_grad()
@@ -87,7 +88,8 @@ def init_module_(module: nn.Module, generator: torch.Generator) -> None:
 # ---------------------------------------------------------------------------
 
 def linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
+    bias = None if lin.bias is None else lin.bias.to(x.dtype)
+    return F.linear(x, lin.weight.to(x.dtype), bias)
 
 
 def records_grad(ln: nn.LayerNorm, x: torch.Tensor) -> bool:
@@ -165,11 +167,14 @@ def randint(high: int, shape: Sequence[int], generator: Generators, device,
 
 
 def dropout(x: torch.Tensor, rate: float, deterministic: bool,
-            generator: Generators) -> torch.Tensor:
-    """Inverted dropout (scale by 1/keep at train time)."""
+            generator: Generators,
+            shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Inverted dropout (scale by 1/keep at train time), with one mask of
+    ``shape`` (default x's) broadcast over x."""
     if deterministic or rate == 0.0:
         return x
-    keep = rand(x.shape, generator, x.device) < 1.0 - rate
+    keep = rand(x.shape if shape is None else shape, generator,
+                x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

@@ -35,6 +35,16 @@ forward's mask and no mask reaches device memory.
 inputs' shapes and dtype), and ``dbias``, ``dgate`` (b, i, k, h), summed
 over j in f32 and cast to the inputs' dtype.
 
+Past ``MAX_NODES`` (128) the bf16 bodies no longer hold a row's keys; an
+ungated call at rate 0 in bf16 takes the key-tiled route
+(``csrc/triplet_tiled_mma.cuh``: an online softmax over blocks of 64 keys
+in the forward; in the backward a dQ kernel that also takes the row
+statistics and dbias' partial sums, a dK/dV kernel and an ordered
+reduction) up to ``TILED_MAX_NODES``, counted apart in
+``tiled_launches``. Its weights are rounded against the running row max,
+so it agrees with the plain version to bf16 rounding; it is bitwise
+deterministic on repeat.
+
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel,
 and what the kernel cannot take raises. There is no fallback.
 """
@@ -59,6 +69,7 @@ BWD_REPLACES = "tgt_tpu/ops/pallas/triplet_dense.py:258"
 DROPOUT_REPLACES = "tgt_tpu/ops/pallas/triplet_dense.py:141"
 
 MAX_NODES = 128
+TILED_MAX_NODES = 1024     # ttil::kMaxNodes, csrc/triplet_tiled_mma.cuh
 HEAD_DIMS = (1, 2, 4, 8, 16, 32)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK32 = 0xFFFFFFFF
@@ -273,7 +284,13 @@ def _check_shapes(q, k, v, bias, gate, dva=None, seed=None,
                             f"{seed.dtype} on {seed.device}")
 
 
-def _check_kernel_limits(q, k, v, bias, gate, dva=None) -> None:
+def tiled(n: int) -> bool:
+    """Whether a call of ``n`` nodes on the card takes the key-tiled route:
+    past ``MAX_NODES``, which only that route takes."""
+    return n > MAX_NODES
+
+
+def _check_kernel_limits(q, k, v, bias, gate, dva=None, rate=0.0) -> None:
     """What both kernels take; raises on anything else."""
     if q.device.type != "cuda":
         raise ValueError(f"the triplet kernels run on cpu or cuda, not "
@@ -282,7 +299,14 @@ def _check_kernel_limits(q, k, v, bias, gate, dva=None) -> None:
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"the kernel takes float32 or bfloat16, not {q.dtype}")
     if n > MAX_NODES:
-        raise ValueError(f"the kernel takes at most {MAX_NODES} nodes, got {n}")
+        if q.dtype != torch.bfloat16 or gate is not None or rate > 0.0:
+            raise ValueError(
+                f"past {MAX_NODES} nodes the kernel takes the ungated core "
+                f"in bfloat16 at rate 0, got n = {n}, {q.dtype}, "
+                f"{'gated' if gate is not None else 'ungated'}, rate {rate}")
+        if n > TILED_MAX_NODES:
+            raise ValueError(f"the kernel takes at most {TILED_MAX_NODES} "
+                             f"nodes, got {n}")
     if d not in HEAD_DIMS:
         raise ValueError(f"the kernel takes a head width in {HEAD_DIMS}, "
                          f"got {d}")
@@ -362,6 +386,32 @@ def _bwd_mma_kernel():
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
                       ctypes.c_uint, ctypes.c_float]
                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _fwd_tiled_kernel():
+    fn = load_library("triplet_dense_fwd").triplet_dense_fwd_tiled
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_tiled_kernel():
+    fn = load_library("triplet_dense_bwd").triplet_dense_bwd_tiled
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_tiled_rows():
+    """Rows i per block of the tiled dQ kernel at n nodes."""
+    fn = load_library("triplet_dense_bwd").triplet_dense_bwd_tiled_rows
+    fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn
 
@@ -471,6 +521,68 @@ def _bwd_mma(q, k, v, bias, gate, dva, seed, rate):
             from_head_major(dv_t, KV_ORDER, d), dbias, dgate)
 
 
+def _bias_head_major(bias: torch.Tensor) -> torch.Tensor:
+    """The tiled route's bias: a contiguous (b h, i, k) copy, its key axis
+    zero-padded to a multiple of 8."""
+    b, n, _, h = bias.shape
+    out = bias.new_zeros(b * h, n, -(-n // 8) * 8)
+    out[:, :, :n] = bias.permute(0, 3, 1, 2).reshape(b * h, n, n)
+    return out
+
+
+def _fwd_tiled(q, k, v, bias):
+    """The bf16 forward past ``MAX_NODES``: head-major copies in, one launch
+    of the key-tiled body, the head-major output moved back."""
+    b, n, _, d, h = q.shape
+    dp = padded_head_dim(d)
+    q_t = to_head_major(q, Q_ORDER, dp)
+    k_t, v_t = (to_head_major(x, KV_ORDER, dp) for x in (k, v))
+    bias_t = _bias_head_major(bias)
+    out_t = torch.empty_like(q_t)
+    with torch.cuda.device(q.device):
+        rc = _fwd_tiled_kernel()(
+            q_t.data_ptr(), k_t.data_ptr(), v_t.data_ptr(), bias_t.data_ptr(),
+            out_t.data_ptr(), b * h, n, dp,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"triplet_dense_fwd tiled launch failed with CUDA "
+                           f"error {rc}")
+    return from_head_major(out_t, KV_ORDER, d)
+
+
+def _bwd_tiled(q, k, v, bias, dva):
+    """The bf16 backward past ``MAX_NODES``: head-major copies in, the
+    key-tiled body's three launches (dQ with the row statistics and
+    dbias' partial sums over chunks of rows j; dK and dV; the ordered sum
+    of the chunks), dq, dk, dv moved back; dbias written in place."""
+    b, n, _, d, h = q.shape
+    dp = padded_head_dim(d)
+    q_t = to_head_major(q, Q_ORDER, dp)
+    k_t, v_t, do_t = (to_head_major(x, KV_ORDER, dp) for x in (k, v, dva))
+    bias_t = _bias_head_major(bias)
+    dq_t, dk_t, dv_t = (torch.empty_like(q_t) for _ in range(3))
+    jc, chunks = j_chunks(b * h * -(-n // _bwd_tiled_rows()(n)), n,
+                          sm_count(q.device), 2)
+    stats = torch.empty((b * h, n, n, 4), dtype=torch.float32,
+                        device=q.device)
+    partial = torch.empty((chunks, b * h, n, n), dtype=torch.float32,
+                          device=q.device)
+    dbias = torch.empty((b, n, n, h), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = _bwd_tiled_kernel()(
+            q_t.data_ptr(), k_t.data_ptr(), v_t.data_ptr(), do_t.data_ptr(),
+            bias_t.data_ptr(), dq_t.data_ptr(), dk_t.data_ptr(),
+            dv_t.data_ptr(), stats.data_ptr(), partial.data_ptr(),
+            dbias.data_ptr(), _pair_strides(dbias), b, h, n, dp, jc, chunks,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"triplet_dense_bwd tiled launch failed with CUDA "
+                           f"error {rc}")
+    return (from_head_major(dq_t, Q_ORDER, d),
+            from_head_major(dk_t, KV_ORDER, d),
+            from_head_major(dv_t, KV_ORDER, d), dbias, None)
+
+
 def _count(wrapper, rate: float) -> None:
     """One more launch on the card, counted apart at rate > 0."""
     if rate > 0.0:
@@ -494,12 +606,16 @@ def triplet_dense_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_shapes(q, k, v, bias, gate, seed=seed, rate=rate)
     if q.device.type == "cpu":
         return triplet_dense_fwd_reference(q, k, v, bias, gate, seed, rate)
-    _check_kernel_limits(q, k, v, bias, gate)
+    _check_kernel_limits(q, k, v, bias, gate, rate=rate)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (q, k, v, bias, gate)):
         raise RuntimeError("triplet_dense_fwd returns no gradient on the "
                            "card; call triplet_dense, which differentiates "
                            "through the backward kernel")
+    if tiled(q.shape[1]):
+        out = _fwd_tiled(q, k, v, bias)
+        triplet_dense_fwd.tiled_launches += 1
+        return out
     if q.dtype == torch.bfloat16:
         if reads_in_place(q, k, v, bias, gate):
             out = _fwd_inplace(q, k, v, bias, gate, seed, rate)
@@ -528,8 +644,10 @@ def triplet_dense_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # kernel launches on the card, read by chip_smoke.py: at rate 0, and at > 0
+# (n <= MAX_NODES), and the key-tiled route's calls past MAX_NODES
 triplet_dense_fwd.launches = 0
 triplet_dense_fwd.dropout_launches = 0
+triplet_dense_fwd.tiled_launches = 0
 
 
 def triplet_dense_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -545,7 +663,11 @@ def triplet_dense_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return triplet_dense_bwd_reference(q, k, v, bias, gate, dva, seed,
                                            rate)
-    _check_kernel_limits(q, k, v, bias, gate, dva)
+    _check_kernel_limits(q, k, v, bias, gate, dva, rate)
+    if tiled(q.shape[1]):
+        grads = _bwd_tiled(q, k, v, bias, dva)
+        triplet_dense_bwd.tiled_launches += 1
+        return grads
     if q.dtype == torch.bfloat16:
         grads = _bwd_mma(q, k, v, bias, gate, dva, seed, rate)
         _count(triplet_dense_bwd, rate)
@@ -576,8 +698,10 @@ def triplet_dense_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # one per call on the card, read by chip_smoke.py: at rate 0, and at > 0
+# (n <= MAX_NODES), and the key-tiled route's calls past MAX_NODES
 triplet_dense_bwd.launches = 0
 triplet_dense_bwd.dropout_launches = 0
+triplet_dense_bwd.tiled_launches = 0
 
 
 class TripletDenseCore(torch.autograd.Function):

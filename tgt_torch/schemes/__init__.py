@@ -5,12 +5,14 @@ from tgt_torch.schemes.dist_pred import DistPredScheme
 from tgt_torch.schemes.finetune import FinetuneScheme
 from tgt_torch.schemes.gap_pred import GapPredScheme
 from tgt_torch.schemes.pretrain import PretrainScheme
+from tgt_torch.schemes.structure import DistogramScheme
 
 SCHEMES = {
     "pcqm.dist_pred": DistPredScheme,
     "pcqm.pretrain": PretrainScheme,
     "pcqm.finetune": FinetuneScheme,
     "pcqm.gap_pred": GapPredScheme,
+    "structure.distogram": DistogramScheme,
 }
 
 
@@ -21,5 +23,6 @@ def get_scheme(name: str):
 
 
 __all__ = ["TGTScheme", "default_scheme_config", "DistPredScheme",
-           "PretrainScheme", "FinetuneScheme", "GapPredScheme", "SCHEMES",
+           "PretrainScheme", "FinetuneScheme", "GapPredScheme",
+           "DistogramScheme", "SCHEMES",
            "get_scheme"]
