@@ -69,7 +69,21 @@ Phases, each of which fails the run (non-zero exit) on error:
    training micro-batch, b=64, at N=48 and bucket 56, and its eval batch,
    b=128, N=48, bf16, each with the back-to-back device times of the
    kernel, its plain version and the einsum, as at bucket 56, b=16 (the
-   8-head blocks).
+   8-head blocks). Then the pair-order store (``out=``, the body's
+   ``PairStore``): at the served b=160 over buckets 24-56 and at stage 2's
+   b=64 (N=48, 56) and b=128 (N=48), both directions (V and its
+   pair-transposed view) written into the halves of one NaN-filled (b, i,
+   j, 2, d, h) buffer, the layer's, and of one (b, i, j, d, 2, h), the
+   layer's halves within the bf16 tolerance of the plain version, each
+   bitwise equal to the same call's contiguous va and bitwise equal on
+   repeat, every element written, both stores timed per call and back to
+   back (the second buffer back to back); and a served TGT-Agx2 vmap
+   request of one
+   molecule at buckets 24 and 56 through the split epilogue and the fold
+   in turns on the same draw seeds: 24 folds a forward, probabilities
+   within a mean total variation of 0.005, and a profiled request of each
+   with its device ms by kernel (the row and pair stores, PyTorch's
+   ``elementwise_kernel<128, 4>``) and launches.
 2e. The aggregate backward against plain: dA and dV on the same cases with
    a random cotangent, the transposed V included; each call takes the route
    ``agg_bwd_route`` names (bf16: the tensor-core body; f32: the panel
@@ -1227,6 +1241,226 @@ def aggregate_kernel_phase(card):
             fail(f"two aggregate forward launches differ: {row}")
         del a, v, out, ref
     return rows, by_shape
+
+
+# the pair-order store at the served draw-stacked batch (10 draws of 16
+# rows) over buckets 24-56 and at stage 2's micro-batch and eval batch
+PAIR_STORE_CASES = ([(160, n) for n in (24, 32, 40, 48, 56)]
+                    + [(64, 48), (64, 56), (128, 48)])
+PAIR_SERVED_SIZES = (20, 56)   # one molecule per request: buckets 24 and 56
+
+
+def pair_store_halves(b, n, d, h, axis=3):
+    """A NaN-filled (b, i, j, 2, d, h) buffer (``axis`` 3, the aggregate
+    layer's) or (b, i, j, d, 2, h) (``axis`` 4: each (d, h) of a pair
+    interleaved by direction, lin_O's own column order) and the (b, j, i,
+    d, h) views of its two halves, in then out."""
+    shape = [b, n, n, d, h]
+    shape.insert(axis, 2)
+    buf = torch.full(shape, float("nan"), device="cuda", dtype=torch.bfloat16)
+    return buf, buf.transpose(1, 2).unbind(axis)
+
+
+@contextlib.contextmanager
+def epilogue_routes(force_split: bool = False):
+    """Count ``TripletAggregate``'s epilogues by route (asked once a
+    call); with ``force_split``, send every call to the split epilogue, as
+    before the fold existed."""
+    from tgt_torch.ops import triplet
+
+    saved = triplet.aggregate_epilogue_route
+    counts = {"fold": 0, "split": 0}
+
+    def route(*args):
+        r = "split" if force_split else saved(*args)
+        counts[r] += 1
+        return r
+
+    triplet.aggregate_epilogue_route = route
+    try:
+        yield counts
+    finally:
+        triplet.aggregate_epilogue_route = saved
+
+
+def pair_store_kernel_rows(card):
+    """The forward body's pair-order store against its row store and the
+    plain version: both directions of one layer (V and its pair-transposed
+    view) written into the halves of one buffer, each within the bf16
+    tolerance of the plain version, bitwise equal to the contiguous va of
+    the same call and bitwise equal on repeat, every element written, both
+    through the body; per call and back to back, the two directions
+    through each store."""
+    from tgt_torch.ops.kernels.triplet_aggregate import (
+        triplet_aggregate_fwd, triplet_aggregate_fwd_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = {}
+    for b, n in PAIR_STORE_CASES:
+        a_in, v = agg_inputs(b, n, WIDTH, 16, torch.bfloat16, gen)
+        a_out = agg_inputs(b, n, WIDTH, 16, torch.bfloat16, gen)[0]
+        d, h = WIDTH // 16, 16
+        dirs = ((a_in, v), (a_out, v.transpose(1, 2)))
+        body_before = triplet_aggregate_fwd.body_launches
+        rowwise = [triplet_aggregate_fwd(a, x) for a, x in dirs]
+        buf, halves = pair_store_halves(b, n, d, h)
+        for (a, x), half in zip(dirs, halves):
+            triplet_aggregate_fwd(a, x, out=half)
+        again, halves_again = pair_store_halves(b, n, d, h)
+        for (a, x), half in zip(dirs, halves_again):
+            triplet_aggregate_fwd(a, x, out=half)
+        torch.cuda.synchronize()
+        bodies = triplet_aggregate_fwd.body_launches - body_before
+        plain_err, plain_tol = [], []
+        for (a, x), half in zip(dirs, halves):
+            ref = triplet_aggregate_fwd_reference(a, x).float()
+            plain_err.append(float((half.float() - ref).abs().max()))
+            plain_tol.append(KERNEL_TOL[torch.bfloat16]
+                             * float(ref.abs().max()))
+            del ref
+
+        def row_store():
+            return [triplet_aggregate_fwd(a, x) for a, x in dirs]
+
+        # the same store into the buffer whose (d, h) interleave the
+        # directions, lin_O's own column order
+        buf_d, halves_d = pair_store_halves(b, n, d, h, axis=4)
+        for (a, x), half in zip(dirs, halves_d):
+            triplet_aggregate_fwd(a, x, out=half)
+
+        def pair_store(into=halves):
+            for (a, x), half in zip(dirs, into):
+                triplet_aggregate_fwd(a, x, out=half)
+
+        row = {"phase": "2d pair store", "b": b, "n": n, "card": card,
+               "max_abs_err_plain": plain_err, "tol_plain": plain_tol,
+               "agrees_with_plain": all(
+                   e <= t for e, t in zip(plain_err, plain_tol)),
+               "bitwise_equal_row_store": all(
+                   torch.equal(half, va) for half, va in
+                   zip(halves + halves_d, rowwise * 2)),
+               "bitwise_equal_repeat": torch.equal(buf, again),
+               "all_written": not bool(buf.isnan().any()
+                                       or buf_d.isnan().any()),
+               "body_launches": bodies,
+               "ms_row_store": time_ms(row_store),
+               "ms_pair_store": time_ms(pair_store),
+               "device_ms_row_store": device_ms(row_store),
+               "device_ms_pair_store": device_ms(pair_store),
+               "device_ms_pair_store_d_interleaved":
+                   device_ms(lambda: pair_store(halves_d))}
+        row["ok"] = (row["agrees_with_plain"]
+                     and row["bitwise_equal_row_store"]
+                     and row["bitwise_equal_repeat"] and row["all_written"]
+                     and bodies == 6)
+        emit(row)
+        if not row["ok"]:
+            fail(f"the pair-order store at b={b}, N={n}: {row}")
+        rows[b, n] = row
+        del a_in, a_out, v, rowwise, buf, again, buf_d, halves, \
+            halves_again, halves_d
+        torch.cuda.empty_cache()
+    return rows
+
+
+def device_kernel_ms(prof) -> dict:
+    """Device ms of a profiled request's operations: all of them, the
+    aggregate forward body by store (``tagf::`` with or without the tag
+    ``PairStore``), and PyTorch's generic elementwise kernel
+    (``elementwise_kernel<128, 4``); and the kernel launches."""
+    out = {"all": 0.0, "row_store": 0.0, "pair_store": 0.0,
+           "strided_elementwise": 0.0, "launches": 0}
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        out["all"] += ms
+        out["launches"] += not e.name.startswith(("Memcpy", "Memset"))
+        if "tagf::" in e.name:
+            out["pair_store" if "PairStore" in e.name else "row_store"] += ms
+        if "::elementwise_kernel<128, 4" in e.name:
+            out["strided_elementwise"] += ms
+    return out
+
+
+def served_epilogue_rows(card, spec: ModelSpec):
+    """A served TGT-Agx2 vmap request of one molecule (10 draws, 160 rows)
+    at buckets 24 and 56 through the split epilogue and through the fold in
+    turns (split, fold, fold, split) on the same draw seeds: every
+    aggregate layer folds (24 a forward), the two epilogues' probabilities
+    agree within a mean total variation of 0.005 (the benchmark's
+    ``prob_gap`` limit), and a profiled request of each: its device ms by
+    kernel and its launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tgt_torch.data.collate import pick_bucket
+    from tgt_torch.models import make_model
+    from tgt_torch.schemes import get_scheme
+    from tgt_torch.serving import DistancePredictor
+
+    raw = load_config(spec)
+    scheme = get_scheme(raw["scheme"])(raw, command="evaluate")
+    cfg = scheme.model_cfg
+    buckets = tuple(scheme.cfg.buckets)
+    mc = scheme.cfg.evaluation_samples
+    model = make_model("distance", cfg, device="cuda", seed=0)
+    pred = DistancePredictor(model, cfg, mc_samples=mc, batch_size=16,
+                             buckets=buckets, seed=0, device="cuda",
+                             mc_mode="vmap")
+    rs = np.random.RandomState(8)
+    rows = {}
+    for n in PAIR_SERVED_SIZES:
+        mols = [random_molecule(rs, n)]
+        nb = pick_bucket(n, buckets)
+        for force in (True, False):
+            with epilogue_routes(force):
+                pred.predict(mols)                      # warm
+        torch.cuda.synchronize()
+        ms = {"split": [], "fold": []}
+        got, calls = {}, {}
+        for route in ("split", "fold", "fold", "split"):
+            pred._seeds.manual_seed(n)          # the same dropout masks
+            with epilogue_routes(route == "split") as counts:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got[route] = pred.predict(mols)
+                ms[route].append((time.perf_counter() - t0) * 1e3)
+            calls[route] = dict(counts)
+        traced = {}
+        for route in ("split", "fold"):
+            with epilogue_routes(route == "split"), profile(
+                    activities=[ProfilerActivity.CUDA]) as prof:
+                pred.predict(mols)
+                torch.cuda.synchronize()
+            traced[route] = device_kernel_ms(prof)
+        diff = np.abs(got["fold"] - got["split"])[0, :n, :n]
+        tv = float(0.5 * diff.sum(-1).mean())
+        row = {"phase": "2d served epilogue", "path": spec.name,
+               "bucket": nb, "draws": mc, "card": card,
+               "epilogues": calls, "request_ms": ms, "traced": traced,
+               "prob_max_abs_diff": float(diff.max()),
+               "prob_mean_total_variation": tv}
+        applied = cfg.model_height * cfg.layer_multiplier
+        row["ok"] = (calls["fold"] == {"fold": applied, "split": 0}
+                     and calls["split"] == {"fold": 0, "split": applied}
+                     and traced["fold"]["row_store"] == 0
+                     and traced["fold"]["pair_store"] > 0
+                     and traced["split"]["pair_store"] == 0 and tv <= 0.005)
+        emit(row)
+        if not row["ok"]:
+            fail(f"the served epilogues at bucket {nb}: {row}")
+        rows[f"n{nb}"] = row
+    del pred, model
+    torch.cuda.empty_cache()
+    return rows
+
+
+def pair_store_phase(card, spec: ModelSpec):
+    """Phase 2d's pair-order store: the kernel rows, then the served
+    request through both epilogues."""
+    return {"kernel": pair_store_kernel_rows(card),
+            "served": served_epilogue_rows(card, spec)}
 
 
 def agg_bwd_routes(a, v, dva, tol):
@@ -2786,8 +3020,15 @@ def scaled_core(spec: ModelSpec, factor):
     import tgt_torch.ops.triplet as tri
 
     saved = getattr(tri, spec.core)
+
+    def scaled(*args, **kwargs):
+        out = saved(*args, **kwargs)
+        if spec.core == "triplet_aggregate_core" and len(args) == 3:
+            return out.mul_(factor)     # the fold's call, into its buffer
+        return out * factor
+
     if factor is not None:
-        setattr(tri, spec.core, lambda *a, **k: saved(*a, **k) * factor)
+        setattr(tri, spec.core, scaled)
     try:
         yield
     finally:
@@ -4903,6 +5144,7 @@ def main(only=None) -> int:
                  card)
     agg, agg_shapes = phase("2d aggregate fwd kernel",
                             aggregate_kernel_phase, card) or (None, None)
+    phase("2d pair-order store", pair_store_phase, card, agx2)
     agg_bwd, agg_bwd_shapes = phase("2e aggregate bwd kernel",
                                     aggregate_backward_phase,
                                     card) or (None, None)

@@ -24,6 +24,14 @@ axial attention against tgt_tpu (CPU, float32).
    the weight bridge both ways exactly.
 5. CPU routing: the wrappers take the plain versions, the launch counters
    stay 0, and the wrappers reject what they cannot take.
+6. The folded epilogue of ``TripletAggregate``'s no-grad forward (each
+   direction written into its half of one (b, i, j, 2, d, h) buffer, one
+   ``lin_O`` GEMM): equal to today's split epilogue, gated (its out
+   direction unmasked, a padded sample) and ungated, in f32 to 2e-6 of
+   max|ref| and in bf16 within one bf16 step at max|ref|; against tgt_tpu
+   on the same weights; ``aggregate_epilogue_route`` and which route the
+   module takes; the wrapper's ``out`` contract; one entry of
+   ``TripletAggregateCore.forward`` per direction on both routes.
 """
 import numpy as np
 import pytest
@@ -46,6 +54,9 @@ from tgt_tpu.training import harness as jharness
 from tgt_torch.models.convert import state_dict_from_jax_params
 from tgt_torch.models.heads import DistanceModel
 from tgt_torch.models.model_config import TGTConfig
+from tgt_torch.ops import triplet as port_triplet
+from tgt_torch.ops.common import aggregate_epilogue_route
+from tgt_torch.ops.kernels import triplet_aggregate as port_agg
 from tgt_torch.ops.kernels.triplet_aggregate import (
     triplet_aggregate_bwd, triplet_aggregate_bwd_reference,
     triplet_aggregate_core, triplet_aggregate_fwd,
@@ -422,3 +433,175 @@ class TestAgx2Model:
             assert np.all(err <= bound), (k, float(err.max()))
             moved += int(np.abs(r - first[k].numpy()).max() > 1e-3 * lr)
         assert moved > len(ref) // 2      # the steps exceed the bound
+
+
+# -- 6. the folded epilogue of the no-grad forward ------------------------------------
+
+FOLD_B, FOLD_N, FOLD_W, FOLD_H = 2, 16, 128, 8     # d = 16, as TGT-Agx2's
+
+
+def fold_module(gated, seed=0):
+    """A TripletAggregate whose weights come from tgt_tpu's initialiser, and
+    edge inputs with a padded sample."""
+    p = triplet_aggregate_init(jax.random.PRNGKey(seed), FOLD_W, FOLD_H,
+                               gated=gated)
+    e, mask, _ = edge_inputs(FOLD_B, FOLD_N, FOLD_W, seed)
+    return load_module(TripletAggregate(FOLD_W, FOLD_H, gated=gated), p), \
+        p, _t(e), _t(mask)
+
+
+@pytest.fixture
+def routes(monkeypatch):
+    """The routes ``TripletAggregate`` asks for, in order."""
+    taken = []
+
+    def route(*args):
+        taken.append(aggregate_epilogue_route(*args))
+        return taken[-1]
+
+    monkeypatch.setattr(port_triplet, "aggregate_epilogue_route", route)
+    return taken
+
+
+def bf16_steps(got, ref):
+    """max|got - ref| in bf16 steps at max|ref|."""
+    _, exp = torch.frexp(ref.float().abs().max())
+    step = 2.0 ** (int(exp) - 8)
+    return float((got.float() - ref.float()).abs().max()) / step
+
+
+class TestFoldedEpilogue:
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                             ids=["f32", "bf16"])
+    @pytest.mark.parametrize("gated", [True, False],
+                             ids=["gated", "ungated"])
+    def test_fold_equals_split(self, gated, dtype, routes):
+        mod, _, e, mask = fold_module(gated)
+        e, mask = e.to(dtype), mask.to(dtype)
+        split = mod(e, mask, use_pallas="dense").detach()   # autograd records
+        with torch.no_grad():
+            fold = mod(e, mask, use_pallas="dense")
+        assert routes == ["split", "fold"]
+        assert fold.is_contiguous() and not split.is_contiguous()
+        assert fold.dtype == split.dtype == dtype
+        # the padded sample's rows and the gated out direction's unmasked
+        # columns are compared with the rest
+        if dtype == torch.float32:
+            np.testing.assert_allclose(fold.numpy(), split.numpy(), rtol=0,
+                                       atol=2e-6 * float(split.abs().max()))
+        else:
+            assert bf16_steps(fold, split) <= 1.0
+
+    @pytest.mark.parametrize("gated", [True, False],
+                             ids=["gated", "ungated"])
+    def test_fold_matches_tgt_tpu(self, gated, routes):
+        mod, p, e, mask = fold_module(gated, seed=5)
+        jfn = triplet_aggregate if gated else triplet_aggregate_ungated
+        ref = np.asarray(jfn(p, jnp.asarray(e.numpy()),
+                             jnp.asarray(mask.numpy()), num_heads=FOLD_H,
+                             use_pallas="dense"))
+        with torch.inference_mode():
+            got = mod(e, mask, use_pallas="dense").numpy()
+        assert routes == ["fold"]
+        np.testing.assert_allclose(got, ref, **TOL)
+
+    @pytest.mark.parametrize("args,want", [
+        ((True, True, False), "fold"),       # both directions take the buffer
+        ((True, True, True), "split"),       # autograd records
+        ((True, False, False), "split"),     # H % 8, f32 or outside the body
+        ((False, True, False), "split")])    # the plain path
+    def test_route(self, args, want):
+        assert aggregate_epilogue_route(*args) == want
+
+    def test_what_takes_the_buffer(self):
+        """On the CPU every call takes the plain route, whatever the dtype
+        and strides, so the module folds wherever the buffer's halves meet
+        ``out``'s contract: H a multiple of 8, which it tests itself."""
+        a, v = torch.zeros(2, 4, 4, 8), torch.zeros(2, 4, 4, 3, 8)
+        assert port_agg.fwd_route(a, v) == "plain"
+        assert port_agg.fwd_route(a.bfloat16().transpose(1, 2),
+                                  v.bfloat16().transpose(1, 2)) == "plain"
+
+    def test_module_routes_by_what_autograd_records(self, routes):
+        mod, _, e, mask = fold_module(True)
+        mod(e, mask, use_pallas="dense")                   # parameters
+        mod(e.requires_grad_(True), mask, use_pallas="dense")
+        with torch.no_grad():
+            mod(e, mask, use_pallas="dense")
+        mod.requires_grad_(False)
+        mod(e.detach(), mask, use_pallas="dense")          # nothing to record
+        with torch.no_grad():
+            mod(e, mask, use_pallas=False)                 # the plain path
+            TripletAggregate(32, 4)(torch.randn(1, 6, 6, 32),  # H % 8
+                                    torch.zeros(1, 6, 6, 1), use_pallas="dense")
+        assert routes == ["split", "split", "fold", "fold", "split", "split"]
+
+    def test_one_core_entry_per_direction(self, monkeypatch):
+        """Each direction enters ``TripletAggregateCore.forward`` once on
+        both routes (the benchmark marks that entry point), the fold's with
+        its half of the buffer."""
+        entries = []
+        forward = port_agg.TripletAggregateCore.forward
+
+        def counted(ctx, a, v, out=None):
+            entries.append(out is not None)
+            return forward(ctx, a, v, out)
+
+        monkeypatch.setattr(port_agg.TripletAggregateCore, "forward",
+                            staticmethod(counted))
+        mod, _, e, mask = fold_module(False)
+        mod(e, mask, use_pallas="dense")
+        with torch.no_grad():
+            mod(e, mask, use_pallas="dense")
+        assert entries == [False, False, True, True]
+
+
+class TestOutContract:
+    def inputs(self):
+        a, v, _ = (_t(x) for x in core_inputs(2, 8, 64, 8, seed=6))
+        return a, v                             # v (2, 8, 8, 8, 8)
+
+    @pytest.mark.parametrize("axis", [3, 4], ids=["t_d_h", "d_t_h"])
+    def test_pair_order_halves_hold_each_direction(self, axis):
+        """Both directions into the halves of one (b, i, j, 2, d, h)
+        buffer (the layer's) or (b, i, j, d, 2, h)."""
+        a, v = self.inputs()
+        b, n, _, d, h = v.shape
+        shape = [b, n, n, d, h]
+        shape.insert(axis, 2)
+        buf = torch.full(shape, float("nan"))
+        halves = buf.transpose(1, 2).unbind(axis)
+        got = [triplet_aggregate_fwd(a, x, out=half) for x, half in
+               zip((v, v.transpose(1, 2)), halves)]
+        for x, half, out in zip((v, v.transpose(1, 2)), halves, got):
+            assert out is half
+            torch.testing.assert_close(half, triplet_aggregate_fwd(a, x),
+                                       rtol=0, atol=0)
+        assert not bool(buf.isnan().any())
+
+    def test_core_writes_out_only_without_gradient(self):
+        a, v = self.inputs()
+        out = torch.empty_like(v)
+        with torch.no_grad():
+            assert triplet_aggregate_core(a, v, out) is not None
+        torch.testing.assert_close(out, triplet_aggregate_fwd(a, v),
+                                   rtol=0, atol=0)
+        with pytest.raises(RuntimeError, match="autograd"):
+            triplet_aggregate_core(a.requires_grad_(True), v, out)
+
+    @pytest.mark.parametrize("bad", ["shape", "dtype", "h_strided",
+                                     "stride_8", "unaligned"])
+    def test_out_contract_raises(self, bad):
+        a, v = self.inputs()
+        b, n, _, d, h = v.shape
+        out = {
+            "shape": lambda: torch.empty(b, n, n - 1, d, h),
+            "dtype": lambda: torch.empty(b, n, n, d, h, dtype=torch.float64),
+            "h_strided": lambda: torch.empty(b, n, n, h, d).transpose(3, 4),
+            "stride_8": lambda: torch.empty(b, n, n, d, h + 4)[..., :h],
+            "unaligned": lambda: torch.empty(v.numel() + 8)[1:v.numel() + 1]
+            .view(v.shape),
+        }[bad]()
+        with pytest.raises((ValueError, TypeError),
+                           match="shape|out is|strides|aligned"):
+            triplet_aggregate_fwd(a, v, out=out)

@@ -53,7 +53,14 @@
 //      m-tile at a time.
 //    - Output: the f32 sums, packed to bf16, go to per-head [i][d] panels
 //      (swizzled); ldmatrix and stmatrix.trans make them (i, d, 8 heads)
-//      pieces, which leave 16 bytes a thread into the contiguous va.
+//      pieces, which leave 16 bytes a thread through the element strides
+//      of the output's (b, j, i, d) axes: the contiguous va, or, in the
+//      aggregate layer's no-grad forward, each direction's half of one
+//      (b, i, j, 2, d, h) buffer, which one lin_O GEMM reads
+//      (ops/triplet.py). Any destination whose strides are multiples of 8
+//      elements keeps the 16-byte pieces whole. A template tag names the
+//      store in a trace and changes nothing else: RowStore for the
+//      contiguous va, PairStore for any other destination.
 //    - One barrier per j: panels and pieces are double buffered, so between
 //      two barriers a warp runs j's products, j + 1's transposes, va_{j-1}'s
 //      pieces and va_{j-2}'s stores; even warps take the products first,
@@ -127,12 +134,18 @@ inline bool takes_16_heads(int n, int d, int h) { return h % 16 == 0 && n <= 48 
 
 struct Args {
   const bf16 *a, *v;        // a (b, i, k, h) with h contiguous; v (b, j, k, d, h) with (d, h)
-  bf16* out;                // out (b, j, i, d, h) contiguous
+  bf16* out;                // out (b, j, i, d, h), h contiguous
   long long sa[3], sv[3];   // element strides of a's (b, i, k) and v's (b, j, k)
+  long long so[4];          // element strides of out's (b, j, i, d)
   int n, h, j_chunk;
 };
 
-template <int NI, int D, int HB>
+// Names of the store, for a trace: out contiguous (RowStore) or not
+// (PairStore); the kernel is the same
+struct RowStore {};
+struct PairStore {};
+
+template <int NI, int D, int HB, class Store>
 __global__ void __launch_bounds__(HB * 32, 1)
 agg_fwd_body_kernel(const Args p) {
   using L = Layout<NI, D, HB>;
@@ -146,7 +159,6 @@ agg_fwd_body_kernel(const Args p) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const int g = warp / kGroup, u = warp % kGroup;   // this warp's group, head in it
-  const long long dh = (long long)D * h;
 
   extern __shared__ uint4 smem[];
   bf16* raw = reinterpret_cast<bf16*>(smem);   // [S][RAW]: V_j's pieces
@@ -280,16 +292,15 @@ agg_fwd_body_kernel(const Args p) {
       stsm_x4_t(t4, dst + (mine * 8 + (lane & 7)) * HB);
     }
   };
-  // va_j's pieces leave with 16-byte stores (with HB = H its rows i are
-  // contiguous)
-  bf16* out_b = p.out + (long long)b * n * n * dh + hb0;
+  // va_j's pieces leave with 16-byte stores: its (i, d) pieces lie p.so[2]
+  // and p.so[3] apart, in runs of HB heads
   auto store = [&](int jj) {
     const bf16* src = out + (jj & 1) * L::OUT;
-    bf16* dst = out_b + (long long)(j0 + jj) * n * dh;
+    bf16* dst = p.out + b * p.so[0] + (j0 + jj) * p.so[1] + hb0;
 #pragma unroll 1
     for (int q = threadIdx.x; q < n * D * G; q += L::THREADS) {
-      const int rd = q / G, gq = q - rd * G;
-      *reinterpret_cast<uint4*>(dst + (long long)rd * h + gq * kGroup) =
+      const int rd = q / G, gq = q - rd * G, i = rd / D, dd = rd - i * D;
+      *reinterpret_cast<uint4*>(dst + i * p.so[2] + dd * p.so[3] + gq * kGroup) =
           *reinterpret_cast<const uint4*>(src + q * kGroup);
     }
   };
@@ -331,10 +342,10 @@ agg_fwd_body_kernel(const Args p) {
   store(nj - 1);
 }
 
-template <int NI, int D, int HB>
+template <int NI, int D, int HB, class Store>
 int launch_tiles(const Args& a, int batch, cudaStream_t stream) {
   using L = Layout<NI, D, HB>;
-  auto kernel = agg_fwd_body_kernel<NI, D, HB>;
+  auto kernel = agg_fwd_body_kernel<NI, D, HB, Store>;
   const int e = agg::set_shared((const void*)kernel, L::SMEM);
   if (e != 0) return e;
   const long long blocks =
@@ -344,18 +355,28 @@ int launch_tiles(const Args& a, int batch, cudaStream_t stream) {
 }
 
 // n <= 32 runs at NI = 2 (its A fragments and panels padded to 32 rows)
-template <int D>
+template <int D, class Store>
 int launch_width(const Args& a, int batch, int hb, cudaStream_t stream) {
   const int ni = (a.n + 15) / 16;
   if constexpr (D <= 16) {
     if (hb == 16) {
-      if (ni <= 2) return launch_tiles<2, D, 16>(a, batch, stream);
-      return launch_tiles<3, D, 16>(a, batch, stream);
+      if (ni <= 2) return launch_tiles<2, D, 16, Store>(a, batch, stream);
+      return launch_tiles<3, D, 16, Store>(a, batch, stream);
     }
-    if (ni == 4) return launch_tiles<4, D, 8>(a, batch, stream);
+    if (ni == 4) return launch_tiles<4, D, 8, Store>(a, batch, stream);
   }
-  if (ni <= 2) return launch_tiles<2, D, 8>(a, batch, stream);
-  return launch_tiles<3, D, 8>(a, batch, stream);
+  if (ni <= 2) return launch_tiles<2, D, 8, Store>(a, batch, stream);
+  return launch_tiles<3, D, 8, Store>(a, batch, stream);
+}
+
+template <class Store>
+int launch_store(const Args& a, int d, int batch, int hb, cudaStream_t stream) {
+  switch (d) {
+    case 8: return launch_width<8, Store>(a, batch, hb, stream);
+    case 16: return launch_width<16, Store>(a, batch, hb, stream);
+    case 24: return launch_width<24, Store>(a, batch, hb, stream);
+    default: return launch_width<32, Store>(a, batch, hb, stream);
+  }
 }
 
 }  // namespace tagf
@@ -387,17 +408,19 @@ extern "C" int triplet_aggregate_fwd(const void* a, const void* v, void* out,
 // The body. a: (b, i, k, h) with h contiguous and the element strides of its
 // three outer axes in a_strides[0..2]; v: (b, j, k, d, h) with (d, h)
 // contiguous and its outer strides in v_strides[0..2]; all bf16. Writes out
-// (b, j, i, d, h), contiguous, in one launch of blocks of heads_per_block
+// (b, j, i, d, h), h contiguous and the element strides of its (b, j, i, d)
+// axes in out_strides[0..3], in one launch of blocks of heads_per_block
 // heads (8, or 16 where H is a multiple of 16, n <= 48 and d <= 16) and
 // j_chunk rows j. Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for a shape the body does not take.
 extern "C" int triplet_aggregate_fwd_body(const void* a, const void* v, void* out, int batch,
                                           int n, int d, int h, int heads_per_block, int j_chunk,
                                           const long long* a_strides, const long long* v_strides,
-                                          void* stream) {
+                                          const long long* out_strides, void* stream) {
   const int hb = heads_per_block;
   bool strides_ok = true;
   for (int x = 0; x < 3; ++x) strides_ok &= a_strides[x] % 8 == 0 && v_strides[x] % 8 == 0;
+  for (int x = 0; x < 4; ++x) strides_ok &= out_strides[x] % 8 == 0;
   if (n < 1 || !tagf::takes(n, d) || d < 8 || d > 32 || d % 8 != 0 || h < tagf::kGroup ||
       h % tagf::kGroup != 0 || batch < 1 || j_chunk < 1 ||
       (hb != 8 && !(hb == 16 && tagf::takes_16_heads(n, d, h))) || !strides_ok ||
@@ -409,12 +432,13 @@ extern "C" int triplet_aggregate_fwd_body(const void* a, const void* v, void* ou
   }
   const tagf::Args args{(const tmma::bf16*)a, (const tmma::bf16*)v, (tmma::bf16*)out,
                         {a_strides[0], a_strides[1], a_strides[2]},
-                        {v_strides[0], v_strides[1], v_strides[2]}, n, h, j_chunk};
+                        {v_strides[0], v_strides[1], v_strides[2]},
+                        {out_strides[0], out_strides[1], out_strides[2], out_strides[3]},
+                        n, h, j_chunk};
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (d) {
-    case 8: return tagf::launch_width<8>(args, batch, hb, s);
-    case 16: return tagf::launch_width<16>(args, batch, hb, s);
-    case 24: return tagf::launch_width<24>(args, batch, hb, s);
-    default: return tagf::launch_width<32>(args, batch, hb, s);
-  }
+  const long long dh = (long long)d * h;
+  const bool rows = out_strides[3] == h && out_strides[2] == dh && out_strides[1] == n * dh &&
+                    out_strides[0] == n * n * dh;
+  return rows ? tagf::launch_store<tagf::RowStore>(args, d, batch, hb, s)
+              : tagf::launch_store<tagf::PairStore>(args, d, batch, hb, s);
 }

@@ -8,6 +8,8 @@ Parameters live in ``torch.nn`` modules (``nn.Linear`` weights are
   kernel (``ops/kernels/layernorm.py``) where autograd records nothing and
   the kernel takes the call (:func:`layernorm_route`), else as three
   launches (widen, ``F.layer_norm``, narrow);
+- :func:`aggregate_epilogue_route` picks, by the same observation, how the
+  aggregate triplet layer applies its output projection;
 - ``embedding`` clamps ids into [0, vocab-1] (``F.embedding`` would raise).
 
 Initialisation follows torch.nn's defaults, as tgt_tpu's does: Linear
@@ -110,6 +112,21 @@ def layernorm_route(device_type: str, dtype: torch.dtype, width: int,
             and layernorm_kernel.takes(dtype, width)):
         return "kernel"
     return "composite"
+
+
+def aggregate_epilogue_route(dense: bool, takes_out: bool, grad: bool) -> str:
+    """How ``ops/triplet.TripletAggregate`` ends a call, from what it can
+    observe: ``"fold"`` (each direction's k-aggregation writes its half of
+    one (b, i, j, 2, d, h) buffer, which one ``lin_O`` GEMM with its bias
+    reads) where autograd records nothing (``grad`` False) and the dense
+    core takes the buffer for both directions (``takes_out``: H a multiple
+    of 8, and on the card the forward body takes the call); ``"split"`` (a
+    contraction per direction, their sum, the pair transpose and the bias)
+    for everything else: training and remat's replay, the plain core, f32
+    and shapes outside the body on the card."""
+    if dense and takes_out and not grad:
+        return "fold"
+    return "split"
 
 
 def layernorm(ln: nn.LayerNorm, x: torch.Tensor,

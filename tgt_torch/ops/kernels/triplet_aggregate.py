@@ -38,9 +38,18 @@ Contract of :func:`triplet_aggregate_fwd`:
   a     (b, i, k, h), the weights
   v     (b, j, k, d, h), with (d, h) contiguous; the outer strides are free,
         so the out direction's pair-transposed view is read in place
-  ->    va (b, j, i, d, h) = sum_k a[b,i,k,h] v[b,j,k,d,h], contiguous,
-        summed in float32 in a fixed order (bitwise equal on repeat) and
-        returned in v's dtype
+  out   optional (b, j, i, d, h) view of v's dtype and device to write into:
+        h contiguous, the other four strides multiples of 8 elements, the
+        data 16-byte aligned (else ValueError), so that 8 heads of one
+        (b, j, i, d) stay one 16-byte piece. On the card only the body
+        takes it (a call on the panel route raises): it stores its pieces
+        through out's strides (named ``PairStore`` in a trace where out
+        is not contiguous), as the aggregate layer's
+        no-grad forward writes each direction into its half of one
+        (b, i, j, 2, d, h) buffer; on the CPU the plain version writes it
+  ->    va (b, j, i, d, h) = sum_k a[b,i,k,h] v[b,j,k,d,h], summed in
+        float32 in a fixed order (bitwise equal on repeat) and returned in
+        v's dtype: contiguous, or ``out`` itself
 
 :func:`triplet_aggregate_bwd` takes the same inputs and the cotangent ``dva``
 (b, j, i, d, h) and returns ``da`` (b, i, k, h), summed over j and d in
@@ -55,7 +64,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -131,6 +140,23 @@ def agg_fwd_route(dtype: torch.dtype, n: int, d: int, h: int,
             and aligned and all(s % 8 == 0 for s in v_strides)):
         return "body"
     return "panel"
+
+
+def _copies_a(a: torch.Tensor) -> bool:
+    """Whether the forward wrapper passes a contiguous copy of ``a``: where
+    h is not contiguous or its outer strides are not multiples of 8."""
+    return a.stride(3) != 1 or any(s % 8 for s in a.stride()[:3])
+
+
+def fwd_route(a: torch.Tensor, v: torch.Tensor) -> str:
+    """The route :func:`triplet_aggregate_fwd` takes for ``(a, v)``:
+    ``"plain"`` on the CPU, else :func:`agg_fwd_route`'s, with ``a`` as the
+    wrapper passes it (a copy, 16-byte aligned, where :func:`_copies_a`)."""
+    if v.device.type == "cpu":
+        return "plain"
+    b, n, _, d, h = v.shape
+    aligned = v.data_ptr() % 16 == 0 and (_copies_a(a) or a.data_ptr() % 16 == 0)
+    return agg_fwd_route(v.dtype, n, d, h, v.stride()[:3], aligned)
 
 
 def agg_fwd_blocks(b: int, n: int, d: int, h: int, sms: int) -> Tuple[int, int]:
@@ -270,7 +296,7 @@ def _fwd_kernel():
 def _fwd_body_kernel():
     fn = load_library("triplet_aggregate_fwd").triplet_aggregate_fwd_body
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                   + [ctypes.POINTER(ctypes.c_longlong)] * 2 + [ctypes.c_void_p])
+                   + [ctypes.POINTER(ctypes.c_longlong)] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -293,18 +319,22 @@ def _bwd_body_kernel():
     return fn
 
 
-def _fwd_body(a, v, heads_per_block=None, j_chunk=None):
-    """The body: one launch; a read through its strides."""
+def _fwd_body(a, v, heads_per_block=None, j_chunk=None, out=None):
+    """The body: one launch; a read through its strides; ``out`` (a new
+    contiguous one where None) written through its strides, named
+    ``RowStore`` in a trace where it is contiguous, else ``PairStore``."""
     b, n, _, d, h = v.shape
     if heads_per_block is None:
         heads_per_block, j_chunk = agg_fwd_blocks(b, n, d, h, sm_count(v.device))
-    out = torch.empty((b, n, n, d, h), dtype=v.dtype, device=v.device)
+    if out is None:
+        out = torch.empty((b, n, n, d, h), dtype=v.dtype, device=v.device)
+    out_strides = (ctypes.c_longlong * 4)(*out.stride()[:4])
     a_strides = (ctypes.c_longlong * 3)(*a.stride()[:3])
     v_strides = (ctypes.c_longlong * 3)(*v.stride()[:3])
     with torch.cuda.device(v.device):
         rc = _fwd_body_kernel()(a.data_ptr(), v.data_ptr(), out.data_ptr(), b,
                                 n, d, h, heads_per_block, j_chunk, a_strides,
-                                v_strides,
+                                v_strides, out_strides,
                                 torch.cuda.current_stream().cuda_stream)
     return rc, out
 
@@ -321,31 +351,54 @@ def _fwd_panel(a, v):
     return rc, out
 
 
+def _check_out(out: torch.Tensor, v: torch.Tensor) -> None:
+    """``out``'s contract (module docstring); raises on anything else."""
+    if tuple(out.shape) != tuple(v.shape):
+        raise ValueError(f"out must have shape {tuple(v.shape)}, got "
+                         f"{tuple(out.shape)}")
+    if out.dtype != v.dtype or out.device != v.device:
+        raise TypeError(f"out is {out.dtype} on {out.device}, v is "
+                        f"{v.dtype} on {v.device}")
+    if out.stride(4) != 1 or any(s % BODY_GROUP for s in out.stride()[:4]):
+        raise ValueError(f"out's strides must be multiples of {BODY_GROUP} "
+                         f"elements with h contiguous, got {out.stride()}")
+    if out.data_ptr() % 16:
+        raise ValueError("out's data must be 16-byte aligned")
+
+
 def triplet_aggregate_fwd(a: torch.Tensor, v: torch.Tensor, *,
+                          out: Optional[torch.Tensor] = None,
                           _panel_route: bool = False) -> torch.Tensor:
     """The k-aggregation forward, with no gradient on the card (a caller
     that needs one takes :func:`triplet_aggregate_core`), through the route
-    :func:`agg_fwd_route` picks; one call counts once in ``launches``, and
-    once more in ``body_launches`` when it took the body. ``_panel_route``
-    sends a call through the panel loop whatever its shape (``chip_smoke.py``
-    times the two routes against each other). See the module docstring for
-    the contract."""
+    :func:`fwd_route` picks, into ``out`` where one is given; one call
+    counts once in ``launches``, and once more in ``body_launches`` when it
+    took the body. ``_panel_route`` sends a call through the panel loop
+    whatever its shape (``chip_smoke.py`` times the two routes against each
+    other). See the module docstring for the contract."""
     _check_shapes(a, v)
-    if v.device.type == "cpu":
-        return triplet_aggregate_fwd_reference(a, v)
+    if out is not None:
+        _check_out(out, v)
+    route = fwd_route(a, v)
+    if route == "plain":
+        va = triplet_aggregate_fwd_reference(a, v)
+        return va if out is None else out.copy_(va)
     if torch.is_grad_enabled() and (a.requires_grad or v.requires_grad):
         raise RuntimeError("triplet_aggregate_fwd returns no gradient on the "
                            "card; call triplet_aggregate_core, which "
                            "differentiates through the backward kernel")
     b, n, _, d, h = v.shape
-    if a.stride(3) != 1 or any(s % 8 for s in a.stride()[:3]):
+    if _copies_a(a):
         a = a.contiguous()
-    route = "panel" if _panel_route else agg_fwd_route(
-        v.dtype, n, d, h, v.stride()[:3],
-        all(t.data_ptr() % 16 == 0 for t in (a, v)))
+    if _panel_route:
+        route = "panel"
     _check_kernel_limits(v, route)
     if route == "body":
-        rc, out = _fwd_body(a, v)
+        rc, out = _fwd_body(a, v, out=out)
+    elif out is not None:
+        raise ValueError(f"out is taken by the body route only; this call "
+                         f"(dtype {v.dtype}, N={n}, d={d}, H={h}, v strides "
+                         f"{v.stride()}) takes the panel route")
     else:
         rc, out = _fwd_panel(a.contiguous(), v)
     if rc != 0:
@@ -437,20 +490,26 @@ class TripletAggregateCore(torch.autograd.Function):
     :func:`triplet_aggregate_fwd`, backward :func:`triplet_aggregate_bwd`, as
     ``_agg_core`` with its ``defvjp``
     (``tgt_tpu/ops/pallas/triplet_dense.py:492-540``). Only ``(a, v)`` are
-    kept for the backward."""
+    kept for the backward; ``out`` is for calls that record no gradient."""
 
     @staticmethod
-    def forward(ctx, a, v):
+    def forward(ctx, a, v, out=None):
         ctx.save_for_backward(a, v)
-        return triplet_aggregate_fwd(a, v)
+        return triplet_aggregate_fwd(a, v, out=out)
 
     @staticmethod
     def backward(ctx, dva):
         a, v = ctx.saved_tensors
-        return triplet_aggregate_bwd(a, v, dva)
+        return (*triplet_aggregate_bwd(a, v, dva), None)
 
 
-def triplet_aggregate_core(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def triplet_aggregate_core(a: torch.Tensor, v: torch.Tensor,
+                           out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Differentiable k-aggregation (see the module docstring for the
-    contract)."""
-    return TripletAggregateCore.apply(a, v)
+    contract). A call given ``out`` writes into it and records no gradient:
+    it raises where autograd would record one."""
+    if out is not None and torch.is_grad_enabled() and (
+            a.requires_grad or v.requires_grad):
+        raise RuntimeError("triplet_aggregate_core writes into out only "
+                           "where autograd records nothing")
+    return TripletAggregateCore.apply(a, v, out)

@@ -32,7 +32,11 @@ the same computation on pair-transposed tensors.
 weight, rows indexed (d, 2h), is cut into the in-heads ``[:, :h]`` and
 out-heads ``[:, h:]`` and contracted straight out of each direction's
 (b, j, i, d, h) output; one transpose of axes 1 and 2 at the end restores
-(b, i, j, W).
+(b, i, j, W). The aggregate variants' no-grad forward on the dense core
+folds it instead (``ops/common.aggregate_epilogue_route``): the core writes
+each direction into its half of one (b, i, j, 2, d, h) buffer, and one
+GEMM with the bias, whose weight's columns are put in that order as it is
+cast, returns (b, i, j, W) contiguous.
 
 The attention variants name their values for selective remat where
 tgt_tpu does (``ops/remat.py``): q, k, v, bias and gate ``tri_proj`` and
@@ -48,13 +52,15 @@ import warnings
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from tgt_torch.ops.common import (Generators, dropout, layernorm, linear,
-                                  randint, siglin)
+from tgt_torch.ops.common import (Generators, aggregate_epilogue_route,
+                                  dropout, layernorm, linear, randint, siglin)
 from tgt_torch.ops.remat import checkpoint_name
 from tgt_torch.ops.kernels.triplet_aggregate import (
-    triplet_aggregate_core, triplet_aggregate_fwd_reference)
+    BODY_GROUP, fwd_route, triplet_aggregate_core,
+    triplet_aggregate_fwd_reference)
 from tgt_torch.ops.kernels.triplet_attention import triplet_attention_fused
 from tgt_torch.ops.kernels.triplet_dense import (dense_weights, triplet_dense,
                                                  triplet_dense_fwd_reference)
@@ -205,28 +211,26 @@ class TripletAggregate(nn.Module):
                 attention_dropout: float = 0.0, deterministic: bool = True,
                 generator: Generators = None,
                 use_pallas=False) -> torch.Tensor:
-        core = (triplet_aggregate_core if use_pallas == "dense"
-                else triplet_aggregate_fwd_reference)
+        dense = use_pallas == "dense"
+        core = triplet_aggregate_core if dense else triplet_aggregate_fwd_reference
         b, n, _, w = e.shape
         h = self.num_heads
         d = w // h
         e_ln = layernorm(self.tri_ln_e, e)
-        v_in, v_out = linear(self.lin_V, e_ln).chunk(2, dim=-1)
+        v_in, v_out = (v.reshape(b, n, n, d, h)
+                       for v in linear(self.lin_V, e_ln).chunk(2, dim=-1))
+        v_out = v_out.transpose(1, 2)
         if self.gated:
             e_in, g_in, e_out, g_out = linear(self.lin_EG, e_ln).chunk(4, dim=-1)
         else:
             e_in, e_out = linear(self.lin_E, e_ln).chunk(2, dim=-1)
             g_in = g_out = None
-        # torch weight (W_out, 2W) -> tgt_tpu's (2W, W_out) -> (d, 2h, W_out)
-        w_o = self.lin_O.weight.to(e.dtype).t().reshape(d, 2 * h, -1)
 
-        def direction(e_l, g_l, v, w_dir, transpose_pair, masked):
-            v = v.reshape(b, n, n, d, h)
+        def weights(e_l, g_l, transpose_pair, masked):
             m = mask
             if transpose_pair:
                 e_l = e_l.transpose(1, 2)
                 g_l = None if g_l is None else g_l.transpose(1, 2)
-                v = v.transpose(1, 2)
                 m = mask.transpose(1, 2)
             if masked:
                 e_l = e_l + m
@@ -234,14 +238,43 @@ class TripletAggregate(nn.Module):
             a = torch.softmax(e_l, dim=2)                   # (b, i, k, h)
             if g_l is not None:
                 a = a * torch.sigmoid(g_l)
-            a = dropout(a, attention_dropout, deterministic, generator)
-            va = core(a, v)                                 # (b, j, i, d, h)
-            return torch.einsum("bjidh,dhw->bjiw", va, w_dir)
+            return dropout(a, attention_dropout, deterministic, generator)
 
-        out_t = (direction(e_in, g_in, v_in, w_o[:, :h], False, True)
-                 + direction(e_out, g_out, v_out, w_o[:, h:], True,
-                             self.mask_out))
-        return out_t.transpose(1, 2) + self.lin_O.bias.to(e.dtype)
+        # each direction's weights are made as its core needs them, so that
+        # the two never live at once where autograd records nothing
+        a = weights(e_in, g_in, False, True)
+        grad = torch.is_grad_enabled() and (
+            e.requires_grad or any(p.requires_grad for p in self.parameters()))
+        # the buffer's halves meet out's contract where H is a multiple of
+        # 8, and on the card both directions must take the body: the out
+        # direction's v is the in direction's pair-transposed view (the same
+        # dtype, shape and set of strides) and its weights a new tensor as
+        # a is, so it takes the in direction's route
+        takes_out = h % BODY_GROUP == 0 and fwd_route(a, v_in) != "panel"
+        if aggregate_epilogue_route(dense, takes_out, grad) == "fold":
+            # va[b, j, i, d, h] of direction t goes to buf[b, i, j, t, d, h]:
+            # each direction's (d, h) of a pair is one contiguous run
+            buf = torch.empty((b, n, n, 2, d, h), dtype=e.dtype,
+                              device=e.device)
+            half_in, half_out = buf.transpose(1, 2).unbind(3)
+            core(a, v_in, half_in)
+            del a
+            core(weights(e_out, g_out, True, self.mask_out), v_out, half_out)
+            # lin_O's input columns are ordered (d, t, h): the cast of its
+            # weight puts them in the buffer's (t, d, h) order
+            w_o = torch.empty((w, 2, d, h), dtype=e.dtype,
+                              device=e.device).copy_(
+                self.lin_O.weight.view(w, d, 2, h).transpose(1, 2))
+            return F.linear(buf.view(b, n, n, 2 * w), w_o.view(w, 2 * w),
+                            self.lin_O.bias.to(e.dtype))
+        # torch weight (W_out, 2W) -> tgt_tpu's (2W, W_out) -> (d, 2h, W_out)
+        w_o = self.lin_O.weight.to(e.dtype).t().reshape(d, 2 * h, -1)
+        out_in = torch.einsum("bjidh,dhw->bjiw", core(a, v_in), w_o[:, :h])
+        del a
+        out_out = torch.einsum(
+            "bjidh,dhw->bjiw",
+            core(weights(e_out, g_out, True, self.mask_out), v_out), w_o[:, h:])
+        return (out_in + out_out).transpose(1, 2) + self.lin_O.bias.to(e.dtype)
 
 
 class TriangularUpdate(nn.Module):
