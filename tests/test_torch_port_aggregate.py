@@ -29,8 +29,8 @@ axial attention against tgt_tpu (CPU, float32).
    ``lin_O`` GEMM): equal to today's split epilogue, gated (its out
    direction unmasked, a padded sample) and ungated, in f32 to 2e-6 of
    max|ref| and in bf16 within one bf16 step at max|ref|; against tgt_tpu
-   on the same weights; ``aggregate_epilogue_route`` and which route the
-   module takes; the wrapper's ``out`` contract; one entry of
+   on the same weights; ``epilogue_route``, ``takes_pair_buffer`` and which
+   route the module takes; the wrapper's ``out`` contract; one entry of
    ``TripletAggregateCore.forward`` per direction on both routes.
 """
 import numpy as np
@@ -55,7 +55,6 @@ from tgt_torch.models.convert import state_dict_from_jax_params
 from tgt_torch.models.heads import DistanceModel
 from tgt_torch.models.model_config import TGTConfig
 from tgt_torch.ops import triplet as port_triplet
-from tgt_torch.ops.common import aggregate_epilogue_route
 from tgt_torch.ops.kernels import triplet_aggregate as port_agg
 from tgt_torch.ops.kernels.triplet_aggregate import (
     triplet_aggregate_bwd, triplet_aggregate_bwd_reference,
@@ -455,11 +454,13 @@ def routes(monkeypatch):
     """The routes ``TripletAggregate`` asks for, in order."""
     taken = []
 
-    def route(*args):
-        taken.append(aggregate_epilogue_route(*args))
+    route = port_triplet.epilogue_route
+
+    def recorded(*args):
+        taken.append(route(*args))
         return taken[-1]
 
-    monkeypatch.setattr(port_triplet, "aggregate_epilogue_route", route)
+    monkeypatch.setattr(port_triplet, "epilogue_route", recorded)
     return taken
 
 
@@ -505,13 +506,25 @@ class TestFoldedEpilogue:
         assert routes == ["fold"]
         np.testing.assert_allclose(got, ref, **TOL)
 
-    @pytest.mark.parametrize("args,want", [
-        ((True, True, False), "fold"),       # both directions take the buffer
-        ((True, True, True), "split"),       # autograd records
-        ((True, False, False), "split"),     # H % 8, f32 or outside the body
-        ((False, True, False), "split")])    # the plain path
-    def test_route(self, args, want):
-        assert aggregate_epilogue_route(*args) == want
+    @pytest.mark.parametrize("dense,heads,grad,want", [
+        (True, 8, False, "fold"),       # both directions take the buffer
+        (True, 8, True, "split"),       # autograd records
+        (True, 4, False, "split"),      # H % 8, f32 or outside the body
+        (False, 8, False, "split")])    # the plain path
+    def test_route(self, dense, heads, grad, want):
+        a, v = torch.zeros(2, 4, 4, heads), torch.zeros(2, 4, 4, 3, heads)
+        assert port_triplet.epilogue_route(dense, grad, a, v) == want
+
+    @pytest.mark.parametrize("route,heads,want", [
+        ("plain", 8, True),             # the CPU: the plain version writes out
+        ("body", 8, True),              # the card: the body takes out
+        ("panel", 8, False),            # f32 or a shape outside the body
+        ("plain", 4, False),            # H % 8: a half misses out's contract
+        ("body", 12, False)])
+    def test_takes_pair_buffer(self, monkeypatch, route, heads, want):
+        monkeypatch.setattr(port_agg, "fwd_route", lambda a, v: route)
+        a, v = torch.zeros(2, 4, 4, heads), torch.zeros(2, 4, 4, 3, heads)
+        assert port_agg.takes_pair_buffer(a, v) is want
 
     def test_what_takes_the_buffer(self):
         """On the CPU every call takes the plain route, whatever the dtype

@@ -3,7 +3,18 @@
 CPU: the plain version against tgt_tpu's ``layernorm`` in f32 and against
 today's three-step composite in bf16, the route's predicate for every kind
 of call, and the wrapper on CPU tensors. The kernel itself runs only on the
-card (``python3 chip_smoke.py --layernorm``)."""
+card (``python3 chip_smoke.py --layernorm``).
+
+Also the launch seam every kernel wrapper calls (``ops/kernels/_build``),
+with a Python callable in place of the ctypes symbol: the stream handle
+appended last, the device guard only off the current device, a non-zero
+return raised with the symbol's name, the declared counters, the names
+``h100bench`` and ``chip_smoke.py`` read, and the grad observation
+:func:`records_grad`."""
+import contextlib
+import ctypes
+import types
+
 import numpy as np
 import pytest
 
@@ -12,7 +23,12 @@ import torch
 
 from tgt_tpu.ops import common as jcommon
 from tgt_torch.ops import common
+from tgt_torch.ops.kernels import _build
 from tgt_torch.ops.kernels import layernorm as lnk
+from tgt_torch.ops.kernels import triplet_aggregate as tak
+from tgt_torch.ops.kernels import triplet_attention as tlk
+from tgt_torch.ops.kernels import triplet_dense as tdk
+from tgt_torch.ops.kernels._build import records_grad
 
 torch.set_num_threads(1)
 
@@ -93,14 +109,28 @@ def test_route(device, dtype, width, grad, route):
 def test_records_grad_follows_autograd():
     ln = torch.nn.LayerNorm(8)
     x = torch.zeros(2, 8)
-    assert common.records_grad(ln, x)                   # params need grad
+
+    def call():
+        return (x, ln.weight, ln.bias)
+
+    assert records_grad(call())                         # params need grad
     with torch.no_grad():
-        assert not common.records_grad(ln, x)
+        assert not records_grad(call())
     with torch.inference_mode():
-        assert not common.records_grad(ln, x)
+        assert not records_grad(call())
     ln.requires_grad_(False)
-    assert not common.records_grad(ln, x)               # frozen, plain x
-    assert common.records_grad(ln, x.requires_grad_())  # x needs grad
+    assert not records_grad(call())                     # frozen, plain x
+    x.requires_grad_()
+    assert records_grad(call())                         # x needs grad
+    assert records_grad((None, x))                      # None is skipped
+    assert not records_grad((None, ln.weight))
+
+    def unread():
+        raise AssertionError("read outside grad mode")
+        yield
+
+    with torch.no_grad():
+        assert not records_grad(unread())
 
 
 def test_wrapper_on_cpu_is_the_plain_version_and_counts_nothing():
@@ -125,3 +155,125 @@ def test_layernorm_keeps_the_composite_on_cpu_under_grad():
     torch.testing.assert_close(y.detach(), lnk.layernorm_fwd_reference(
         xt.detach(), ln.weight.detach(), ln.bias.detach(), 1e-5),
         rtol=1e-5, atol=1e-5)
+
+
+# -- the launch seam of ops/kernels/_build ---------------------------------------
+
+STREAM_BASE = 0xC0FFEE
+
+
+class FakeSymbol:
+    """A Python callable in place of a ctypes symbol: records its calls and
+    returns ``rc``."""
+
+    def __init__(self, rc=0):
+        self.rc, self.calls = rc, []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.rc
+
+
+def fake_entry(rc=0, symbol="triplet_fake_body"):
+    entry = _build.Entry("triplet_fake", symbol, _build.PTR, _build.INT,
+                         _build.STREAM)
+    entry.fn = FakeSymbol(rc)
+    return entry
+
+
+def on(device):
+    """A stand-in for a tensor on CUDA device ``device``."""
+    return types.SimpleNamespace(get_device=lambda: device)
+
+
+@pytest.fixture
+def card(monkeypatch):
+    """Device 0 current, each device's current raw stream STREAM_BASE +
+    its index; returns the devices whose guard was entered, in order."""
+    guards = []
+
+    @contextlib.contextmanager
+    def device(d):
+        guards.append(d)
+        yield
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda d: STREAM_BASE + d, raising=False)
+    return guards
+
+
+@pytest.mark.parametrize("device,guards", [(0, []), (1, [1])],
+                         ids=["current", "other"])
+def test_launch_appends_the_stream_last(card, device, guards):
+    entry = fake_entry()
+    assert _build.launch(entry, on(device), 7, 3) is None
+    assert entry.fn.calls == [(7, 3, STREAM_BASE + device)]
+    assert card == guards
+
+
+@pytest.mark.parametrize("rc", [1, 700])
+def test_launch_raises_on_a_cuda_error_naming_the_symbol(card, rc):
+    entry = fake_entry(rc)
+    with pytest.raises(RuntimeError,
+                       match=f"triplet_fake_body .*CUDA error {rc}$"):
+        _build.launch(entry, on(0), 7, 3)
+    assert len(entry.fn.calls) == 1
+
+
+def test_entry_loads_and_types_its_symbol_once(monkeypatch):
+    symbol = FakeSymbol(rc=5)
+    loads = []
+
+    def load_library(name):
+        loads.append(name)
+        return types.SimpleNamespace(triplet_fake_body=symbol)
+
+    monkeypatch.setattr(_build, "load_library", load_library)
+    entry = _build.Entry("triplet_fake", "triplet_fake_body", _build.PTR,
+                         _build.INT, _build.STREAM)
+    assert entry(1, 2, 3) == 5 and entry(4, 5, 6) == 5
+    assert loads == ["triplet_fake"]
+    assert symbol.calls == [(1, 2, 3), (4, 5, 6)]
+    assert symbol.argtypes == (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)
+    assert symbol.restype is ctypes.c_int
+    variant = types.SimpleNamespace(triplet_fake_body=FakeSymbol(rc=0))
+    bound = entry.bind(variant)                 # a variant build's symbol
+    assert bound.fn is variant.triplet_fake_body and bound(1, 2, 3) == 0
+    assert entry.fn is symbol
+
+
+@pytest.mark.parametrize("names", [("launches",),
+                                   ("launches", "body_launches"),
+                                   ("launches", "dropout_launches",
+                                    "tiled_launches")])
+def test_counted_counters_start_at_zero_and_count_one_per_call(names):
+    @_build.counted(*names)
+    def wrapper():
+        pass
+
+    assert {n: getattr(wrapper, n) for n in names} == dict.fromkeys(names, 0)
+    for i, name in enumerate(names):
+        for _ in range(i + 1):
+            _build.count(wrapper, name)
+    assert {n: getattr(wrapper, n) for n in names} == {
+        n: i + 1 for i, n in enumerate(names)}
+    _build.count(wrapper)
+    assert wrapper.launches == 2
+
+
+@pytest.mark.parametrize("wrapper,names", [
+    (tdk.triplet_dense_fwd, ("launches", "dropout_launches",
+                             "tiled_launches")),
+    (tdk.triplet_dense_bwd, ("launches", "dropout_launches",
+                             "tiled_launches")),
+    (tak.triplet_aggregate_fwd, ("launches", "body_launches")),
+    (tak.triplet_aggregate_bwd, ("launches", "body_launches")),
+    (tlk.triplet_attention_fwd, ("launches",)),
+    (tlk.triplet_attention_bwd, ("launches",)),
+    (lnk.layernorm_fwd, ("launches",))],
+    ids=lambda x: getattr(x, "__name__", None))
+def test_wrappers_carry_the_counters_h100bench_reads(wrapper, names):
+    for name in names:
+        assert isinstance(getattr(wrapper, name), int)

@@ -163,22 +163,17 @@ def main() -> int:
                   .to(torch.bfloat16) for _ in range(2))
         ref = ta.triplet_aggregate_bwd_reference(a, v, dva)
         da, dv = torch.empty_like(a), torch.empty_like(v)
-        strides = (ctypes.c_longlong * 3)(*v.stride()[:3])
+        strides = _build.strides(v.stride()[:3])
         for heads in (8, 16):
             row = {"anatomy": "triplet_aggregate_bwd body", "b": b, "n": 48,
                    "heads_per_block": heads, "card": card}
             for name, lib in libs.items():
-                fn = lib.triplet_aggregate_bwd_body
-                fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                               + [ctypes.POINTER(ctypes.c_longlong),
-                                  ctypes.c_void_p])
+                entry = ta.BWD_BODY.bind(lib)
 
                 def call():
-                    rc = fn(a.data_ptr(), v.data_ptr(), dva.data_ptr(),
-                            da.data_ptr(), dv.data_ptr(), b, 48, 16, 16, heads,
-                            strides, torch.cuda.current_stream().cuda_stream)
-                    if rc != 0:
-                        raise RuntimeError(f"{name}: CUDA error {rc}")
+                    _build.launch(entry, v, a.data_ptr(), v.data_ptr(),
+                                  dva.data_ptr(), da.data_ptr(), dv.data_ptr(),
+                                  b, 48, 16, 16, heads, strides)
 
                 call()
                 torch.cuda.synchronize()

@@ -271,17 +271,15 @@ extern "C" int triplet_attention_bwd(const void* q, const void* k, const void* v
 // bf16. q, k, v, dout, dq, dk, dv: (batch, h, nj, n, dp) contiguous, dp 16
 // or 32; bias, gate, dbias, dgate: (batch, h, n, n) contiguous. partial:
 // 2 x chunks x batch x h x n x n floats of scratch; rows j go in chunks of
-// jc. split_dv 1 takes dv from the weights' high and low bf16 parts (the
-// TPU kernel's f32 weights); 0 from the high part alone, which only a
-// measurement of the split's cost asks for. Returns the first CUDA error (0
-// when both launches went out).
+// jc. dv is taken from the weights' high and low bf16 parts (the TPU
+// kernel's f32 weights). Returns the first CUDA error (0 when both launches
+// went out).
 extern "C" int triplet_attention_bwd_mma(const void* q, const void* k, const void* v,
                                          const void* bias, const void* gate,
                                          const void* dout, void* dq, void* dk, void* dv,
                                          void* dbias, void* dgate, void* partial,
                                          float scale, int batch, int h, int nj, int n,
-                                         int dp, int jc, int chunks, int split_dv,
-                                         void* stream) {
+                                         int dp, int jc, int chunks, void* stream) {
   using tbwd::bf16;
   const long long nn = (long long)n * n;
   tbwd::Args a{};
@@ -308,6 +306,5 @@ extern "C" int triplet_attention_bwd_mma(const void* q, const void* k, const voi
   a.chunks = chunks;
   if (!tbwd::valid(a)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  return split_dv ? tbwd::launch<true, false, true>(a, o, s)
-                  : tbwd::launch<true, false, false>(a, o, s);
+  return tbwd::launch<true, false, true>(a, o, s);
 }

@@ -8,8 +8,6 @@ Parameters live in ``torch.nn`` modules (``nn.Linear`` weights are
   kernel (``ops/kernels/layernorm.py``) where autograd records nothing and
   the kernel takes the call (:func:`layernorm_route`), else as three
   launches (widen, ``F.layer_norm``, narrow);
-- :func:`aggregate_epilogue_route` picks, by the same observation, how the
-  aggregate triplet layer applies its output projection;
 - ``embedding`` clamps ids into [0, vocab-1] (``F.embedding`` would raise).
 
 Initialisation follows torch.nn's defaults, as tgt_tpu's does: Linear
@@ -33,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tgt_torch.ops.kernels import layernorm as layernorm_kernel
+from tgt_torch.ops.kernels._build import records_grad
 
 LN_EPS = 1e-5  # torch.nn.LayerNorm default
 
@@ -94,12 +93,6 @@ def linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, lin.weight.to(x.dtype), bias)
 
 
-def records_grad(ln: nn.LayerNorm, x: torch.Tensor) -> bool:
-    """Whether autograd would record a layer norm of x by ``ln``."""
-    return torch.is_grad_enabled() and (
-        x.requires_grad or ln.weight.requires_grad or ln.bias.requires_grad)
-
-
 def layernorm_route(device_type: str, dtype: torch.dtype, width: int,
                     grad: bool) -> str:
     """How :func:`layernorm` runs a call, from what it can observe:
@@ -114,25 +107,10 @@ def layernorm_route(device_type: str, dtype: torch.dtype, width: int,
     return "composite"
 
 
-def aggregate_epilogue_route(dense: bool, takes_out: bool, grad: bool) -> str:
-    """How ``ops/triplet.TripletAggregate`` ends a call, from what it can
-    observe: ``"fold"`` (each direction's k-aggregation writes its half of
-    one (b, i, j, 2, d, h) buffer, which one ``lin_O`` GEMM with its bias
-    reads) where autograd records nothing (``grad`` False) and the dense
-    core takes the buffer for both directions (``takes_out``: H a multiple
-    of 8, and on the card the forward body takes the call); ``"split"`` (a
-    contraction per direction, their sum, the pair transpose and the bias)
-    for everything else: training and remat's replay, the plain core, f32
-    and shapes outside the body on the card."""
-    if dense and takes_out and not grad:
-        return "fold"
-    return "split"
-
-
 def layernorm(ln: nn.LayerNorm, x: torch.Tensor,
               eps: float = LN_EPS) -> torch.Tensor:
     if layernorm_route(x.device.type, x.dtype, x.shape[-1],
-                       records_grad(ln, x)) == "kernel":
+                       records_grad((x, ln.weight, ln.bias))) == "kernel":
         if not x.is_contiguous():
             x = x.contiguous()
         return layernorm_kernel.layernorm_fwd(x, ln.weight, ln.bias, eps)

@@ -1,12 +1,18 @@
-"""Build and load the hand-written CUDA kernels of the package.
+"""Build, load and launch the hand-written CUDA kernels of the package.
 
-Each ``tgt_torch/csrc/<name>.cu`` exposes a plain C entry point. It is
+Each ``tgt_torch/csrc/<name>.cu`` exposes plain C entry points. It is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``tgt_torch/_build/`` at first use, and loaded with ``ctypes``. The library
 name carries a hash of the source, the ``csrc/*.cuh`` headers and the flags,
 so an edited source or header is rebuilt.
 The compiler's own report (``-Xptxas -v``: registers, shared memory, spills)
 is kept beside the library as ``<name>.log``.
+
+Every wrapper in ``ops/kernels`` calls its kernels through one seam:
+:class:`Entry` declares a C entry point once, :func:`launch` calls it on a
+tensor's device and current stream and raises on a CUDA error,
+:func:`counted` and :func:`count` keep the wrappers' launch counters, and
+:func:`records_grad` is the one test of whether autograd records a call.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine without ``nvcc``.
@@ -20,7 +26,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Callable, Dict, Iterable, Optional, Sequence
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
@@ -97,3 +105,86 @@ def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu`` as a ctypes library."""
     path = build_libraries([name])[name]
     return ctypes.CDLL(str(path))
+
+
+# argument types of the C entry points
+PTR = ctypes.c_void_p
+INT = ctypes.c_int
+UINT = ctypes.c_uint
+LONG = ctypes.c_longlong
+FLOAT = ctypes.c_float
+LONGS = ctypes.POINTER(ctypes.c_longlong)   # an array of element strides
+STREAM = ctypes.c_void_p                    # cudaStream_t, always the last
+
+
+class Entry:
+    """One C entry point, declared once: its library (``csrc/<library>.cu``),
+    its symbol and its argument types. Calling the entry calls the symbol,
+    which is loaded, typed and cached at the first call; ``fn`` may be set to
+    another callable (a variant build's symbol, or a fake in a test)."""
+
+    def __init__(self, library: str, symbol: str, *argtypes):
+        self.library = library
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.fn: Optional[Callable[..., int]] = None
+
+    def bind(self, lib: ctypes.CDLL) -> "Entry":
+        """This declaration applied to ``lib``, a build of its library: a
+        new entry whose ``fn`` is ``lib``'s symbol, typed."""
+        fn = getattr(lib, self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        entry = Entry(self.library, self.symbol, *self.argtypes)
+        entry.fn = fn
+        return entry
+
+    def __call__(self, *args) -> int:
+        if self.fn is None:
+            self.fn = self.bind(load_library(self.library)).fn
+        return self.fn(*args)
+
+
+def strides(values: Sequence[int]) -> ctypes.Array:
+    """``values`` (element strides) as the C array a ``LONGS`` argument takes."""
+    return (ctypes.c_longlong * len(values))(*values)
+
+
+def launch(entry: Entry, on: torch.Tensor, *args) -> None:
+    """Call ``entry`` with ``args`` and, last, the raw handle of the current
+    stream of ``on``'s device (a ``torch.cuda.Stream`` object costs
+    microseconds a call). The device guard is entered only when that device
+    is not the current one. Raises ``RuntimeError`` naming the symbol where
+    the entry returns a CUDA error."""
+    device = on.get_device()
+    if device == torch.cuda.current_device():
+        rc = entry(*args, torch._C._cuda_getCurrentRawStream(device))
+    else:
+        with torch.cuda.device(device):
+            rc = entry(*args, torch._C._cuda_getCurrentRawStream(device))
+    if rc != 0:
+        raise RuntimeError(f"{entry.symbol} launch failed with CUDA error {rc}")
+
+
+def counted(*names: str) -> Callable:
+    """Decorator declaring a wrapper's launch counters: function attributes,
+    each starting at 0, that :func:`count` bumps and ``chip_smoke.py`` and
+    ``h100bench`` read by name."""
+    def declare(wrapper):
+        for name in names:
+            setattr(wrapper, name, 0)
+        return wrapper
+    return declare
+
+
+def count(wrapper, name: str = "launches") -> None:
+    """One more call of ``wrapper`` on the card, counted under ``name``."""
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
+
+
+def records_grad(tensors: Iterable[Optional[torch.Tensor]]) -> bool:
+    """Whether autograd would record a call on ``tensors`` (None skipped):
+    grad mode is on and one of them requires grad. ``tensors`` is read only
+    when grad mode is on."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)

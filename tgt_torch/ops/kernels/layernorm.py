@@ -22,12 +22,11 @@ and what the kernel cannot take raises. There is no fallback.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from tgt_torch.ops.kernels._build import load_library
+from tgt_torch.ops.kernels._build import (FLOAT, INT, LONG, PTR, STREAM,
+                                          Entry, count, counted, launch,
+                                          records_grad)
 
 KERNEL_SOURCE = "tgt_torch/csrc/layernorm_fwd.cu"
 REPLACES = None                   # XLA fused the chain on the TPU
@@ -53,16 +52,11 @@ def takes(dtype: torch.dtype, width: int) -> bool:
             and PIECE_SPAN <= width <= MAX_WIDTH)
 
 
-@functools.cache
-def _kernel():
-    fn = load_library("layernorm_fwd").layernorm_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
-                                            ctypes.c_int, ctypes.c_float,
-                                            ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+_KERNEL = Entry("layernorm_fwd", "layernorm_fwd", PTR, PTR, PTR, PTR, INT,
+                LONG, INT, FLOAT, STREAM)
 
 
+@counted("launches")
 def layernorm_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                   eps: float) -> torch.Tensor:
     """The layer norm of x's last axis, with no gradient on the card; one
@@ -78,8 +72,7 @@ def layernorm_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             return layernorm_fwd_reference(x, weight, bias, eps)
         raise ValueError(f"the layer-norm kernel runs on cpu or cuda, not "
                          f"{x.device}")
-    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
-                                    or bias.requires_grad):
+    if records_grad((x, weight, bias)):
         raise RuntimeError("layernorm_fwd returns no gradient on the card; "
                            "the composite in ops/common.layernorm does")
     if not takes(x.dtype, width):
@@ -102,24 +95,7 @@ def layernorm_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     rows = x.numel() // width
     if rows == 0:
         return y
-    if device == torch.cuda.current_device():
-        rc = _launch(x, weight, bias, y, rows, width, eps, device)
-    else:
-        with torch.cuda.device(device):
-            rc = _launch(x, weight, bias, y, rows, width, eps, device)
-    if rc != 0:
-        raise RuntimeError(f"layernorm_fwd launch failed with CUDA error {rc}")
-    layernorm_fwd.launches += 1
+    launch(_KERNEL, x, x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+           y.data_ptr(), _DTYPE_CODES[x.dtype], rows, width, eps)
+    count(layernorm_fwd)
     return y
-
-
-def _launch(x, weight, bias, y, rows, width, eps, device) -> int:
-    """One launch on the device's current stream (its raw handle: a
-    ``torch.cuda.Stream`` object costs microseconds a call)."""
-    return _kernel()(x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-                     y.data_ptr(), _DTYPE_CODES[x.dtype], rows, width, eps,
-                     torch._C._cuda_getCurrentRawStream(device))
-
-
-# kernel launches on the card, read by chip_smoke.py
-layernorm_fwd.launches = 0

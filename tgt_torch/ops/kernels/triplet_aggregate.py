@@ -62,13 +62,13 @@ take raises. There is no fallback.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
 
-from tgt_torch.ops.kernels._build import load_library
+from tgt_torch.ops.kernels._build import (INT, LONGS, PTR, STREAM, Entry,
+                                          count, counted, launch,
+                                          records_grad, strides)
 from tgt_torch.ops.kernels.triplet_bwd_panel import sm_count
 
 KERNEL_SOURCE = "tgt_torch/csrc/triplet_aggregate_fwd.cu"
@@ -157,6 +157,17 @@ def fwd_route(a: torch.Tensor, v: torch.Tensor) -> str:
     b, n, _, d, h = v.shape
     aligned = v.data_ptr() % 16 == 0 and (_copies_a(a) or a.data_ptr() % 16 == 0)
     return agg_fwd_route(v.dtype, n, d, h, v.stride()[:3], aligned)
+
+
+def takes_pair_buffer(a: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether a no-grad call of ``(a, v)`` can write both directions of the
+    aggregate layer into one (b, i, j, 2, d, h) pair buffer through ``out``:
+    H a multiple of ``BODY_GROUP`` (each half then meets ``out``'s contract)
+    and a route that takes ``out``, the body on the card and the plain
+    version on the CPU. The out direction's call (v's pair-transposed view,
+    the same dtype, shape and set of strides, and new weights as a is)
+    takes the same route."""
+    return v.shape[-1] % BODY_GROUP == 0 and fwd_route(a, v) != "panel"
 
 
 def agg_fwd_blocks(b: int, n: int, d: int, h: int, sms: int) -> Tuple[int, int]:
@@ -283,40 +294,14 @@ def _check_kernel_limits(v, route: str = "panel") -> None:
                          f"of {J_CHUNK} j) pairs, got b={b}, N={n}")
 
 
-@functools.cache
-def _fwd_kernel():
-    fn = load_library("triplet_aggregate_fwd").triplet_aggregate_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _fwd_body_kernel():
-    fn = load_library("triplet_aggregate_fwd").triplet_aggregate_fwd_body
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                   + [ctypes.POINTER(ctypes.c_longlong)] * 3 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _bwd_kernel():
-    fn = load_library("triplet_aggregate_bwd").triplet_aggregate_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _bwd_body_kernel():
-    fn = load_library("triplet_aggregate_bwd").triplet_aggregate_bwd_body
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+_FWD = Entry("triplet_aggregate_fwd", "triplet_aggregate_fwd",
+             *[PTR] * 3, *[INT] * 5, LONGS, STREAM)
+_FWD_BODY = Entry("triplet_aggregate_fwd", "triplet_aggregate_fwd_body",
+                  *[PTR] * 3, *[INT] * 6, *[LONGS] * 3, STREAM)
+_BWD = Entry("triplet_aggregate_bwd", "triplet_aggregate_bwd",
+             *[PTR] * 6, *[INT] * 6, LONGS, STREAM)
+BWD_BODY = Entry("triplet_aggregate_bwd", "triplet_aggregate_bwd_body",
+                 *[PTR] * 5, *[INT] * 5, LONGS, STREAM)
 
 
 def _fwd_body(a, v, heads_per_block=None, j_chunk=None, out=None):
@@ -328,27 +313,19 @@ def _fwd_body(a, v, heads_per_block=None, j_chunk=None, out=None):
         heads_per_block, j_chunk = agg_fwd_blocks(b, n, d, h, sm_count(v.device))
     if out is None:
         out = torch.empty((b, n, n, d, h), dtype=v.dtype, device=v.device)
-    out_strides = (ctypes.c_longlong * 4)(*out.stride()[:4])
-    a_strides = (ctypes.c_longlong * 3)(*a.stride()[:3])
-    v_strides = (ctypes.c_longlong * 3)(*v.stride()[:3])
-    with torch.cuda.device(v.device):
-        rc = _fwd_body_kernel()(a.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                                n, d, h, heads_per_block, j_chunk, a_strides,
-                                v_strides, out_strides,
-                                torch.cuda.current_stream().cuda_stream)
-    return rc, out
+    launch(_FWD_BODY, v, a.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, d,
+           h, heads_per_block, j_chunk, strides(a.stride()[:3]),
+           strides(v.stride()[:3]), strides(out.stride()[:4]))
+    return out
 
 
 def _fwd_panel(a, v):
     """The panel loop: one block per (b, j); a contiguous."""
     b, n, _, d, h = v.shape
     out = torch.empty((b, n, n, d, h), dtype=v.dtype, device=v.device)
-    strides = (ctypes.c_longlong * 3)(*v.stride()[:3])
-    with torch.cuda.device(v.device):
-        rc = _fwd_kernel()(a.data_ptr(), v.data_ptr(), out.data_ptr(),
-                           _DTYPE_CODES[v.dtype], b, n, d, h, strides,
-                           torch.cuda.current_stream().cuda_stream)
-    return rc, out
+    launch(_FWD, v, a.data_ptr(), v.data_ptr(), out.data_ptr(),
+           _DTYPE_CODES[v.dtype], b, n, d, h, strides(v.stride()[:3]))
+    return out
 
 
 def _check_out(out: torch.Tensor, v: torch.Tensor) -> None:
@@ -366,6 +343,7 @@ def _check_out(out: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("out's data must be 16-byte aligned")
 
 
+@counted("launches", "body_launches")
 def triplet_aggregate_fwd(a: torch.Tensor, v: torch.Tensor, *,
                           out: Optional[torch.Tensor] = None,
                           _panel_route: bool = False) -> torch.Tensor:
@@ -383,7 +361,7 @@ def triplet_aggregate_fwd(a: torch.Tensor, v: torch.Tensor, *,
     if route == "plain":
         va = triplet_aggregate_fwd_reference(a, v)
         return va if out is None else out.copy_(va)
-    if torch.is_grad_enabled() and (a.requires_grad or v.requires_grad):
+    if records_grad((a, v)):
         raise RuntimeError("triplet_aggregate_fwd returns no gradient on the "
                            "card; call triplet_aggregate_core, which "
                            "differentiates through the backward kernel")
@@ -394,25 +372,16 @@ def triplet_aggregate_fwd(a: torch.Tensor, v: torch.Tensor, *,
         route = "panel"
     _check_kernel_limits(v, route)
     if route == "body":
-        rc, out = _fwd_body(a, v, out=out)
+        out = _fwd_body(a, v, out=out)
+        count(triplet_aggregate_fwd, "body_launches")
     elif out is not None:
         raise ValueError(f"out is taken by the body route only; this call "
                          f"(dtype {v.dtype}, N={n}, d={d}, H={h}, v strides "
                          f"{v.stride()}) takes the panel route")
     else:
-        rc, out = _fwd_panel(a.contiguous(), v)
-    if rc != 0:
-        raise RuntimeError(f"triplet_aggregate_fwd ({route} route) launch "
-                           f"failed with CUDA error {rc}")
-    triplet_aggregate_fwd.launches += 1
-    if route == "body":
-        triplet_aggregate_fwd.body_launches += 1
+        out = _fwd_panel(a.contiguous(), v)
+    count(triplet_aggregate_fwd)
     return out
-
-
-# calls on the card, and those of them that took the body; read by chip_smoke.py
-triplet_aggregate_fwd.launches = 0
-triplet_aggregate_fwd.body_launches = 0
 
 
 def _bwd_body(a, v, dva, heads_per_block=None):
@@ -423,13 +392,10 @@ def _bwd_body(a, v, dva, heads_per_block=None):
                                                   sm_count(v.device))
     da = torch.empty((b, n, n, h), dtype=a.dtype, device=v.device)
     dv = torch.empty((b, n, n, d, h), dtype=v.dtype, device=v.device)
-    strides = (ctypes.c_longlong * 3)(*v.stride()[:3])
-    with torch.cuda.device(v.device):
-        rc = _bwd_body_kernel()(a.data_ptr(), v.data_ptr(), dva.data_ptr(),
-                                da.data_ptr(), dv.data_ptr(), b, n, d, h,
-                                heads_per_block, strides,
-                                torch.cuda.current_stream().cuda_stream)
-    return rc, da, dv
+    launch(BWD_BODY, v, a.data_ptr(), v.data_ptr(), dva.data_ptr(),
+           da.data_ptr(), dv.data_ptr(), b, n, d, h, heads_per_block,
+           strides(v.stride()[:3]))
+    return da, dv
 
 
 def _bwd_panel(a, v, dva):
@@ -441,15 +407,13 @@ def _bwd_panel(a, v, dva):
     dv = torch.empty((b, n, n, d, h), dtype=v.dtype, device=v.device)
     workspace = torch.empty((-(-n // J_CHUNK), b, n, n, h),
                             dtype=torch.float32, device=v.device)
-    strides = (ctypes.c_longlong * 3)(*v.stride()[:3])
-    with torch.cuda.device(v.device):
-        rc = _bwd_kernel()(a.data_ptr(), v.data_ptr(), dva.data_ptr(),
-                           da.data_ptr(), dv.data_ptr(), workspace.data_ptr(),
-                           _DTYPE_CODES[v.dtype], b, n, d, h, J_CHUNK,
-                           strides, torch.cuda.current_stream().cuda_stream)
-    return rc, da, dv
+    launch(_BWD, v, a.data_ptr(), v.data_ptr(), dva.data_ptr(), da.data_ptr(),
+           dv.data_ptr(), workspace.data_ptr(), _DTYPE_CODES[v.dtype], b, n,
+           d, h, J_CHUNK, strides(v.stride()[:3]))
+    return da, dv
 
 
+@counted("launches", "body_launches")
 def triplet_aggregate_bwd(a: torch.Tensor, v: torch.Tensor,
                           dva: torch.Tensor, *, _panel_route: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -468,21 +432,12 @@ def triplet_aggregate_bwd(a: torch.Tensor, v: torch.Tensor,
         all(t.data_ptr() % 16 == 0 for t in (a, v, dva)))
     _check_kernel_limits(v, route)
     if route == "body":
-        rc, da, dv = _bwd_body(a, v, dva)
+        da, dv = _bwd_body(a, v, dva)
+        count(triplet_aggregate_bwd, "body_launches")
     else:
-        rc, da, dv = _bwd_panel(a, v, dva)
-    if rc != 0:
-        raise RuntimeError(f"triplet_aggregate_bwd ({route} route) launch "
-                           f"failed with CUDA error {rc}")
-    triplet_aggregate_bwd.launches += 1
-    if route == "body":
-        triplet_aggregate_bwd.body_launches += 1
+        da, dv = _bwd_panel(a, v, dva)
+    count(triplet_aggregate_bwd)
     return da, dv
-
-
-# calls on the card, and those of them that took the body; read by chip_smoke.py
-triplet_aggregate_bwd.launches = 0
-triplet_aggregate_bwd.body_launches = 0
 
 
 class TripletAggregateCore(torch.autograd.Function):
@@ -508,8 +463,7 @@ def triplet_aggregate_core(a: torch.Tensor, v: torch.Tensor,
     """Differentiable k-aggregation (see the module docstring for the
     contract). A call given ``out`` writes into it and records no gradient:
     it raises where autograd would record one."""
-    if out is not None and torch.is_grad_enabled() and (
-            a.requires_grad or v.requires_grad):
+    if out is not None and records_grad((a, v)):
         raise RuntimeError("triplet_aggregate_core writes into out only "
                            "where autograd records nothing")
     return TripletAggregateCore.apply(a, v, out)

@@ -34,14 +34,14 @@ and what the kernel cannot take raises. There is no fallback.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Tuple
 
 import torch
 
 from tgt_torch.ops.common import layernorm, linear
-from tgt_torch.ops.kernels._build import load_library
+from tgt_torch.ops.kernels._build import (FLOAT, INT, PTR, STREAM, Entry,
+                                          count, counted, launch,
+                                          records_grad)
 from tgt_torch.ops.kernels.triplet_bwd_panel import (j_chunks, pad_head_dim,
                                                      padded_head_dim, sm_count)
 from tgt_torch.ops.kernels.triplet_fwd_panel import FWD_BLOCKS_PER_SM
@@ -147,40 +147,14 @@ def _check_kernel_limits(q_t, k_t, v_t, bias, gate, do=None) -> None:
                              f"{t.stride()}")
 
 
-@functools.cache
-def _fwd_kernel():
-    fn = load_library("triplet_attention_fwd").triplet_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_float]
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _fwd_mma_kernel():
-    fn = load_library("triplet_attention_fwd").triplet_attention_fwd_mma
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_float]
-                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _bwd_kernel():
-    fn = load_library("triplet_attention_bwd").triplet_attention_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_float]
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _bwd_mma_kernel():
-    fn = load_library("triplet_attention_bwd").triplet_attention_bwd_mma
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_float]
-                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+_FWD = Entry("triplet_attention_fwd", "triplet_attention_fwd",
+             *[PTR] * 6, FLOAT, *[INT] * 6, STREAM)
+_FWD_MMA = Entry("triplet_attention_fwd", "triplet_attention_fwd_mma",
+                 *[PTR] * 6, FLOAT, *[INT] * 7, STREAM)
+_BWD = Entry("triplet_attention_bwd", "triplet_attention_bwd",
+             *[PTR] * 11, FLOAT, *[INT] * 6, STREAM)
+_BWD_MMA = Entry("triplet_attention_bwd", "triplet_attention_bwd_mma",
+                 *[PTR] * 12, FLOAT, *[INT] * 7, STREAM)
 
 
 def _fwd_mma(q_t, k_t, v_t, bias, gate, scale):
@@ -192,23 +166,17 @@ def _fwd_mma(q_t, k_t, v_t, bias, gate, scale):
     q_p, k_p, v_p = (pad_head_dim(x, dp) for x in (q_t, k_t, v_t))
     out = torch.empty_like(q_p)
     jc, chunks = j_chunks(b * h, nj, sm_count(q_t.device), FWD_BLOCKS_PER_SM)
-    with torch.cuda.device(q_t.device):
-        rc = _fwd_mma_kernel()(
-            q_p.data_ptr(), k_p.data_ptr(), v_p.data_ptr(), bias.data_ptr(),
-            gate.data_ptr(), out.data_ptr(), scale, b, h, nj, n, dp, jc,
-            chunks, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"triplet_attention_fwd kernel launch failed with "
-                           f"CUDA error {rc}")
+    launch(_FWD_MMA, q_t, q_p.data_ptr(), k_p.data_ptr(), v_p.data_ptr(),
+           bias.data_ptr(), gate.data_ptr(), out.data_ptr(), scale, b, h, nj,
+           n, dp, jc, chunks)
     return out if dp == d else out[..., :d].contiguous()
 
 
-def _bwd_mma(q_t, k_t, v_t, bias, gate, do, scale, split_dv=True):
+def _bwd_mma(q_t, k_t, v_t, bias, gate, do, scale):
     """The bf16 backward: the tensor-core body shared with the dense pair
     (``triplet_bwd_mma.cuh``: one panel launch and one ordered reduction)
     on the head-major panels in place, a head narrower than 16 padded; dv
-    from the weights' high and low bf16 parts (``split_dv=False``, dv from
-    the high part alone, only measures what the split costs)."""
+    from the weights' high and low bf16 parts."""
     b, h, nj, n, d = q_t.shape
     dp = padded_head_dim(d)
     q_p, k_p, v_p, do_p = (pad_head_dim(x, dp) for x in (q_t, k_t, v_t, do))
@@ -217,21 +185,16 @@ def _bwd_mma(q_t, k_t, v_t, bias, gate, do, scale, split_dv=True):
     jc, chunks = j_chunks(b * h, nj, sm_count(q_t.device))
     partial = torch.empty((2, chunks, b, h, n, n), dtype=torch.float32,
                           device=q_t.device)
-    with torch.cuda.device(q_t.device):
-        rc = _bwd_mma_kernel()(
-            q_p.data_ptr(), k_p.data_ptr(), v_p.data_ptr(), bias.data_ptr(),
-            gate.data_ptr(), do_p.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dbias.data_ptr(), dgate.data_ptr(),
-            partial.data_ptr(), scale, b, h, nj, n, dp, jc, chunks,
-            int(split_dv), torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"triplet_attention_bwd kernel launch failed with "
-                           f"CUDA error {rc}")
+    launch(_BWD_MMA, q_t, q_p.data_ptr(), k_p.data_ptr(), v_p.data_ptr(),
+           bias.data_ptr(), gate.data_ptr(), do_p.data_ptr(), dq.data_ptr(),
+           dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(), dgate.data_ptr(),
+           partial.data_ptr(), scale, b, h, nj, n, dp, jc, chunks)
     if dp != d:
         dq, dk, dv = (x[..., :d].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv, dbias, dgate
 
 
+@counted("launches")
 def triplet_attention_fwd(q_t: torch.Tensor, k_t: torch.Tensor,
                           v_t: torch.Tensor, bias: torch.Tensor,
                           gate: torch.Tensor, scale: float) -> torch.Tensor:
@@ -244,32 +207,23 @@ def triplet_attention_fwd(q_t: torch.Tensor, k_t: torch.Tensor,
     if q_t.device.type == "cpu":
         return triplet_core_fwd_reference(q_t, k_t, v_t, bias, gate, scale)
     _check_kernel_limits(q_t, k_t, v_t, bias, gate)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q_t, k_t, v_t, bias, gate)):
+    if records_grad((q_t, k_t, v_t, bias, gate)):
         raise RuntimeError("triplet_attention_fwd returns no gradient on "
                            "the card; call triplet_biased_attention, which "
                            "differentiates through the backward kernel")
     if q_t.dtype == torch.bfloat16:
         out = _fwd_mma(q_t, k_t, v_t, bias, gate, scale)
-        triplet_attention_fwd.launches += 1
-        return out
-    b, h, nj, n, d = q_t.shape
-    out = torch.empty_like(q_t)
-    with torch.cuda.device(q_t.device):
-        rc = _fwd_kernel()(
-            q_t.data_ptr(), k_t.data_ptr(), v_t.data_ptr(), bias.data_ptr(),
-            gate.data_ptr(), out.data_ptr(), scale, _DTYPE_CODES[q_t.dtype],
-            b, h, nj, n, d, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"triplet_attention_fwd kernel launch failed with "
-                           f"CUDA error {rc}")
-    triplet_attention_fwd.launches += 1
+    else:
+        b, h, nj, n, d = q_t.shape
+        out = torch.empty_like(q_t)
+        launch(_FWD, q_t, q_t.data_ptr(), k_t.data_ptr(), v_t.data_ptr(),
+               bias.data_ptr(), gate.data_ptr(), out.data_ptr(), scale,
+               _DTYPE_CODES[q_t.dtype], b, h, nj, n, d)
+    count(triplet_attention_fwd)
     return out
 
 
-triplet_attention_fwd.launches = 0  # kernel launches, read by chip_smoke.py
-
-
+@counted("launches")
 def triplet_attention_bwd(q_t: torch.Tensor, k_t: torch.Tensor,
                           v_t: torch.Tensor, bias: torch.Tensor,
                           gate: torch.Tensor, do: torch.Tensor,
@@ -285,26 +239,18 @@ def triplet_attention_bwd(q_t: torch.Tensor, k_t: torch.Tensor,
     _check_kernel_limits(q_t, k_t, v_t, bias, gate, do)
     if q_t.dtype == torch.bfloat16:
         grads = _bwd_mma(q_t, k_t, v_t, bias, gate, do, scale)
-        triplet_attention_bwd.launches += 1
-        return grads
-    b, h, nj, n, d = q_t.shape
-    dq, dk, dv = (torch.empty_like(q_t) for _ in range(3))
-    dbias, dgate = torch.empty_like(bias), torch.empty_like(gate)
-    with torch.cuda.device(q_t.device):
-        rc = _bwd_kernel()(
-            q_t.data_ptr(), k_t.data_ptr(), v_t.data_ptr(), bias.data_ptr(),
-            gate.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dbias.data_ptr(), dgate.data_ptr(), scale,
-            _DTYPE_CODES[q_t.dtype], b, h, nj, n, d,
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"triplet_attention_bwd kernel launch failed with "
-                           f"CUDA error {rc}")
-    triplet_attention_bwd.launches += 1
-    return dq, dk, dv, dbias, dgate
-
-
-triplet_attention_bwd.launches = 0  # one per call on the card
+    else:
+        b, h, nj, n, d = q_t.shape
+        dq, dk, dv = (torch.empty_like(q_t) for _ in range(3))
+        dbias, dgate = torch.empty_like(bias), torch.empty_like(gate)
+        launch(_BWD, q_t, q_t.data_ptr(), k_t.data_ptr(), v_t.data_ptr(),
+               bias.data_ptr(), gate.data_ptr(), do.data_ptr(), dq.data_ptr(),
+               dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
+               dgate.data_ptr(), scale, _DTYPE_CODES[q_t.dtype], b, h, nj, n,
+               d)
+        grads = dq, dk, dv, dbias, dgate
+    count(triplet_attention_bwd)
+    return grads
 
 
 class TripletCore(torch.autograd.Function):

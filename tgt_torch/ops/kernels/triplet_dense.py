@@ -50,14 +50,14 @@ and what the kernel cannot take raises. There is no fallback.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
 
 from tgt_torch.ops import remat
-from tgt_torch.ops.kernels._build import load_library
+from tgt_torch.ops.kernels._build import (FLOAT, INT, LONGS, PTR, STREAM,
+                                          UINT, Entry, count, counted, launch,
+                                          records_grad, strides)
 from tgt_torch.ops.kernels.triplet_bwd_panel import (j_chunks, pad_head_dim,
                                                      padded_head_dim, sm_count)
 from tgt_torch.ops.kernels.triplet_fwd_panel import FWD_BLOCKS_PER_SM
@@ -335,90 +335,31 @@ def _dropout_args(seed, rate):
     return seed.data_ptr(), thresh, scale
 
 
-@functools.cache
-def _fwd_kernel():
-    fn = load_library("triplet_dense_fwd").triplet_dense_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_uint, ctypes.c_float]
-                   + [ctypes.c_int] * 5
-                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _fwd_mma_kernel():
-    fn = load_library("triplet_dense_fwd").triplet_dense_fwd_mma
-    fn.argtypes = ([ctypes.c_void_p] * 5
-                   + [ctypes.POINTER(ctypes.c_longlong)] * 2
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_uint, ctypes.c_float]
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _fwd_inplace_kernel():
-    fn = load_library("triplet_dense_fwd").triplet_dense_fwd_inplace
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_uint, ctypes.c_float]
-                   + [ctypes.c_int] * 4
-                   + [ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _bwd_kernel():
-    fn = load_library("triplet_dense_bwd").triplet_dense_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_uint, ctypes.c_float]
-                   + [ctypes.c_int] * 5
-                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _bwd_mma_kernel():
-    fn = load_library("triplet_dense_bwd").triplet_dense_bwd_mma
-    fn.argtypes = ([ctypes.c_void_p] * 6
-                   + [ctypes.POINTER(ctypes.c_longlong)] * 2
-                   + [ctypes.c_void_p] * 6
-                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
-                      ctypes.c_uint, ctypes.c_float]
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _fwd_tiled_kernel():
-    fn = load_library("triplet_dense_fwd").triplet_dense_fwd_tiled
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _bwd_tiled_kernel():
-    fn = load_library("triplet_dense_bwd").triplet_dense_bwd_tiled
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _bwd_tiled_rows():
-    """Rows i per block of the tiled dQ kernel at n nodes."""
-    fn = load_library("triplet_dense_bwd").triplet_dense_bwd_tiled_rows
-    fn.argtypes = [ctypes.c_int]
-    fn.restype = ctypes.c_int
-    return fn
+_FWD = Entry("triplet_dense_fwd", "triplet_dense_fwd",
+             *[PTR] * 7, UINT, FLOAT, *[INT] * 5, LONGS, STREAM)
+_FWD_MMA = Entry("triplet_dense_fwd", "triplet_dense_fwd_mma",
+                 *[PTR] * 5, LONGS, LONGS, PTR, PTR, UINT, FLOAT, *[INT] * 6,
+                 STREAM)
+_FWD_INPLACE = Entry("triplet_dense_fwd", "triplet_dense_fwd_inplace",
+                     *[PTR] * 7, UINT, FLOAT, *[INT] * 4, LONGS, INT, INT,
+                     STREAM)
+_FWD_TILED = Entry("triplet_dense_fwd", "triplet_dense_fwd_tiled",
+                   *[PTR] * 5, *[INT] * 3, STREAM)
+_BWD = Entry("triplet_dense_bwd", "triplet_dense_bwd",
+             *[PTR] * 12, UINT, FLOAT, *[INT] * 5, LONGS, STREAM)
+_BWD_MMA = Entry("triplet_dense_bwd", "triplet_dense_bwd_mma",
+                 *[PTR] * 6, LONGS, LONGS, *[PTR] * 6, LONGS, PTR, UINT, FLOAT,
+                 *[INT] * 6, STREAM)
+_BWD_TILED = Entry("triplet_dense_bwd", "triplet_dense_bwd_tiled",
+                   *[PTR] * 11, LONGS, *[INT] * 6, STREAM)
+# rows i per block of the tiled dQ kernel at n nodes: a query, not a launch
+_BWD_TILED_ROWS = Entry("triplet_dense_bwd", "triplet_dense_bwd_tiled_rows",
+                        INT)
 
 
 def _pair_strides(t: torch.Tensor):
     """The element strides of a (b, i, k, h) tensor's (b, h, i, k) axes."""
-    return (ctypes.c_longlong * 4)(*(t.stride(a) for a in PAIR_ORDER))
+    return strides([t.stride(a) for a in PAIR_ORDER])
 
 
 def _fwd_mma(q, k, v, bias, gate, seed, rate):
@@ -432,16 +373,10 @@ def _fwd_mma(q, k, v, bias, gate, seed, rate):
     out_t = torch.empty_like(q_t)
     jc, chunks = j_chunks(b * h, n, sm_count(q.device), FWD_BLOCKS_PER_SM)
     seeds, thresh, scale = _dropout_args(seed, rate)
-    with torch.cuda.device(q.device):
-        rc = _fwd_mma_kernel()(
-            q_t.data_ptr(), k_t.data_ptr(), v_t.data_ptr(), bias.data_ptr(),
-            None if gate is None else gate.data_ptr(), _pair_strides(bias),
-            _pair_strides(bias if gate is None else gate), out_t.data_ptr(),
-            seeds, thresh, scale, b, n, dp, h, jc, chunks,
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"triplet_dense_fwd kernel launch failed with "
-                           f"CUDA error {rc}")
+    launch(_FWD_MMA, q, q_t.data_ptr(), k_t.data_ptr(), v_t.data_ptr(),
+           bias.data_ptr(), None if gate is None else gate.data_ptr(),
+           _pair_strides(bias), _pair_strides(bias if gate is None else gate),
+           out_t.data_ptr(), seeds, thresh, scale, b, n, dp, h, jc, chunks)
     return from_head_major(out_t, KV_ORDER, d)
 
 
@@ -470,21 +405,13 @@ def _fwd_inplace(q, k, v, bias, gate, seed, rate):
     body's in-place loader, one block per (b, 8 heads, chunk of j)."""
     b, n, _, d, h = q.shape
     out = torch.empty((b, n, n, d, h), dtype=q.dtype, device=q.device)
-    gate_or_bias = bias if gate is None else gate
-    strides = (ctypes.c_longlong * 15)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *bias.stride()[:3], *gate_or_bias.stride()[:3])
     jc, chunks = j_chunks(b * h // INPLACE_GROUP, n, sm_count(q.device), 1)
     seeds, thresh, scale = _dropout_args(seed, rate)
-    with torch.cuda.device(q.device):
-        rc = _fwd_inplace_kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            None if gate is None else gate.data_ptr(), out.data_ptr(), seeds,
-            thresh, scale, b, n, d, h, strides, jc, chunks,
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"triplet_dense_fwd kernel launch failed with "
-                           f"CUDA error {rc}")
+    launch(_FWD_INPLACE, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           bias.data_ptr(), None if gate is None else gate.data_ptr(),
+           out.data_ptr(), seeds, thresh, scale, b, n, d, h,
+           _outer_strides(q, k, v, bias, bias if gate is None else gate), jc,
+           chunks)
     return out
 
 
@@ -503,19 +430,13 @@ def _bwd_mma(q, k, v, bias, gate, dva, seed, rate):
     dbias = torch.empty((b, n, n, h), dtype=q.dtype, device=q.device)
     dgate = None if gate is None else torch.empty_like(dbias)
     seeds, thresh, scale = _dropout_args(seed, rate)
-    with torch.cuda.device(q.device):
-        rc = _bwd_mma_kernel()(
-            q_t.data_ptr(), k_t.data_ptr(), v_t.data_ptr(), do_t.data_ptr(),
-            bias.data_ptr(), None if gate is None else gate.data_ptr(),
-            _pair_strides(bias), _pair_strides(bias if gate is None else gate),
-            dq_t.data_ptr(), dk_t.data_ptr(), dv_t.data_ptr(),
-            partial.data_ptr(), dbias.data_ptr(),
-            None if dgate is None else dgate.data_ptr(), _pair_strides(dbias),
-            seeds, thresh, scale, b, n, dp, h, jc, chunks,
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"triplet_dense_bwd kernel launch failed with "
-                           f"CUDA error {rc}")
+    launch(_BWD_MMA, q, q_t.data_ptr(), k_t.data_ptr(), v_t.data_ptr(),
+           do_t.data_ptr(), bias.data_ptr(),
+           None if gate is None else gate.data_ptr(), _pair_strides(bias),
+           _pair_strides(bias if gate is None else gate), dq_t.data_ptr(),
+           dk_t.data_ptr(), dv_t.data_ptr(), partial.data_ptr(),
+           dbias.data_ptr(), None if dgate is None else dgate.data_ptr(),
+           _pair_strides(dbias), seeds, thresh, scale, b, n, dp, h, jc, chunks)
     return (from_head_major(dq_t, Q_ORDER, d),
             from_head_major(dk_t, KV_ORDER, d),
             from_head_major(dv_t, KV_ORDER, d), dbias, dgate)
@@ -539,14 +460,8 @@ def _fwd_tiled(q, k, v, bias):
     k_t, v_t = (to_head_major(x, KV_ORDER, dp) for x in (k, v))
     bias_t = _bias_head_major(bias)
     out_t = torch.empty_like(q_t)
-    with torch.cuda.device(q.device):
-        rc = _fwd_tiled_kernel()(
-            q_t.data_ptr(), k_t.data_ptr(), v_t.data_ptr(), bias_t.data_ptr(),
-            out_t.data_ptr(), b * h, n, dp,
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"triplet_dense_fwd tiled launch failed with CUDA "
-                           f"error {rc}")
+    launch(_FWD_TILED, q, q_t.data_ptr(), k_t.data_ptr(), v_t.data_ptr(),
+           bias_t.data_ptr(), out_t.data_ptr(), b * h, n, dp)
     return from_head_major(out_t, KV_ORDER, d)
 
 
@@ -561,36 +476,40 @@ def _bwd_tiled(q, k, v, bias, dva):
     k_t, v_t, do_t = (to_head_major(x, KV_ORDER, dp) for x in (k, v, dva))
     bias_t = _bias_head_major(bias)
     dq_t, dk_t, dv_t = (torch.empty_like(q_t) for _ in range(3))
-    jc, chunks = j_chunks(b * h * -(-n // _bwd_tiled_rows()(n)), n,
+    jc, chunks = j_chunks(b * h * -(-n // _BWD_TILED_ROWS(n)), n,
                           sm_count(q.device), 2)
     stats = torch.empty((b * h, n, n, 4), dtype=torch.float32,
                         device=q.device)
     partial = torch.empty((chunks, b * h, n, n), dtype=torch.float32,
                           device=q.device)
     dbias = torch.empty((b, n, n, h), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        rc = _bwd_tiled_kernel()(
-            q_t.data_ptr(), k_t.data_ptr(), v_t.data_ptr(), do_t.data_ptr(),
-            bias_t.data_ptr(), dq_t.data_ptr(), dk_t.data_ptr(),
-            dv_t.data_ptr(), stats.data_ptr(), partial.data_ptr(),
-            dbias.data_ptr(), _pair_strides(dbias), b, h, n, dp, jc, chunks,
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"triplet_dense_bwd tiled launch failed with CUDA "
-                           f"error {rc}")
+    launch(_BWD_TILED, q, q_t.data_ptr(), k_t.data_ptr(), v_t.data_ptr(),
+           do_t.data_ptr(), bias_t.data_ptr(), dq_t.data_ptr(),
+           dk_t.data_ptr(), dv_t.data_ptr(), stats.data_ptr(),
+           partial.data_ptr(), dbias.data_ptr(), _pair_strides(dbias), b, h,
+           n, dp, jc, chunks)
     return (from_head_major(dq_t, Q_ORDER, d),
             from_head_major(dk_t, KV_ORDER, d),
             from_head_major(dv_t, KV_ORDER, d), dbias, None)
 
 
-def _count(wrapper, rate: float) -> None:
-    """One more launch on the card, counted apart at rate > 0."""
-    if rate > 0.0:
-        wrapper.dropout_launches += 1
-    else:
-        wrapper.launches += 1
+def _counter(n: int, rate: float) -> str:
+    """The counter a call on the card counts under: ``tiled_launches`` past
+    ``MAX_NODES``, else ``dropout_launches`` at rate > 0, else
+    ``launches``."""
+    if tiled(n):
+        return "tiled_launches"
+    return "dropout_launches" if rate > 0.0 else "launches"
 
 
+def _outer_strides(*tensors):
+    """The three outer element strides of each tensor, in order."""
+    return strides([s for t in tensors for s in t.stride()[:3]])
+
+
+# calls on the card, read by chip_smoke.py and h100bench: at rate 0, at > 0
+# (n <= MAX_NODES), and the key-tiled route's past MAX_NODES
+@counted("launches", "dropout_launches", "tiled_launches")
 def triplet_dense_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       bias: torch.Tensor,
                       gate: Optional[torch.Tensor] = None,
@@ -607,49 +526,31 @@ def triplet_dense_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return triplet_dense_fwd_reference(q, k, v, bias, gate, seed, rate)
     _check_kernel_limits(q, k, v, bias, gate, rate=rate)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (q, k, v, bias, gate)):
+    if records_grad((q, k, v, bias, gate)):
         raise RuntimeError("triplet_dense_fwd returns no gradient on the "
                            "card; call triplet_dense, which differentiates "
                            "through the backward kernel")
-    if tiled(q.shape[1]):
+    b, n, _, d, h = q.shape
+    if tiled(n):
         out = _fwd_tiled(q, k, v, bias)
-        triplet_dense_fwd.tiled_launches += 1
-        return out
-    if q.dtype == torch.bfloat16:
+    elif q.dtype == torch.bfloat16:
         if reads_in_place(q, k, v, bias, gate):
             out = _fwd_inplace(q, k, v, bias, gate, seed, rate)
         else:
             out = _fwd_mma(q, k, v, bias, gate, seed, rate)
-        _count(triplet_dense_fwd, rate)
-        return out
-    b, n, _, d, h = q.shape
-    gate_or_bias = bias if gate is None else gate
-    out = torch.empty((b, n, n, d, h), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 15)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *bias.stride()[:3], *gate_or_bias.stride()[:3])
-    seeds, thresh, scale = _dropout_args(seed, rate)
-    with torch.cuda.device(q.device):
-        rc = _fwd_kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            None if gate is None else gate.data_ptr(), out.data_ptr(),
-            seeds, thresh, scale, _DTYPE_CODES[q.dtype], b, n, d, h, strides,
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"triplet_dense_fwd kernel launch failed with "
-                           f"CUDA error {rc}")
-    _count(triplet_dense_fwd, rate)
+    else:
+        out = torch.empty((b, n, n, d, h), dtype=q.dtype, device=q.device)
+        seeds, thresh, scale = _dropout_args(seed, rate)
+        launch(_FWD, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               bias.data_ptr(), None if gate is None else gate.data_ptr(),
+               out.data_ptr(), seeds, thresh, scale, _DTYPE_CODES[q.dtype], b,
+               n, d, h,
+               _outer_strides(q, k, v, bias, bias if gate is None else gate))
+    count(triplet_dense_fwd, _counter(n, rate))
     return out
 
 
-# kernel launches on the card, read by chip_smoke.py: at rate 0, and at > 0
-# (n <= MAX_NODES), and the key-tiled route's calls past MAX_NODES
-triplet_dense_fwd.launches = 0
-triplet_dense_fwd.dropout_launches = 0
-triplet_dense_fwd.tiled_launches = 0
-
-
+@counted("launches", "dropout_launches", "tiled_launches")
 def triplet_dense_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       bias: torch.Tensor, gate: Optional[torch.Tensor],
                       dva: torch.Tensor, seed: Optional[torch.Tensor] = None,
@@ -664,44 +565,27 @@ def triplet_dense_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return triplet_dense_bwd_reference(q, k, v, bias, gate, dva, seed,
                                            rate)
     _check_kernel_limits(q, k, v, bias, gate, dva, rate)
-    if tiled(q.shape[1]):
-        grads = _bwd_tiled(q, k, v, bias, dva)
-        triplet_dense_bwd.tiled_launches += 1
-        return grads
-    if q.dtype == torch.bfloat16:
-        grads = _bwd_mma(q, k, v, bias, gate, dva, seed, rate)
-        _count(triplet_dense_bwd, rate)
-        return grads
     b, n, _, d, h = q.shape
-    dq = torch.empty((b, n, n, d, h), dtype=q.dtype, device=q.device)
-    dk, dv = torch.empty_like(dq), torch.empty_like(dq)
-    dbias = torch.empty((b, n, n, h), dtype=q.dtype, device=q.device)
-    dgate = None if gate is None else torch.empty_like(dbias)
-    gate_or_bias = bias if gate is None else gate
-    strides = (ctypes.c_longlong * 18)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *bias.stride()[:3], *gate_or_bias.stride()[:3], *dva.stride()[:3])
-    seeds, thresh, scale = _dropout_args(seed, rate)
-    with torch.cuda.device(q.device):
-        rc = _bwd_kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            None if gate is None else gate.data_ptr(), dva.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
-            None if dgate is None else dgate.data_ptr(),
-            seeds, thresh, scale, _DTYPE_CODES[q.dtype], b, n, d, h, strides,
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"triplet_dense_bwd kernel launch failed with "
-                           f"CUDA error {rc}")
-    _count(triplet_dense_bwd, rate)
-    return dq, dk, dv, dbias, dgate
-
-
-# one per call on the card, read by chip_smoke.py: at rate 0, and at > 0
-# (n <= MAX_NODES), and the key-tiled route's calls past MAX_NODES
-triplet_dense_bwd.launches = 0
-triplet_dense_bwd.dropout_launches = 0
-triplet_dense_bwd.tiled_launches = 0
+    if tiled(n):
+        grads = _bwd_tiled(q, k, v, bias, dva)
+    elif q.dtype == torch.bfloat16:
+        grads = _bwd_mma(q, k, v, bias, gate, dva, seed, rate)
+    else:
+        dq = torch.empty((b, n, n, d, h), dtype=q.dtype, device=q.device)
+        dk, dv = torch.empty_like(dq), torch.empty_like(dq)
+        dbias = torch.empty((b, n, n, h), dtype=q.dtype, device=q.device)
+        dgate = None if gate is None else torch.empty_like(dbias)
+        seeds, thresh, scale = _dropout_args(seed, rate)
+        launch(_BWD, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               bias.data_ptr(), None if gate is None else gate.data_ptr(),
+               dva.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+               dbias.data_ptr(), None if dgate is None else dgate.data_ptr(),
+               seeds, thresh, scale, _DTYPE_CODES[q.dtype], b, n, d, h,
+               _outer_strides(q, k, v, bias, bias if gate is None else gate,
+                              dva))
+        grads = dq, dk, dv, dbias, dgate
+    count(triplet_dense_bwd, _counter(n, rate))
+    return grads
 
 
 class TripletDenseCore(torch.autograd.Function):

@@ -33,10 +33,10 @@ weight, rows indexed (d, 2h), is cut into the in-heads ``[:, :h]`` and
 out-heads ``[:, h:]`` and contracted straight out of each direction's
 (b, j, i, d, h) output; one transpose of axes 1 and 2 at the end restores
 (b, i, j, W). The aggregate variants' no-grad forward on the dense core
-folds it instead (``ops/common.aggregate_epilogue_route``): the core writes
-each direction into its half of one (b, i, j, 2, d, h) buffer, and one
-GEMM with the bias, whose weight's columns are put in that order as it is
-cast, returns (b, i, j, W) contiguous.
+folds it instead (:func:`epilogue_route`): the core writes each direction
+into its half of one (b, i, j, 2, d, h) buffer, and one GEMM with the bias,
+whose weight's columns are put in that order as it is cast, returns
+(b, i, j, W) contiguous.
 
 The attention variants name their values for selective remat where
 tgt_tpu does (``ops/remat.py``): q, k, v, bias and gate ``tri_proj`` and
@@ -48,6 +48,7 @@ The registry accepts the reference's ``tiangular_update`` typo.
 from __future__ import annotations
 
 import functools
+import itertools
 import warnings
 from typing import Callable, Dict, Optional
 
@@ -55,11 +56,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tgt_torch.ops.common import (Generators, aggregate_epilogue_route,
-                                  dropout, layernorm, linear, randint, siglin)
+from tgt_torch.ops.common import (Generators, dropout, layernorm, linear,
+                                  randint, siglin)
 from tgt_torch.ops.remat import checkpoint_name
+from tgt_torch.ops.kernels._build import records_grad
 from tgt_torch.ops.kernels.triplet_aggregate import (
-    BODY_GROUP, fwd_route, triplet_aggregate_core,
+    takes_pair_buffer, triplet_aggregate_core,
     triplet_aggregate_fwd_reference)
 from tgt_torch.ops.kernels.triplet_attention import triplet_attention_fused
 from tgt_torch.ops.kernels.triplet_dense import (dense_weights, triplet_dense,
@@ -184,6 +186,22 @@ def _plain_core(q, k, v, bias, gate, seed=None, rate=0.0, generator=None):
     return torch.einsum("bjhik,bjkdh->bjidh", a, v.float()).to(q.dtype)
 
 
+def epilogue_route(dense: bool, grad: bool, a: torch.Tensor,
+                   v: torch.Tensor) -> str:
+    """How :class:`TripletAggregate` ends a call, from what it can observe:
+    ``"fold"`` (each direction's k-aggregation writes its half of one
+    (b, i, j, 2, d, h) buffer, which one ``lin_O`` GEMM with its bias reads)
+    on the ``dense`` core where autograd records nothing (``grad`` False)
+    and the in direction's ``(a, v)`` takes the buffer
+    (:func:`takes_pair_buffer`); ``"split"`` (a contraction per direction,
+    their sum, the pair transpose and the bias) for everything else:
+    training and remat's replay, the plain core, f32 and shapes outside the
+    body on the card."""
+    if dense and not grad and takes_pair_buffer(a, v):
+        return "fold"
+    return "split"
+
+
 class TripletAggregate(nn.Module):
     """Gated (``lin_EG``) or ungated (``lin_E``) triplet aggregation
     (tgt_tpu/ops/triplet.py:109-214, triplet_dense.py:543-610).
@@ -243,15 +261,8 @@ class TripletAggregate(nn.Module):
         # each direction's weights are made as its core needs them, so that
         # the two never live at once where autograd records nothing
         a = weights(e_in, g_in, False, True)
-        grad = torch.is_grad_enabled() and (
-            e.requires_grad or any(p.requires_grad for p in self.parameters()))
-        # the buffer's halves meet out's contract where H is a multiple of
-        # 8, and on the card both directions must take the body: the out
-        # direction's v is the in direction's pair-transposed view (the same
-        # dtype, shape and set of strides) and its weights a new tensor as
-        # a is, so it takes the in direction's route
-        takes_out = h % BODY_GROUP == 0 and fwd_route(a, v_in) != "panel"
-        if aggregate_epilogue_route(dense, takes_out, grad) == "fold":
+        grad = records_grad(itertools.chain((e,), self.parameters()))
+        if epilogue_route(dense, grad, a, v_in) == "fold":
             # va[b, j, i, d, h] of direction t goes to buf[b, i, j, t, d, h]:
             # each direction's (d, h) of a pair is one contiguous run
             buf = torch.empty((b, n, n, 2, d, h), dtype=e.dtype,
