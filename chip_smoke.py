@@ -4,18 +4,20 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 2,2b,2t   # phase 1 and the phases named
     python3 chip_smoke.py --layernorm        # as --phases 2n,5n
+    python3 chip_smoke.py --phases 2j,5j     # the residual junction
 
 Phases, each of which fails the run (non-zero exit) on error:
 
 1. Environment and build: versions, the card's name and power limit, and
-   the build of the seven CUDA kernel sources of the package from this
+   the build of the eight CUDA kernel sources of the package from this
    checkout (``nvcc`` for sm_90a, one process per source, started
    together), with each kernel's ptxas report (registers and spill bytes
    per function); a spill in any tensor-core body (the attention backward
    ``triplet_bwd_mma.cuh``, the attention forward ``triplet_fwd_mma.cuh``,
    the aggregate bodies in ``triplet_aggregate_bwd.cu`` and
-   ``triplet_aggregate_fwd.cu``) or in the layer norm
-   (``layernorm_fwd.cu``) fails the run.
+   ``triplet_aggregate_fwd.cu``), in the layer norm
+   (``layernorm_fwd.cu``) or in the residual junction
+   (``residual_fwd.cu``) fails the run.
 2. Kernel against plain: ``triplet_dense_fwd`` against its plain PyTorch
    version on the card at b=16, N in {24, 40, 48, 56}, edge width 256,
    16 triplet heads; gated and ungated; bf16 and f32; plus the training
@@ -124,6 +126,18 @@ Phases, each of which fails the run (non-zero exit) on error:
    yardstick), against the bound (x read and y written once at 3.35 TB/s);
    and the host microseconds a call of ``ops/common.layernorm`` takes
    through each route, on an input too small to hold the host back.
+2j. The one-pass residual junction (``residual_fwd``,
+   csrc/residual_fwd.cu) through ``ops/common.residual`` against the
+   composite it replaces in the no-grad forward (``x + drop_path(y)``) on
+   the same draws: a served forward's 160 draw-stacked rows (10
+   generators) at buckets 24-56, edge (width 256) and node (N x 768), and
+   b=64 and 128 at N=48 under one generator; drop-path rates 0, 0.1 / 11
+   and 0.1 and a deterministic call, and at bucket 24 every rate of the
+   published ramps (34); bf16 and fp16: bitwise equal to the
+   composite (signed zeros included) and on repeat, one launch a call; in
+   bf16 at rates 0 and 0.1, per call and back to back, the kernel alone,
+   the junction (draw and kernel) and the composite, against the bound (x
+   and y read and out written once at 3.35 TB/s).
 3. Serving at full width: the flagship TGT-At distance model of
    configs/pcqm/tgt_at_200m/dist_pred/tgt_at_dp_rdkit.yaml (24 layers,
    node 768, edge 256, 64 heads, 16 triplet heads, 256 bins, bf16) with
@@ -185,6 +199,13 @@ Phases, each of which fails the run (non-zero exit) on error:
    forward takes the kernel (its ``launches`` equal the calls), a profiled
    request runs no PyTorch layer-norm kernel, and the two routes'
    probabilities agree within a mean total variation of 0.005.
+5j. A served TGT-Agx2 request of one molecule under ``mc_mode`` vmap at
+   buckets 24 and 56, through the residual kernel and through the
+   composite in turns, on the same draw seeds: the model's logits bitwise
+   equal, every junction through the kernel (116 launches a request), as
+   many ``resf::`` kernels in a profiled request, and each route's request
+   ms, launches and device ms (all, PyTorch's generic elementwise kernel,
+   the junction's kernel) of the same molecule.
 4r. The remat policies and IndivConfig at full width and depth: the
    flagship TGT-At config trains 3 optimizer steps of one micro-batch of
    32 (N up to 48, bf16) under each ``remat_policy`` (``none``, ``dots``,
@@ -341,7 +362,8 @@ Phases, each of which fails the run (non-zero exit) on error:
    calls, bytes and ms per step (CUDA events around each), each rank's
    peak memory against one process's, and the transport's name.
 8. The kernels line (six kernels, then the layer norm's entry from
-   phases 2n and 5n; launches by path, with the vmap paths
+   phases 2n and 5n and the residual junction's from 2j and 5j; launches
+   by path, with the vmap paths
    ``serving_vmap`` (TGT-At; TGT-Agx2's aggregate forward),
    ``serving_dropout_vmap`` (Path D), ``serving_legacy_vmap`` (Path L),
    ``evaluate_vmap`` and ``two_stage_vmap`` (phase 7v), the forward rows
@@ -426,8 +448,10 @@ def emit(row: dict) -> None:
 # namespace tbwd), the attention forward (triplet_fwd_mma.cuh, namespace
 # tfwd), the aggregate backward (triplet_aggregate_bwd.cu, namespace tagb)
 # and the aggregate forward (triplet_aggregate_fwd.cu, namespace tagf);
-# and the layer norm (layernorm_fwd.cu, namespace lnfwd)
-BODY_PREFIXES = ("_ZN4tbwd", "_ZN4tfwd", "_ZN4tagb", "_ZN4tagf", "_ZN5lnfwd")
+# and the one-pass layer norm and residual junction (layernorm_fwd.cu,
+# namespace lnfwd; residual_fwd.cu, namespace resf)
+BODY_PREFIXES = ("_ZN4tbwd", "_ZN4tfwd", "_ZN4tagb", "_ZN4tagf", "_ZN5lnfwd",
+                 "_ZN4resf")
 
 
 def ptxas_report(log: str) -> list:
@@ -1949,13 +1973,15 @@ def layernorm_phase(card):
 
 
 @contextlib.contextmanager
-def layernorm_routes(force_composite: bool = False):
-    """Count ``ops/common.layernorm``'s calls by route (its route is asked
-    once a call); with ``force_composite``, send every call to the
-    composite, as before the kernel existed."""
+def routes(name: str, force_composite: bool = False):
+    """Count the calls of ``ops/common.<name>`` (``layernorm`` or
+    ``residual``) by route (its route, ``<name>_route``, is asked once a
+    call); with ``force_composite``, send every call to the composite, as
+    before the kernel existed."""
     from tgt_torch.ops import common
 
-    saved = common.layernorm_route
+    attr = f"{name}_route"
+    saved = getattr(common, attr)
     counts = {"kernel": 0, "composite": 0}
 
     def route(*args):
@@ -1963,11 +1989,11 @@ def layernorm_routes(force_composite: bool = False):
         counts[r] += 1
         return r
 
-    common.layernorm_route = route
+    setattr(common, attr, route)
     try:
         yield counts
     finally:
-        common.layernorm_route = saved
+        setattr(common, attr, saved)
 
 
 def layernorm_host_cost(card):
@@ -1983,7 +2009,7 @@ def layernorm_host_cost(card):
     us = {"composite": [], "kernel": []}
     with torch.inference_mode():
         for route in ("composite", "kernel", "kernel", "composite") * 2:
-            with layernorm_routes(route == "composite"):
+            with routes("layernorm", route == "composite"):
                 for _ in range(50):
                     common.layernorm(ln, x)
                 torch.cuda.synchronize()
@@ -2031,7 +2057,7 @@ def served_layernorm_phase(card, spec: ModelSpec):
         mols = [random_molecule(rs, n)]
         nb = pick_bucket(n, buckets)
         for force in (True, False):
-            with layernorm_routes(force):
+            with routes("layernorm", force):
                 pred.predict(mols)                      # warm
         torch.cuda.synchronize()
         ms = {"composite": [], "kernel": []}
@@ -2039,7 +2065,7 @@ def served_layernorm_phase(card, spec: ModelSpec):
         for route in ("composite", "kernel", "kernel", "composite"):
             before = lnk.layernorm_fwd.launches
             pred._seeds.manual_seed(n)          # the same dropout masks
-            with layernorm_routes(route == "composite") as counts:
+            with routes("layernorm", route == "composite") as counts:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 got[route] = pred.predict(mols)
@@ -2050,7 +2076,7 @@ def served_layernorm_phase(card, spec: ModelSpec):
             if counts[route] != calls or launched != want:
                 fail(f"bucket {nb}, {route}: {counts} layer-norm calls by "
                      f"route, {launched} kernel launches")
-        with layernorm_routes() as counts, profile(
+        with routes("layernorm") as counts, profile(
                 activities=[ProfilerActivity.CUDA]) as prof:
             before = lnk.layernorm_fwd.launches
             pred.predict(mols)
@@ -2076,6 +2102,260 @@ def served_layernorm_phase(card, spec: ModelSpec):
         if not row["ok"]:
             fail(f"served layer norms at bucket {nb}: {row}")
         out[f"n{nb}"] = launched
+    del pred, model
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phases 2j and 5j: the residual junction in one pass ----------------------
+
+# (name, residual shape, draws stacked into its rows or None for one
+# generator): a served forward's 160 draw-stacked rows (10 draws x 16) over
+# buckets 24-56, edge (width 256) and node (N x 768), and the CLI
+# evaluate's b=64 and stage 2's b=128 at N=48 under one generator
+RES_CASES = ([("serve edge", (160, n, n, 256), 10) for n in (24, 32, 40, 48, 56)]
+             + [("serve node", (160, n, 768), 10)
+                for n in (24, 32, 40, 48, 56)]
+             + [("eval edge", (b, 48, 48, 256), None) for b in (64, 128)])
+# drop-path rates: layer 0's, layer 1's and layer 11's of the ramp, and a
+# deterministic call (None)
+RES_RATES = (0.0, 0.1 / 11, 0.1, None)
+RES_SERVED_SIZES = (20, 56)  # one molecule per request: buckets 24 and 56
+# every rate of the published ramps (TGT-Agx2's 0.1 i / 11, TGT-At's
+# 0.2 i / 23): the f32 reciprocal of the keep probability that PyTorch
+# multiplies by rounds differently at some of them
+RES_RAMP = sorted({0.1 * i / 11 for i in range(1, 12)}
+                  | {0.2 * i / 23 for i in range(1, 24)})
+
+
+def res_generators(draws, seed):
+    """One CUDA generator, or a tuple of ``draws`` of them, from ``seed``."""
+    if draws is None:
+        return torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.Generator(device="cuda").manual_seed(seed + s)
+                 for s in range(draws))
+
+
+def res_composite(x, y, rate, deterministic, generator):
+    """The junction as the encoder added it before it had a route: five
+    launches besides the draw where the rate is above 0."""
+    from tgt_torch.ops import common
+    return x + common.drop_path(y, rate, deterministic, generator)
+
+
+def residual_phase(card):
+    """Phase 2j: ``residual_fwd`` through ``ops/common.residual`` against
+    the composite at the main paths' shapes, rates and dtypes, on the same
+    draws: bitwise equal (signed zeros included), one launch a call,
+    bitwise equal on repeat; in bf16 at rate 0.1 and at rate 0, per call
+    and back to back, the kernel alone (its draw made beforehand), the
+    junction (draw and kernel) and the composite, against the bound (x and
+    y read and out written once at 3.35 TB/s). Returns the timed rows by
+    case."""
+    from tgt_torch.ops import common
+    from tgt_torch.ops.kernels import residual as rk
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = {}
+    for name, shape, draws in RES_CASES:
+        for dtype in (torch.bfloat16, torch.float16):
+            x = (torch.randn(shape, device="cuda", generator=gen) * 3).to(dtype)
+            y = (torch.randn(shape, device="cuda", generator=gen) * 2).to(dtype)
+            x.view(-1)[:4] = torch.tensor([0.0, -0.0, -0.0, 0.0])
+            y.view(-1)[:4] = torch.tensor([0.0, 0.0, -0.0, -1.0])
+            for rate in RES_RATES:
+                det = rate is None
+                r = 0.1 if det else rate
+                with torch.inference_mode():
+                    before = rk.residual_fwd.launches
+                    got = common.residual(x, y, r, det,
+                                          res_generators(draws, 5))
+                    again = common.residual(x, y, r, det,
+                                            res_generators(draws, 5))
+                    launches = rk.residual_fwd.launches - before
+                    want = res_composite(x, y, r, det,
+                                         res_generators(draws, 5))
+                torch.cuda.synchronize()
+                row = {"phase": "2j", "case": name, "shape": list(shape),
+                       "dtype": dtype_name(dtype), "rate": rate,
+                       "card": card, "launches": launches,
+                       "bitwise_equal_composite": torch.equal(got, want) and
+                       torch.equal(torch.signbit(got), torch.signbit(want)),
+                       "bitwise_equal_repeat": torch.equal(got, again),
+                       "unequal_elements": int((got != want).sum())}
+                if dtype == torch.bfloat16 and rate in (0.0, 0.1):
+                    row.update(residual_times(x, y, rate, draws))
+                row["ok"] = (launches == 2 and row["bitwise_equal_composite"]
+                             and row["bitwise_equal_repeat"])
+                emit(row)
+                if not row["ok"]:
+                    fail(f"residual_fwd at {name} {shape} rate {rate}: {row}")
+                if "device_ms" in row:
+                    rows[f"{name} {shape} rate {rate}"] = row
+                del got, again, want
+            if shape[1] == 24 and draws:
+                residual_ramp(card, name, x, y, draws)
+            del x, y
+            torch.cuda.empty_cache()
+    return rows
+
+
+def residual_ramp(card, name, x, y, draws):
+    """The kernel against the composite at every rate of the published
+    drop-path ramps, on one shape: one row, which fails the phase unless
+    every rate is bitwise equal."""
+    from tgt_torch.ops import common
+
+    unequal = {}
+    with torch.inference_mode():
+        for rate in RES_RAMP:
+            got = common.residual(x, y, rate, False, res_generators(draws, 9))
+            want = res_composite(x, y, rate, False, res_generators(draws, 9))
+            if not (torch.equal(got, want) and torch.equal(
+                    torch.signbit(got), torch.signbit(want))):
+                unequal[rate] = int((got != want).sum())
+    row = {"phase": "2j ramp", "case": name, "shape": list(x.shape),
+           "dtype": dtype_name(x.dtype), "card": card, "rates": len(RES_RAMP),
+           "unequal_by_rate": unequal, "ok": not unequal}
+    emit(row)
+    if not row["ok"]:
+        fail(f"residual_fwd across the ramps at {name}: {row}")
+
+
+def residual_times(x, y, rate, draws):
+    """Per call and back to back: the kernel alone on a draw made
+    beforehand, the junction through ``ops/common.residual`` (draw and
+    kernel) and the composite, with the bound."""
+    from tgt_torch.ops import common
+    from tgt_torch.ops.kernels import residual as rk
+
+    gens = res_generators(draws, 5)
+    u = None
+    if rate > 0:
+        u = common.rand((x.shape[0],) + (1,) * (x.dim() - 1), gens, "cuda")
+    with torch.inference_mode():
+        kernel = lambda: rk.residual_fwd(x, y, u, 1.0 - rate)
+        junction = lambda: common.residual(x, y, rate, False, gens)
+        composite = lambda: res_composite(x, y, rate, False, gens)
+        out = {"bound_ms": 3 * x.numel() * x.element_size()
+               / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+               "ms": time_ms(kernel), "device_ms": device_ms(kernel),
+               "junction_ms": time_ms(junction),
+               "junction_device_ms": device_ms(junction),
+               "composite_ms": time_ms(composite),
+               "composite_device_ms": device_ms(composite)}
+    out["bound_share"] = out["bound_ms"] / out["device_ms"]
+    return out
+
+
+def served_residual_phase(card, spec: ModelSpec):
+    """Phase 5j: a served vmap request of one molecule (10 draws, 160 rows)
+    at buckets 24 and 56, through the kernel and through the composite in
+    turns (composite, kernel, kernel, composite) on the same draw seeds:
+    the model's logits bitwise equal between the routes, every junction
+    through the kernel (116 launches a request: 11 layers x 2 applications
+    x 5, and 2 x 3 in the edge-only last layer), a profiled request
+    launching as many ``resf::`` kernels; each
+    route's request ms and launches in a profiled request. Returns the
+    kernel's launches per request by bucket."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tgt_torch.data.collate import pick_bucket
+    from tgt_torch.models import make_model
+    from tgt_torch.ops.kernels import residual as rk
+    from tgt_torch.schemes import get_scheme
+    from tgt_torch.serving import DistancePredictor
+
+    raw = load_config(spec)
+    scheme = get_scheme(raw["scheme"])(raw, command="evaluate")
+    cfg = scheme.model_cfg
+    buckets = tuple(scheme.cfg.buckets)
+    mc = scheme.cfg.evaluation_samples
+    model = make_model("distance", cfg, device="cuda", seed=0)
+    pred = DistancePredictor(model, cfg, mc_samples=mc, batch_size=16,
+                             buckets=buckets, seed=0, device="cuda",
+                             mc_mode="vmap")
+    logits = []
+    hook = model.register_forward_hook(
+        lambda mod, args, out: logits.append(out.detach().clone()))
+    # 2 junctions a node update, 2 an edge update and 1 its triplet layer;
+    # the distance model's last layer updates the edges alone (116 for
+    # TGT-Agx2: 11 x 2 x 5 + 2 x 3)
+    ecfg = model.encoder.cfg
+    junctions = ecfg.layer_multiplier * sum(
+        2 * node + (2 + ecfg.layer_cfg(i).triplet_enabled) * edge
+        for i, (node, edge) in enumerate(map(ecfg.layer_updates,
+                                             range(ecfg.model_height))))
+    rs = np.random.RandomState(7)
+    out = {}
+    try:
+        for n in RES_SERVED_SIZES:
+            mols = [random_molecule(rs, n)]
+            nb = pick_bucket(n, buckets)
+            for force in (True, False):
+                with routes("residual", force):
+                    pred.predict(mols)                  # warm
+            torch.cuda.synchronize()
+            ms = {"composite": [], "kernel": []}
+            got = {"composite": [], "kernel": []}
+            for route in ("composite", "kernel", "kernel", "composite"):
+                before = rk.residual_fwd.launches
+                pred._seeds.manual_seed(n)          # the same dropout masks
+                logits.clear()
+                with routes("residual", route == "composite") as counts:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    pred.predict(mols)
+                    ms[route].append((time.perf_counter() - t0) * 1e3)
+                got[route].append(torch.cat([t.flatten() for t in logits]))
+                launched = rk.residual_fwd.launches - before
+                calls = counts["kernel"] + counts["composite"]
+                want = calls if route == "kernel" else 0
+                if (counts[route] != calls or launched != want
+                        or calls != junctions):
+                    fail(f"bucket {nb}, {route}: {counts} junctions by "
+                         f"route, {launched} kernel launches, want "
+                         f"{junctions}")
+            traced = {}
+            for route in ("composite", "kernel"):
+                with routes("residual", route == "composite"), profile(
+                        activities=[ProfilerActivity.CUDA]) as prof:
+                    before = rk.residual_fwd.launches
+                    pred.predict(mols)
+                    torch.cuda.synchronize()
+                ops = [(e.name, e.time_range.end - e.time_range.start)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and not e.name.startswith(("Memcpy", "Memset"))]
+                names = [k for k, _ in ops]
+                traced[route] = {
+                    "launches": len(names),
+                    "resf_kernels": sum("resf::" in k for k in names),
+                    "counted": rk.residual_fwd.launches - before,
+                    # device ms of the request, of PyTorch's generic
+                    # elementwise kernel and of the kernel
+                    "device_ms": sum(us for _, us in ops) / 1e3,
+                    "strided_ms": sum(us for k, us in ops
+                                      if "::elementwise_kernel<128, 4" in k)
+                    / 1e3,
+                    "resf_ms": sum(us for k, us in ops if "resf::" in k)
+                    / 1e3}
+            ref = got["composite"][0]
+            equal = all(torch.equal(t, ref) for ts in got.values() for t in ts)
+            row = {"phase": "5j", "path": spec.name, "bucket": nb,
+                   "draws": mc, "card": card, "junctions": junctions,
+                   "logits_bitwise_equal": equal, "traced": traced,
+                   "launch_delta": traced["composite"]["launches"]
+                   - traced["kernel"]["launches"], "request_ms": ms}
+            row["ok"] = (equal and traced["kernel"]["resf_kernels"]
+                         == traced["kernel"]["counted"] == junctions
+                         and traced["composite"]["resf_kernels"] == 0)
+            emit(row)
+            if not row["ok"]:
+                fail(f"served residual junctions at bucket {nb}: {row}")
+            out[f"n{nb}"] = traced["kernel"]["counted"]
+    finally:
+        hook.remove()
     del pred, model
     torch.cuda.empty_cache()
     return out
@@ -5133,6 +5413,7 @@ def main(only=None) -> int:
     ln = phase("2n layer-norm kernel", layernorm_phase, card)
     if ln is not None:
         ln["host"] = layernorm_host_cost(card)
+    res = phase("2j residual-junction kernel", residual_phase, card)
 
     served, trained = {}, {}
     for tag, spec in (("3", at), ("3d", at_d), ("3l", at_l),
@@ -5150,6 +5431,8 @@ def main(only=None) -> int:
         fail(f"a served path never launched its triplet kernel: {served}")
     ln_served = phase("5n TGT-Agx2 served layer norms",
                       served_layernorm_phase, card, agx2)
+    res_served = phase("5j TGT-Agx2 served residual junctions",
+                       served_residual_phase, card, agx2)
     remat = phase("4r TGT-At remat policies", remat_policy_phase, card, at)
     indiv = phase("4r TGT-At IndivConfig serving", indiv_serving_phase, card,
                   at)
@@ -5300,6 +5583,7 @@ def main(only=None) -> int:
               legacy_bwd[FLAGSHIP], legacy_bwd[UNGATED],
               legacy_bwd[UNGATED_TRAIN]),
         layernorm_entry(ln, ln_served),
+        residual_entry(res, res_served),
     ]})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5323,6 +5607,21 @@ def layernorm_entry(rows, served) -> dict:
                         if k.endswith("_median")},
             "shapes": {name: {k: row.get(k) for k in keep}
                        for name, row in rows.items() if name != "host"}}
+
+
+def residual_entry(rows, served) -> dict:
+    """The residual junction's entry of the kernels line."""
+    from tgt_torch.ops.kernels import residual as rk
+
+    keep = ("shape", "dtype", "rate", "ms", "device_ms", "junction_ms",
+            "junction_device_ms", "composite_ms", "composite_device_ms",
+            "bound_ms", "bound_by", "bound_share")
+    return {"name": "residual_fwd", "route": "cuda",
+            "source": rk.KERNEL_SOURCE, "replaces": rk.REPLACES,
+            "launches_by_path": {f"serving_vmap_{k}": v
+                                 for k, v in served.items()},
+            "shapes": {name: {k: row.get(k) for k in keep}
+                       for name, row in rows.items()}}
 
 
 if __name__ == "__main__":

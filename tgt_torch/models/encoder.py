@@ -53,7 +53,7 @@ from tgt_torch.core.graph import Graph
 from tgt_torch.models.model_config import TGTConfig
 from tgt_torch.ops.attention import EdgeUpdate, EGTAttention
 from tgt_torch.ops import remat as remat_policies
-from tgt_torch.ops.common import Generators, drop_path
+from tgt_torch.ops.common import Generators, residual
 from tgt_torch.ops.ffn import FFN
 from tgt_torch.ops.triplet import get_triplet_module
 
@@ -94,30 +94,32 @@ class TGTLayer(nn.Module):
         cfg = self.cfg
         h, e, mask = g.h, g.e, g.mask
 
-        def dp(x):
-            return drop_path(x, drop_path_rate, deterministic, generator)
+        def add(x, update):
+            # x + drop_path(update), the mask drawn after the update's own
+            return residual(x, update, drop_path_rate, deterministic,
+                            generator)
 
         if self.node_update:
             h_up, e_up = self.update(
                 h, e, mask, scale_degree=cfg.scale_degree,
                 source_dropout=cfg.source_dropout,
                 deterministic=deterministic, generator=generator)
-            h = h + dp(h_up)
-            h = h + dp(self.node_ffn(h, act_dropout=cfg.node_act_dropout,
+            h = add(h, h_up)
+            h = add(h, self.node_ffn(h, act_dropout=cfg.node_act_dropout,
                                      deterministic=deterministic,
                                      generator=generator))
         else:
             _, e_up = self.update(h, e, mask)
 
         if self.edge_update:
-            e = e + dp(e_up)
+            e = add(e, e_up)
             if cfg.triplet_enabled:
                 tri = self.tria(e, mask, attention_dropout=cfg.triplet_dropout,
                                 deterministic=deterministic,
                                 generator=generator,
                                 use_pallas=cfg.use_pallas)
-                e = e + dp(tri)
-            e = e + dp(self.edge_ffn(e, act_dropout=cfg.edge_act_dropout,
+                e = add(e, tri)
+            e = add(e, self.edge_ffn(e, act_dropout=cfg.edge_act_dropout,
                                      deterministic=deterministic,
                                      generator=generator))
         return g.copy(h=h, e=e)

@@ -8,7 +8,11 @@ Parameters live in ``torch.nn`` modules (``nn.Linear`` weights are
   kernel (``ops/kernels/layernorm.py``) where autograd records nothing and
   the kernel takes the call (:func:`layernorm_route`), else as three
   launches (widen, ``F.layer_norm``, narrow);
-- ``embedding`` clamps ids into [0, vocab-1] (``F.embedding`` would raise).
+- ``embedding`` clamps ids into [0, vocab-1] (``F.embedding`` would raise);
+- ``residual`` adds a sub-layer's update to the residual through
+  ``drop_path``: in one kernel (``ops/kernels/residual.py``) where autograd
+  records nothing and the kernel takes the call (:func:`residual_route`),
+  else as ``x + drop_path(update)``, with the same draws either way.
 
 Initialisation follows torch.nn's defaults, as tgt_tpu's does: Linear
 U(+-1/sqrt(fan_in)) for weight and bias, Embedding N(0, 1) with the padding
@@ -31,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tgt_torch.ops.kernels import layernorm as layernorm_kernel
+from tgt_torch.ops.kernels import residual as residual_kernel
 from tgt_torch.ops.kernels._build import records_grad
 
 LN_EPS = 1e-5  # torch.nn.LayerNorm default
@@ -179,10 +184,48 @@ def drop_path(x: torch.Tensor, rate: float, deterministic: bool,
     if deterministic or rate == 0.0:
         return x
     keep_prob = 1.0 - rate
-    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    u = rand(shape, generator, x.device)
-    keep = (u < keep_prob).to(x.dtype)
+    keep = (_per_sample_draw(x, generator) < keep_prob).to(x.dtype)
     return x / keep_prob * keep
+
+
+def _per_sample_draw(x: torch.Tensor, generator: Generators) -> torch.Tensor:
+    """Drop-path's uniform draw for x: one f32 number per sample, of shape
+    (b, 1, ..., 1)."""
+    return rand((x.shape[0],) + (1,) * (x.dim() - 1), generator, x.device)
+
+
+def residual_route(device_type: str, dtype: torch.dtype,
+                   shape: Sequence[int], matched: bool, grad: bool) -> str:
+    """How :func:`residual` runs a call, from what it can observe:
+    ``"kernel"`` (one launch of ``csrc/residual_fwd.cu``) for CUDA tensors
+    in bf16 or fp16 of a shape the kernel takes, ``matched`` (the update
+    has the residual's shape and dtype, both contiguous and 16-byte
+    aligned), where autograd records nothing (``grad`` False: the no-grad
+    forward of serving and evaluation); ``"composite"`` (``x +
+    drop_path(update)``) for everything else: training and remat's replay,
+    f32, the CPU."""
+    if (device_type == "cuda" and not grad and matched
+            and residual_kernel.takes(dtype, shape)):
+        return "kernel"
+    return "composite"
+
+
+def residual(x: torch.Tensor, update: torch.Tensor, rate: float,
+             deterministic: bool, generator: Generators) -> torch.Tensor:
+    """``x + drop_path(update, rate, deterministic, generator)``, drawing
+    the same per-sample mask from the same generators in the same order;
+    through the one-pass kernel where :func:`residual_route` says so, whose
+    output equals the composite's bit for bit on the card."""
+    matched = (update.shape == x.shape and update.dtype == x.dtype
+               and x.is_contiguous() and update.is_contiguous()
+               and x.data_ptr() % 16 == 0 and update.data_ptr() % 16 == 0)
+    if residual_route(x.device.type, x.dtype, x.shape, matched,
+                      records_grad((x, update))) == "kernel":
+        if deterministic or rate == 0.0:
+            return residual_kernel.residual_fwd(x, update)
+        return residual_kernel.residual_fwd(
+            x, update, _per_sample_draw(update, generator), 1.0 - rate)
+    return x + drop_path(update, rate, deterministic, generator)
 
 
 def siglin(gates: torch.Tensor, lins: torch.Tensor) -> torch.Tensor:

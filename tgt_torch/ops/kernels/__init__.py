@@ -9,6 +9,7 @@
 | ops/pallas/triplet_attention.py:_fwd_kernel         | triplet_attention.triplet_attention_fwd |
 | ops/pallas/triplet_attention.py:_bwd_kernel         | triplet_attention.triplet_attention_bwd |
 | none: ops/common.py:layernorm, which XLA fuses      | layernorm.layernorm_fwd   |
+| none: x + drop_path(update), which XLA fuses        | residual.residual_fwd     |
 
 ``triplet_dense.TripletDenseCore`` joins the first two as the custom VJP
 ``_dense_core`` does (its dropout hash ``_hash_keepf`` is
@@ -27,5 +28,7 @@ tensor-core pass (their partitions in plain PyTorch are
 in f32 and at shapes outside the bodies the panel loop (forward) and three
 CUDA-core kernels (backward). The layer norm replaces no Pallas kernel: it
 is the one pass that XLA fuses tgt_tpu's widen-normalise-narrow chain into,
-taken by ``ops/common.layernorm`` for the calls autograd does not record.
+taken by ``ops/common.layernorm`` for the calls autograd does not record;
+nor does the residual junction, the one pass of ``x + drop_path(update)``,
+taken by ``ops/common.residual`` on the same condition.
 """

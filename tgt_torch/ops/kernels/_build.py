@@ -37,7 +37,7 @@ BUILD_DIR = _PKG / "_build"
 # every kernel source of the package, csrc/<name>.cu
 LIBRARIES = ("triplet_dense_fwd", "triplet_dense_bwd", "triplet_aggregate_fwd",
              "triplet_aggregate_bwd", "triplet_attention_fwd",
-             "triplet_attention_bwd", "layernorm_fwd")
+             "triplet_attention_bwd", "layernorm_fwd", "residual_fwd")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
