@@ -29,6 +29,13 @@ _NODE_AXES = {
     "restype": (0,),
     "residue_index": (0,),
     "asym_id": (0,),
+    "target_feat": (0,),
+    "msa_feat": (1,),         # (S, N, ...): sequences, then residues
+    "msa_mask": (1,),
+    "extra_msa_feat": (1,),
+    "extra_msa_mask": (1,),
+    "true_msa": (1,),
+    "bert_mask": (1,),
 }
 
 DEFAULT_BUCKETS = (16, 24, 32, 48, 64)

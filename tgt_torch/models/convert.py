@@ -33,6 +33,11 @@ counterpart of ``python -m tgt_tpu.models.convert``, with the same
 
 Point ``pretrained_weights_file`` at the ``.npz``, or put it in a model
 dir as ``checkpoint/model.npz``: either package reads it.
+
+The structure models (the Pairformer and the Evoformer, whose configs are
+not a ``TGTConfig``) have no tgt_tpu counterpart: their tree is flat, one
+array per state_dict key, which ``save_pytree`` and ``load_jax_npz`` keep
+as it is.
 """
 from __future__ import annotations
 
@@ -90,6 +95,8 @@ def _index(tree: Mapping[str, Any], i: int) -> Dict[str, Any]:
 def state_dict_from_jax_params(params: Mapping[str, Any],
                                cfg: TGTConfig) -> Dict[str, torch.Tensor]:
     """tgt_tpu params tree (numpy leaves) -> the port's state_dict."""
+    if not isinstance(cfg, TGTConfig):              # a structure model
+        return {k: _tensor(v) for k, v in params.items()}
     out: Dict[str, torch.Tensor] = {}
     for top, sub in params.items():
         if top == "input_embed":
@@ -150,6 +157,8 @@ def jax_params_from_state_dict(state_dict: Mapping[str, torch.Tensor],
     itself, or its kind, built on the meta device. The kinds differ in
     the last layer (the distance model's QK-only edge update, the gap
     model's node-only layer)."""
+    if not isinstance(cfg, TGTConfig):              # a structure model
+        return {k: t.detach().cpu().numpy() for k, t in state_dict.items()}
     modules = _modules_of(model, cfg)
     m3d = {v: k for k, v in _M3D_GAUSSIAN_MAP.items()}
     h = cfg.model_height

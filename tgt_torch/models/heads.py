@@ -10,7 +10,10 @@ As the reference task heads
 - multi: an encoder ended on both channels with both heads; returns
   (gap, dist_logits);
 - pairformer: AlphaFold 3's Pairformer trunk and distogram head
-  (``models/pairformer.py``), built from a ``PairformerConfig``.
+  (``models/pairformer.py``), built from a ``PairformerConfig``;
+- evoformer: AlphaFold 2's Evoformer trunk with its extra-MSA stack and
+  its distogram and masked-MSA heads (``models/evoformer.py``), built from
+  an ``EvoformerConfig``.
 
 ``seed`` is one seed, or a sequence of S seeds for a draw-stacked batch:
 S MC draws of b molecules as one batch of S*b rows, row ``s*b + r`` draw s
@@ -33,6 +36,7 @@ from tgt_torch.core.device import resolve_device
 from tgt_torch.models import consts as C
 from tgt_torch.models.embedding import EmbedInput
 from tgt_torch.models.encoder import Seeds, TGTEncoder
+from tgt_torch.models.evoformer import EvoformerModel
 from tgt_torch.models.model_config import TGTConfig
 from tgt_torch.models.pairformer import PairformerModel
 from tgt_torch.ops.common import init_module_, layernorm, linear
@@ -128,14 +132,15 @@ class MultiModel(_TaskModel):
 
 
 MODELS = {"distance": DistanceModel, "gap": GapModel, "multi": MultiModel,
-          "pairformer": PairformerModel}
+          "pairformer": PairformerModel, "evoformer": EvoformerModel}
 
 
 def make_model(name: str, cfg, *, device=None,
                seed: int = 0) -> nn.Module:
     """Build task model ``name`` with weights initialised from ``seed``, on
     the card unless ``device`` names another device: a ``TGTConfig`` for
-    the TGT models, a ``PairformerConfig`` for ``pairformer``."""
+    the TGT models, a ``PairformerConfig`` for ``pairformer``, an
+    ``EvoformerConfig`` for ``evoformer``."""
     if name not in MODELS:
         raise ValueError(f"unknown model '{name}'; available: {list(MODELS)}")
     device = resolve_device(device)

@@ -1,12 +1,14 @@
 """AlphaFold 3's triangle updates of the pair representation and its single
 attention with pair bias (Abramson et al., Nature 630:493, 2024,
 Supplementary Algorithms 12-15 and 24), for the Pairformer
-(``models/pairformer.py``). ``tgt_tpu`` has no counterpart.
+(``models/pairformer.py``) and the Evoformer (``models/evoformer.py``).
+``tgt_tpu`` has no counterpart.
 
 - :class:`TriangleMultiplication` (Algorithms 12, 13): gated projections
   a, b of the normalised pair, masked by the pair mask, contracted over
   the third node by :func:`triangle_contract` (one batched matrix product
   per channel through cuBLAS), normalised, projected and gated.
+
 - :class:`TriangleAttention` (Algorithms 14, 15) runs on the dense triplet
   core, ``out[b, r, c] = sum_k softmax_k(q[c, r].k[r, k] + bias[c, k])
   v[r, k]`` (``ops/kernels/triplet_dense.py``), ungated, with AlphaFold's
@@ -27,6 +29,11 @@ Supplementary Algorithms 12-15 and 24), for the Pairformer
 Head layouts: the triangle attention's q, k, v and gate split their
 ``d * H`` channels as (d, h), the core's layout; the single attention's
 ``H * c`` channels as (h, c).
+
+``bias=True`` gives AlphaFold 2's versions of both (Jumper et al., Nature
+596:583, 2021, Supplementary Algorithms 11-14), whose projections carry
+biases: the triangle multiplication's a, b, gates and output, the triangle
+attention's gate and output. AlphaFold 3's are bias-free (the default).
 """
 from __future__ import annotations
 
@@ -52,17 +59,17 @@ def triangle_contract(a: torch.Tensor, b: torch.Tensor,
 
 class TriangleMultiplication(nn.Module):
     def __init__(self, pair_width: int, hidden: int, outgoing: bool,
-                 device=None):
+                 bias: bool = False, device=None):
         super().__init__()
         self.outgoing = outgoing
         self.ln_in = nn.LayerNorm(pair_width, device=device)
         # a's gate, a, b's gate, b
-        self.lin_ab = nn.Linear(pair_width, 4 * hidden, bias=False,
+        self.lin_ab = nn.Linear(pair_width, 4 * hidden, bias=bias,
                                 device=device)
-        self.lin_g = nn.Linear(pair_width, pair_width, bias=False,
+        self.lin_g = nn.Linear(pair_width, pair_width, bias=bias,
                                device=device)
         self.ln_out = nn.LayerNorm(hidden, device=device)
-        self.lin_out = nn.Linear(hidden, pair_width, bias=False,
+        self.lin_out = nn.Linear(hidden, pair_width, bias=bias,
                                  device=device)
 
     def forward(self, z: torch.Tensor, pair_mask: torch.Tensor
@@ -79,7 +86,7 @@ class TriangleMultiplication(nn.Module):
 
 class TriangleAttention(nn.Module):
     def __init__(self, pair_width: int, num_heads: int, head_width: int,
-                 starting: bool, device=None):
+                 starting: bool, bias: bool = False, device=None):
         super().__init__()
         self.starting = starting
         self.num_heads, self.head_width = num_heads, head_width
@@ -89,8 +96,8 @@ class TriangleAttention(nn.Module):
                                  device=device)
         self.lin_B = nn.Linear(pair_width, num_heads, bias=False,
                                device=device)
-        self.lin_G = nn.Linear(pair_width, inner, bias=False, device=device)
-        self.lin_O = nn.Linear(inner, pair_width, bias=False, device=device)
+        self.lin_G = nn.Linear(pair_width, inner, bias=bias, device=device)
+        self.lin_O = nn.Linear(inner, pair_width, bias=bias, device=device)
 
     def forward(self, z: torch.Tensor, key_bias: torch.Tensor, *,
                 use_pallas=False) -> torch.Tensor:

@@ -5,7 +5,7 @@ from tgt_torch.schemes.dist_pred import DistPredScheme
 from tgt_torch.schemes.finetune import FinetuneScheme
 from tgt_torch.schemes.gap_pred import GapPredScheme
 from tgt_torch.schemes.pretrain import PretrainScheme
-from tgt_torch.schemes.structure import DistogramScheme
+from tgt_torch.schemes.structure import DistogramScheme, EvoformerScheme
 
 SCHEMES = {
     "pcqm.dist_pred": DistPredScheme,
@@ -13,6 +13,7 @@ SCHEMES = {
     "pcqm.finetune": FinetuneScheme,
     "pcqm.gap_pred": GapPredScheme,
     "structure.distogram": DistogramScheme,
+    "structure.evoformer": EvoformerScheme,
 }
 
 
@@ -24,5 +25,5 @@ def get_scheme(name: str):
 
 __all__ = ["TGTScheme", "default_scheme_config", "DistPredScheme",
            "PretrainScheme", "FinetuneScheme", "GapPredScheme",
-           "DistogramScheme", "SCHEMES",
+           "DistogramScheme", "EvoformerScheme", "SCHEMES",
            "get_scheme"]
